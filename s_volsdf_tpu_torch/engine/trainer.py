@@ -1,0 +1,136 @@
+"""Per-scene VolSDF trainer (counterpart of
+s_volsdf_tpu/engine/trainer.py:41-77, 290-375, 422-443).
+
+The JAX package runs a chunk of steps as one `lax.scan` program; here a
+chunk is a Python loop over eager steps (`make_scan_train_fn`). Not
+ported yet: TensorBoard scalars, plot renders and checkpoints.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from s_volsdf_tpu_torch.config import Config, check_float32
+from s_volsdf_tpu_torch.data.scene_dataset import SceneData
+from s_volsdf_tpu_torch.engine.render import render_depth
+from s_volsdf_tpu_torch.engine.train_step import (Optimizer, TrainState,
+                                                  init_train_state,
+                                                  make_one_step,
+                                                  make_optimizer)
+from s_volsdf_tpu_torch.models.loss import LossOutput
+from s_volsdf_tpu_torch.models.network import init_volsdf_params
+from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
+
+logger = logging.getLogger("s_volsdf_tpu_torch")
+
+
+def make_scan_train_fn(cfg: Config, tx: Optimizer, *, use_mvs: bool,
+                       n_views: int, img_res: Tuple[int, int]):
+    """A function running `n_steps` optimisation steps with on-device
+    pixel sampling; returns the state and each step's LossOutput."""
+    one_step = make_one_step(cfg, tx, use_mvs=use_mvs, n_views=n_views,
+                             img_res=img_res)
+
+    def run_chunk(state: TrainState, n_steps: int, scene: Dict,
+                  mvs: Optional[MVSVolumes], gen: torch.Generator
+                  ) -> Tuple[TrainState, List[LossOutput]]:
+        losses = []
+        for _ in range(n_steps):
+            state, lo = one_step(scene, mvs, state, gen)
+            losses.append(lo)
+        return state, losses
+
+    return run_chunk
+
+
+def _host_losses(lo: LossOutput) -> LossOutput:
+    return LossOutput(*(float(x) for x in lo))
+
+
+class VolTrainer:
+    """Per-scene optimiser on one device."""
+
+    def __init__(self, cfg: Config, scene: SceneData, *, device,
+                 chunk_steps: int = 200):
+        self.cfg = check_float32(cfg)
+        self.scene = scene
+        self.device = torch.device(device)
+        self.chunk_steps = chunk_steps
+        params = init_volsdf_params(torch.Generator().manual_seed(cfg.seed),
+                                    cfg.model, self.device)
+        self.tx = make_optimizer(cfg, params)
+        self.state = init_train_state(cfg, params, self.tx)
+        self.epoch = 0
+        self.trains_i = scene.trains_ids()
+        self.scale_factor = scene.scale_factor
+        self.mvs: Optional[MVSVolumes] = None
+        self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
+        self.losses: List[LossOutput] = []   # every step of the last run
+        self.chunk_seconds: List[float] = []  # each chunk of the last run
+
+    def run(self, opt_stepN: int, log_every: int = 1000) -> int:
+        """Optimise for opt_stepN steps; returns the epoch counter (an
+        epoch is one pass over the training views)."""
+        use_mvs = bool(self.cfg.use_mvs and self.mvs is not None)
+        ti = self.trains_i
+        run_chunk = make_scan_train_fn(self.cfg, self.tx, use_mvs=use_mvs,
+                                       n_views=len(ti),
+                                       img_res=self.scene.img_res)
+        dev = self.device
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+        scene_dev = {
+            "rgb": put(self.scene.rgb[ti]),
+            "rgb_smooth": put(self.scene.rgb_smooth[ti]),
+            "poses": put(self.scene.poses[ti]),
+            "intrinsics": put(self.scene.intrinsics[ti]),
+        }
+        start = self.state.iter_step
+        done = 0
+        self.losses = []
+        self.chunk_seconds = []
+        next_log = log_every
+        while done < opt_stepN:
+            n = min(self.chunk_steps, opt_stepN - done)
+            t0 = time.perf_counter()
+            self.state, losses = run_chunk(self.state, n, scene_dev,
+                                           self.mvs if use_mvs else None,
+                                           self.gen)
+            # Host time of the chunk; every step ends in the guard's
+            # host sync, so this is the device time plus host overhead.
+            self.chunk_seconds.append(time.perf_counter() - t0)
+            self.losses += [_host_losses(lo) for lo in losses]
+            done += n
+            if done >= next_log or done >= opt_stepN:
+                lo = self.losses[-1]
+                logger.info(f"step {start + done}: loss={lo.loss:.4f} "
+                            f"rgb={lo.rgb_loss:.4f} eik={lo.eikonal_loss:.4f} "
+                            f"mvs={lo.mvs_loss:.4f} psnr={lo.psnr:.2f}")
+                next_log += log_every
+        self.epoch += max(1, opt_stepN // max(len(ti), 1))
+        return self.epoch
+
+    def render_mvs(self, view_idx: int, res_scale: float = 1.0,
+                   chunk: int = 16384) -> np.ndarray:
+        """Depth of a training view for cascade feedback: depth *
+        scale_factor, pixels with accumulated weight < 0.2 pushed to the
+        far (largest) depth. res_scale < 1 renders a reduced grid."""
+        H, W = self.scene.img_res
+        out_res = (int(H * res_scale), int(W * res_scale))
+        intr = np.array(self.scene.intrinsics[view_idx], np.float32)
+        intr[0, :] *= res_scale
+        intr[1, :] *= res_scale
+        maps = render_depth(self.state.params, self.cfg.model,
+                            self.scene.poses[view_idx], intr, out_res,
+                            fast=-1, chunk=chunk, device=self.device)
+        depth = maps["depth"] * self.scale_factor
+        far = depth.max()
+        depth = np.where(maps["acc"] < 0.2, far, depth)
+        return depth.astype(np.float32)

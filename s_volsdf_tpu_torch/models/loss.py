@@ -1,0 +1,104 @@
+"""VolSDF training loss: RGB L1 + eikonal + MVS GCE + sparsity with the
+RGB anneal (counterpart of s_volsdf_tpu/models/loss.py:19-156, without
+gate_rescue)."""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional
+
+import torch
+
+from s_volsdf_tpu_torch.config import LossConfig
+
+
+class LossOutput(NamedTuple):
+    loss: torch.Tensor
+    rgb_loss: torch.Tensor
+    eikonal_loss: torch.Tensor
+    mvs_loss: torch.Tensor
+    sparse_loss: torch.Tensor
+    psnr: torch.Tensor
+    # 1.0 when the NaN/Inf guard accepted the update, 0.0 when it
+    # skipped it (set by engine.train_step.guarded_update).
+    grad_finite: Optional[float] = None
+
+
+def _rgb_l1(rgb_values, rgb_gt):
+    return torch.mean(torch.abs(rgb_values - rgb_gt))
+
+
+def _rgb_l1_gated(rgb_values, rgb_gt, pi, pj, t):
+    """L1 against the blurred GT on low-confidence rays only."""
+    confi = torch.sum(pi * pj, dim=-1)
+    per_ray = torch.mean(torch.abs(rgb_values - rgb_gt), dim=-1)
+    return torch.mean(per_ray * (confi < t))
+
+
+def _eikonal(grad_theta):
+    return torch.mean((torch.linalg.norm(grad_theta, dim=1) - 1.0) ** 2)
+
+
+def _mvs_gce(pi, pj, w, gce: float, confi_thresh: float):
+    """Generalised cross-entropy against the MVS probability volume."""
+    pw = pi * pj
+    if gce == 1.0:
+        per_sample = -pw * w
+    elif gce == 0.0:
+        per_sample = -pw * torch.log(w + 1e-8)
+    else:
+        per_sample = -pw * w.detach() ** gce * torch.log(w + 1e-8)
+    per_ray = torch.sum(per_sample, dim=1)
+    gate = (torch.sum(pw, dim=1) > confi_thresh).to(per_ray.dtype)
+    return torch.mean(gate * per_ray)
+
+
+def _sparse(pi, pj, depth, confi_thresh: float):
+    """Penalise small depth on low-confidence rays."""
+    confi = torch.sum(pi * pj, dim=-1)
+    per_ray = 1.0 / (depth.squeeze() + 1e-3)
+    return torch.mean(per_ray * (confi < confi_thresh))
+
+
+def compute_loss(cfg: LossConfig, outputs: Dict, rgb_gt, rgb_smooth,
+                 iter_step: int, *, use_mvs: bool) -> LossOutput:
+    """Total loss. outputs: rgb_values, grad_theta, weights,
+    depth_values and, with use_mvs, pi and pj from cost_mapping.
+    iter_step: the step count (a Python int) that drives the anneal."""
+    if cfg.gate_rescue:
+        raise NotImplementedError("loss.gate_rescue is not ported")
+    rgb_gt = rgb_gt.reshape(-1, 3)
+    rgb_values = outputs["rgb_values"]
+
+    rgb_loss = _rgb_l1(rgb_values, rgb_gt)
+    eik_loss = _eikonal(outputs["grad_theta"])
+
+    zero = torch.zeros((), dtype=rgb_loss.dtype, device=rgb_loss.device)
+    mvs_loss = zero
+    sparse_loss = zero
+    anneal_sparse = zero
+    if use_mvs and cfg.mvs_weight > 0.0:
+        mvs_loss = _mvs_gce(outputs["pi"], outputs["pj"], outputs["weights"],
+                            cfg.gce, cfg.confi)
+
+    anneal_active = (cfg.sparse_weight > 0.0) and (cfg.anneal_rgb > 0)
+    if use_mvs and anneal_active and iter_step < cfg.anneal_rgb:
+        sparse_loss = _sparse(outputs["pi"], outputs["pj"],
+                              outputs["depth_values"], cfg.confi)
+        # Linear 1 -> 0 decay over anneal_rgb steps.
+        t = torch.tensor(iter_step, dtype=torch.float32) / cfg.anneal_rgb
+        anneal_sparse = torch.clamp(1.0 - t, min=0.0).to(rgb_loss.device)
+        # During the anneal the RGB target is the blurred GT, gated to
+        # low-confidence rays.
+        rgb_loss = _rgb_l1_gated(rgb_values, rgb_smooth.reshape(-1, 3),
+                                 outputs["pi"], outputs["pj"], t=1e-8)
+
+    total = (cfg.rgb_weight * rgb_loss
+             + cfg.eikonal_weight * eik_loss
+             + cfg.mvs_weight * mvs_loss
+             + cfg.sparse_weight * anneal_sparse * sparse_loss)
+
+    mse = torch.mean((rgb_values - rgb_gt) ** 2)
+    psnr = -10.0 * torch.log(mse) / math.log(10.0)
+
+    return LossOutput(total, rgb_loss, eik_loss, mvs_loss, sparse_loss, psnr)

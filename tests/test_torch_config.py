@@ -1,0 +1,167 @@
+"""The PyTorch port's configuration and synthetic data against the JAX
+package's, plus the small-size setup the other tests/test_torch_*.py
+files share (they import it from here).
+
+The port carries its own copy of the config dataclasses and of the
+synthetic scene generator (importing `s_volsdf_tpu` imports JAX); these
+tests hold the copies equal: every default field-for-field, every
+generated array bit-for-bit.
+"""
+
+import dataclasses
+import os
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+from s_volsdf_tpu import config as jconfig  # noqa: E402
+from s_volsdf_tpu.data import synthetic as jsynth  # noqa: E402
+from s_volsdf_tpu.models.network import init_volsdf_params  # noqa: E402
+from s_volsdf_tpu.ops.cost_mapping import MVSVolumes as JMVSVolumes  # noqa: E402
+from s_volsdf_tpu_torch import config as tconfig  # noqa: E402
+from s_volsdf_tpu_torch.bridge import from_jax_params  # noqa: E402
+from s_volsdf_tpu_torch.data import synthetic as tsynth  # noqa: E402
+from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes as TMVSVolumes  # noqa: E402
+
+N_RAYS = 16
+IMG_RES = (24, 32)
+VOL = (16, 12, 16)   # D, Hc, Wc
+
+
+def shrink(cfg):
+    """The small size of the port's CPU tests, applied to either config
+    tree (the two share field names): SDF (32,)*4 with skip at 2 and
+    multires 4, radiance (32, 32), feature 32, sampler 24/16/4, 16 rays,
+    and the three float32 knobs."""
+    imp = cfg.model.implicit
+    imp.dims, imp.skip_in, imp.multires = (32,) * 4, (2,), 4
+    cfg.model.rendering.dims = (32, 32)
+    cfg.model.feature_vector_size = 32
+    s = cfg.model.sampler
+    s.N_samples_eval, s.N_samples, s.N_samples_extra = 24, 16, 4
+    cfg.train.num_pixels = N_RAYS
+    cfg.train.train_compute_dtype = "float32"
+    cfg.train.train_activation_dtype = "float32"
+    cfg.train.mvs_pack_dtype = "float32"
+    return cfg
+
+
+def small_configs():
+    """(JAX Config, port Config) at the small size."""
+    return shrink(jconfig.dtu_config()), shrink(tconfig.dtu_config())
+
+
+def params_pair(jcfg, seed=0):
+    """JAX parameters from a PRNGKey and the same values in the port."""
+    jp = init_volsdf_params(jax.random.PRNGKey(seed), jcfg.model)
+    np_params = jax.tree.map(np.asarray, jp)
+    return jp, from_jax_params(np_params)
+
+
+def scene_and_volumes(inverse_depth=False, seed=7):
+    """A 24x32 sphere scene and V=3 informative volumes (D=16, 12x16),
+    as numpy: (scene, prob (V,D,Hc,Wc), z_slab (V,2,Hc,Wc))."""
+    scene = jsynth.make_sphere_scene(3, IMG_RES)
+    D, Hc, Wc = VOL
+    H, W = IMG_RES
+    dvals = np.linspace(0.5, 5.0, D).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    probs, hyps = [], []
+    for v in range(3):
+        Kc = scene.intrinsics[v].copy()
+        Kc[0, :] *= Wc / W
+        Kc[1, :] *= Hc / H
+        prob, hyp = jsynth.gt_prob_volume(
+            scene.poses[v], Kc, (Hc, Wc), dvals, scale_factor=1.0,
+            sigma_intervals=1.0, floor=0.02, inverse_depth=inverse_depth,
+            depth_noise=0.01, rng=rng)
+        probs.append(prob)
+        hyps.append(hyp)
+    prob = np.stack(probs)
+    near, far = hyps[0][0], hyps[0][-1]
+    z_slab = np.stack([np.full((3, Hc, Wc), near, np.float32),
+                       np.full((3, Hc, Wc), far, np.float32)], axis=1)
+    # A ragged slab edge: some pixels with degenerate near/far.
+    z_slab[:, :, :2, :3] = 0.0
+    return scene, prob, z_slab
+
+
+def mvs_pair(scene, prob, z_slab, inverse_depth=False):
+    """The same f32 volumes as JAX MVSVolumes and port MVSVolumes."""
+    jm = JMVSVolumes(prob=jnp.asarray(prob), z_slab=jnp.asarray(z_slab),
+                     intrinsics=jnp.asarray(scene.intrinsics),
+                     c2w=jnp.asarray(scene.poses), img_res=scene.img_res,
+                     inverse_depth=inverse_depth)
+    tm = TMVSVolumes(prob=torch.tensor(prob), z_slab=torch.tensor(z_slab),
+                     intrinsics=torch.tensor(scene.intrinsics),
+                     c2w=torch.tensor(scene.poses), img_res=scene.img_res,
+                     inverse_depth=inverse_depth)
+    return jm, tm
+
+
+def torch_jitter(feed, n_extra):
+    """The port's counterpart of tools/paired_jitter.jitter_batch_entry."""
+    return {
+        "t_rand": torch.tensor(feed["t_rand"]),
+        "u_final": torch.tensor(feed["u_final"]),
+        "extra_idx": torch.tensor(feed["extra_perm"][:n_extra]),
+        "eik_idx": torch.tensor(feed["eik_idx"][:, None]),
+        "eik_pts": torch.tensor(feed["eik_pts"]),
+    }
+
+
+def _port_fields(port_dc, jax_dc, path=""):
+    """(path, port value, JAX value) for every field of the port's
+    dataclass, recursing into nested config dataclasses."""
+    for f in dataclasses.fields(port_dc):
+        pv, jv = getattr(port_dc, f.name), getattr(jax_dc, f.name)
+        if dataclasses.is_dataclass(pv):
+            yield from _port_fields(pv, jv, f"{path}{f.name}.")
+        else:
+            yield f"{path}{f.name}", pv, jv
+
+
+def test_config_defaults_match_jax():
+    """Every field the port's dtu preset carries has the JAX default."""
+    pairs = list(_port_fields(tconfig.dtu_config(), jconfig.dtu_config()))
+    assert len(pairs) > 40
+    diff = [(p, a, b) for p, a, b in pairs if a != b]
+    assert not diff, diff
+
+
+@pytest.mark.parametrize("knob", ["train_compute_dtype",
+                                  "train_activation_dtype", "mvs_pack_dtype"])
+def test_bf16_knobs_raise(knob):
+    """The bf16 knobs are refused, not ignored."""
+    _, cfg = small_configs()
+    tconfig.check_float32(cfg)
+    setattr(cfg.train, knob, "bfloat16")
+    with pytest.raises(NotImplementedError, match=knob):
+        tconfig.check_float32(cfg)
+
+
+def test_sphere_scene_bit_equal():
+    a = jsynth.make_sphere_scene(3, (20, 28))
+    b = tsynth.make_sphere_scene(3, (20, 28))
+    for name in ("intrinsics", "poses", "images", "depths"):
+        np.testing.assert_array_equal(getattr(a, name), getattr(b, name))
+    assert a.img_res == b.img_res
+
+
+@pytest.mark.parametrize("inverse_depth", [False, True])
+def test_gt_prob_volume_bit_equal(inverse_depth):
+    scene = jsynth.make_sphere_scene(2, (20, 28))
+    dvals = np.linspace(0.5, 5.0, 12).astype(np.float32)
+    args = (scene.poses[1], scene.intrinsics[1], (20, 28), dvals, 1.0)
+    kw = dict(sigma_intervals=1.0, floor=0.02, inverse_depth=inverse_depth,
+              depth_noise=0.01)
+    pa, ha = jsynth.gt_prob_volume(*args, rng=np.random.default_rng(3), **kw)
+    pb, hb = tsynth.gt_prob_volume(*args, rng=np.random.default_rng(3), **kw)
+    np.testing.assert_array_equal(pa, pb)
+    np.testing.assert_array_equal(ha, hb)

@@ -1,0 +1,80 @@
+"""The port's CUDA kernel against its plain PyTorch version, on the card.
+
+Every test here needs an NVIDIA GPU and nvcc; without them it skips with
+the reason. On a machine with a card:
+
+    python -m pytest tests/test_torch_cuda.py -q -m cuda
+
+This file imports no JAX (the card's machine need not have it).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from s_volsdf_tpu_torch import config as tconfig
+from s_volsdf_tpu_torch.models.network import init_volsdf_params
+from s_volsdf_tpu_torch.ops import fused_sdf
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the fused SDF kernel has no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("n", [700, 65536])
+def test_kernel_matches_plain(cuda, n):
+    """Full dtu width. Tolerance 1e-4: float32 sums in another order
+    across 9 layers."""
+    cfg = tconfig.dtu_config()
+    params = init_volsdf_params(torch.Generator().manual_seed(0), cfg.model,
+                                cuda)
+    pts = torch.tensor(np.random.default_rng(1).normal(size=(n, 3)),
+                       dtype=torch.float32, device=cuda)
+    before = fused_sdf.fused_sdf_values.launches
+    got = fused_sdf.fused_sdf_values(params.sdf, cfg.model, pts, 3.0)
+    torch.cuda.synchronize()
+    assert fused_sdf.fused_sdf_values.launches == before + 1
+    ref = fused_sdf.sdf_values_plain(params.sdf, cfg.model, pts, 3.0)
+    assert got.shape == (n,)
+    assert torch.max(torch.abs(got - ref)).item() <= 1e-4
+
+
+@pytest.mark.parametrize("dims,skip_in,multires,bounding_sphere", [
+    ((32,) * 4, (2,), 4, 3.0),      # the CPU tests' small size
+    ((64,) * 3, (), 2, 0.0),        # no skip junction, no clamp
+    ((102,) * 5, (3,), 10, 3.0),    # widths that are not multiples of 4
+])
+def test_kernel_family_matches_plain(cuda, dims, skip_in, multires,
+                                     bounding_sphere):
+    """Other members of the family `supported` names: the padding of
+    odd widths, the skip junction's placement, the clamp switched off."""
+    cfg = tconfig.dtu_config()
+    imp = cfg.model.implicit
+    imp.dims, imp.skip_in, imp.multires = dims, skip_in, multires
+    cfg.model.feature_vector_size = 16
+    assert fused_sdf.supported(cfg.model)
+    params = init_volsdf_params(torch.Generator().manual_seed(1), cfg.model,
+                                cuda)
+    pts = torch.tensor(np.random.default_rng(2).normal(size=(1000, 3)),
+                       dtype=torch.float32, device=cuda)
+    got = fused_sdf.fused_sdf_values(params.sdf, cfg.model, pts,
+                                     bounding_sphere)
+    ref = fused_sdf.sdf_values_plain(params.sdf, cfg.model, pts,
+                                     bounding_sphere)
+    assert torch.max(torch.abs(got - ref)).item() <= 1e-4
+
+
+def test_unsupported_config_raises(cuda):
+    cfg = tconfig.dtu_config()
+    params = init_volsdf_params(torch.Generator().manual_seed(0), cfg.model,
+                                cuda)
+    cfg.model.implicit.skip_in = (2, 4)
+    pts = torch.zeros((64, 3), device=cuda)
+    with pytest.raises(ValueError, match="family"):
+        fused_sdf.fused_sdf_values(params.sdf, cfg.model, pts, 3.0)
