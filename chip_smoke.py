@@ -14,7 +14,17 @@ checks it, in phases that print in order:
   5. feedback render: render_mvs of view 0 at quarter resolution
      (144x192, fast=-1, chunk 16,384), and a 6x8-pixel render on the card
      against the same render on the CPU's plain path;
-  6. a JSON line with the kernel's numbers, the card's name and power
+  6. cascade: `save_scene_depth` on a 576x768 DTU-layout fixture (scan106)
+     at x2 MVS resolution (1152x1536), D = 192/32/8, the full casmvsnet
+     and dtu VolSDF widths: stage 0, 20 VolSDF steps regularised by its
+     volumes, the three 576x768 feedback renders (fused SDF kernel),
+     stages 1 and 2 on the fed-back depth, the PFMs and cam files; the
+     three stages of the run's first view recomputed on the CPU from the
+     same inputs and bridged weights, against the card's; then the three
+     stages of one view at 64x96 on the card against the CPU. Prints
+     each stage's seconds and peak memory, the render seconds per view,
+     the step median;
+  7. a JSON line with the kernel's numbers, the card's name and power
      limit, and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -23,23 +33,33 @@ from seed 0. The matmul and cuDNN TF32 paths are switched off: the
 plain version is the float32 reference.
 
 The helpers `float32_dtu_config`, `make_volumes` and `make_trainer` are
-shared with the CPU test of the same loop (tests/test_torch_trainer.py).
+shared with the CPU test of the same loop (tests/test_torch_trainer.py),
+`cascade_config` and `cascade_card_vs_cpu` with tests/test_torch_cuda.py.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from typing import Dict
 
 import numpy as np
 import torch
 
+from s_volsdf_tpu_torch.bridge import from_jax_mvs_params, to_jax_mvs_params
 from s_volsdf_tpu_torch.config import Config, dtu_config
+from s_volsdf_tpu_torch.data.fixtures import make_dtu_fixture
+from s_volsdf_tpu_torch.data.io import read_pfm
+from s_volsdf_tpu_torch.data.mvs_dataset import MVSDataset
 from s_volsdf_tpu_torch.data.scene_dataset import scene_from_synthetic
+from s_volsdf_tpu_torch.data.splits import get_trains_ids
 from s_volsdf_tpu_torch.data.synthetic import gt_prob_volume, make_sphere_scene
 from s_volsdf_tpu_torch.engine.render import render_depth
+from s_volsdf_tpu_torch.engine.runner import MVSEngine, save_scene_depth
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer
 from s_volsdf_tpu_torch.models.network import init_volsdf_params
 from s_volsdf_tpu_torch.ops import fused_sdf
@@ -48,15 +68,27 @@ from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
 KERNEL_TOL = 1e-4     # f32 sums in another order across 9 layers
 RENDER_TOL = 2e-4     # the VolSDF render bar (README "Verified parity")
 TRAIN_STEPS = 20
+CASCADE_RES = (576, 768)            # the dtu images
+CASCADE_X2, CASCADE_MVS_RES = True, (1152, 1536)   # x2_mvsres
+CASCADE_NDEPTHS = (192, 32, 8)
+SMALL_RES, SMALL_NDEPTHS = (64, 96), (16, 8, 8)
+PROB_SUM_TOL = 1e-4   # every prob_volume sums to 1 along depth
+# Card against CPU: cuDNN's float32 convs sum in another order than the
+# CPU's, through the 3D UNet and a softmax.
+PROB_TOL = 1e-4
+DEPTH_RTOL = 1e-5
+SCAN = "scan106"
 
 
 def float32_dtu_config() -> Config:
-    """The dtu preset with the three training precision knobs at float32
-    (the JAX defaults are bf16, which the port refuses)."""
+    """The dtu preset with the three training precision knobs and the
+    cascade's at float32 (the JAX defaults are bf16, which the port
+    refuses)."""
     cfg = dtu_config()
     cfg.train.train_compute_dtype = "float32"
     cfg.train.train_activation_dtype = "float32"
     cfg.train.mvs_pack_dtype = "float32"
+    cfg.mvs.compute_dtype = "float32"
     return cfg
 
 
@@ -97,6 +129,193 @@ def make_trainer(cfg: Config, img_res, vol_shape, device) -> VolTrainer:
                          chunk_steps=1)
     trainer.mvs = make_volumes(scene, vol_shape, device)
     return trainer
+
+
+def cascade_config(data_root: str, img_res, ndepths, x2_mvsres: bool,
+                   opt_stepNs) -> Config:
+    """The float32 dtu preset reading the DTU-layout fixture under
+    data_root at img_res, with the cascade's hypothesis counts."""
+    cfg = float32_dtu_config()
+    cfg.data_dir_root = cfg.dataset.data_dir_root = data_root
+    cfg.max_h, cfg.max_w = img_res
+    cfg.dataset.img_res = tuple(img_res)
+    cfg.mvs.ndepths, cfg.mvs.numdepth = tuple(ndepths), ndepths[0]
+    cfg.mvs.x2_mvsres = x2_mvsres
+    cfg.mvs.interval_scale = 1.06
+    cfg.opt_stepNs = tuple(opt_stepNs)
+    return cfg
+
+
+def stages_against_cpu(card: MVSEngine, sample, card_outs) -> Dict[str, float]:
+    """Recompute the three cascade stages of one MVS sample on the CPU,
+    with the card engine's weights (through the bridge), from the inputs
+    the card's stages had: the sample's images, and for stages 1 and 2
+    the depth the card's previous stage handed on (`card_outs[k - 1]
+    ["depth"]`, on the host; after a stage with an optimisation budget,
+    the VolSDF feedback render). The CPU computes its own features.
+    Returns the largest |prob_volume| difference and the largest relative
+    difference of the regressed depth sum(prob * hypotheses) over the
+    stages, and the CPU's seconds."""
+    cfg = card.cfg
+    cpu = MVSEngine(cfg, device="cpu")
+    cpu.net = from_jax_mvs_params(to_jax_mvs_params(card.net),
+                                  cfg.mvs.ndepths, cfg.mvs.cr_base_chs,
+                                  device="cpu")
+    t0 = time.perf_counter()
+    feats = cpu.scene_feature_cache(sample.imgs)["feats"]
+    hw = sample.imgs.shape[1:3]
+    prob_err = depth_err = 0.0
+    for stage, got in enumerate(card_outs):
+        want = cpu.stage(stage, feats,
+                         sample.proj_matrices[f"stage{stage + 1}"],
+                         sample.depth_values,
+                         None if stage == 0 else card_outs[stage - 1]["depth"],
+                         hw, inverse_depth=cfg.inverse_depth and stage == 0)
+        pv, dv = got["prob_volume"].cpu(), got["depth_values"].cpu()
+        prob_err = max(prob_err,
+                       (pv - want["prob_volume"]).abs().max().item())
+        want_depth = (want["prob_volume"] * want["depth_values"]).sum(0)
+        depth_err = max(depth_err, ((pv * dv).sum(0) - want_depth).abs()
+                        .div(want_depth.abs()).max().item())
+        del want, pv, dv
+    return {"prob": prob_err, "depth_rel": depth_err,
+            "cpu_s": time.perf_counter() - t0}
+
+
+def cascade_card_vs_cpu(device, data_root: str) -> Dict[str, float]:
+    """The three cascade stages of the first reference view of a 64x96
+    fixture (written under data_root if absent), x2_mvsres off, D =
+    16/8/8, chained on `device`, then held against the CPU
+    (`stages_against_cpu`)."""
+    if not os.path.isdir(os.path.join(data_root, "DTU")):
+        make_dtu_fixture(data_root, img_res=SMALL_RES)
+    cfg = cascade_config(data_root, SMALL_RES, SMALL_NDEPTHS, False,
+                         (0, 0, 0))
+    sample = MVSDataset(
+        datapath=os.path.join(data_root, "DTU", "mvs_data"), scan=SCAN,
+        nviews=cfg.num_view, data_dir="DTU", ndepths=cfg.mvs.numdepth,
+        interval_scale=cfg.mvs.interval_scale, max_h=cfg.max_h,
+        max_w=cfg.max_w, trains_i=get_trains_ids("DTU", SCAN, cfg.num_view),
+        data_dir_root=data_root, x2_mvsres=False)[0]
+    card = MVSEngine(cfg, device=device)
+    feats = card.scene_feature_cache(sample.imgs)["feats"]
+    outs, prev = [], None
+    for stage in range(3):
+        out = card.stage(stage, feats, sample.proj_matrices[f"stage{stage + 1}"],
+                         sample.depth_values, prev, sample.imgs.shape[1:3],
+                         inverse_depth=False)
+        prev = out["depth"] = out["depth"].cpu().numpy()
+        outs.append(out)
+    return stages_against_cpu(card, sample, outs)
+
+
+def _check_stage(out: Dict, stage: int, shape) -> None:
+    """A stage's volumes have the stage's shape, sum to 1 along depth,
+    and regress a finite depth inside the pixel's hypothesis range. A
+    softmax over depth implies the last two wherever it is finite, so
+    this guards shapes and NaNs; `stages_against_cpu` is the check of
+    the values."""
+    pv, dv = out["prob_volume"], out["depth_values"]
+    _check(tuple(pv.shape) == tuple(dv.shape) == tuple(shape),
+           f"stage {stage}: prob {tuple(pv.shape)} depth_values "
+           f"{tuple(dv.shape)}, want {shape}")
+    err = (pv.sum(0) - 1.0).abs().max().item()
+    _check(err <= PROB_SUM_TOL, f"stage {stage}: prob sums off by {err}")
+    # Stage 0's own depth is overwritten by the feedback render: take the
+    # regression again from its volumes.
+    depth = (pv * dv).sum(0)
+    lo, hi = dv.min(0).values, dv.max(0).values
+    slack = 1e-5 * hi.abs().max()
+    _check(bool(torch.isfinite(depth).all()), f"stage {stage}: finite depth")
+    _check(bool(((depth >= lo - slack) & (depth <= hi + slack)).all()),
+           f"stage {stage}: depth outside the hypothesis range")
+
+
+def run_cascade(dev, card: str, tmp: str) -> int:
+    """Phase 6's full-width run (see the module docstring); returns the
+    fused SDF kernel's launches in it."""
+    data_root = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    make_dtu_fixture(data_root, img_res=CASCADE_RES)
+    print(f"[cascade] {CASCADE_RES[0]}x{CASCADE_RES[1]} DTU fixture written "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    cfg = cascade_config(data_root, CASCADE_RES, CASCADE_NDEPTHS, CASCADE_X2,
+                         (TRAIN_STEPS, 0, 0))
+    engine = MVSEngine(cfg, device=dev)
+    fused_sdf.fused_sdf_values.launches = 0     # the cascade path starts
+    t0 = time.perf_counter()
+    res = save_scene_depth(cfg, SCAN, exps_root=tmp, engine=engine)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches = fused_sdf.fused_sdf_values.launches   # ... and ends here
+    trainer = res["trainer"]
+
+    losses = [lo.loss for lo in trainer.losses]
+    _check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+           f"cascade: finite losses: {losses}")
+    _check(len(res["feedback_launches"]) == 3
+           and all(n > 0 for n in res["feedback_launches"]),
+           f"fused SDF launches per feedback render: "
+           f"{res['feedback_launches']}")
+    H2, W2 = CASCADE_MVS_RES
+    for out in res["outs"]:
+        for stage, scale in enumerate((4, 2, 1)):
+            _check_stage(out[f"stage{stage + 1}"], stage,
+                         (CASCADE_NDEPTHS[stage], H2 // scale, W2 // scale))
+    for vid in trainer.trains_i:
+        for kind, suffix in (("depth_est", ".pfm"), ("confidence", ".pfm"),
+                             ("cams", "_cam.txt")):
+            path = os.path.join(res["outdir"], SCAN, kind,
+                                f"{vid:08d}{suffix}")
+            _check(os.path.isfile(path), f"missing {path}")
+            if suffix == ".pfm":
+                arr, _ = read_pfm(path)
+                _check(arr.shape == (H2, W2) and np.isfinite(arr).all(),
+                       f"{path}: shape {arr.shape}, finite "
+                       f"{np.isfinite(arr).all()}")
+
+    print(f"[cascade] save_scene_depth {SCAN}, MVS {H2}x{W2}, D "
+          f"{'/'.join(map(str, CASCADE_NDEPTHS))}, {TRAIN_STEPS} steps: "
+          f"{total_s:.2f} s [{card}]", flush=True)
+    for stage, (s, peak) in enumerate(zip(res["stage_seconds"],
+                                          res["stage_peak_bytes"])):
+        print(f"[cascade] stage {stage}: {s:.3f} s for 3 views, peak "
+              f"allocated {peak / 2**30:.2f} GiB [{card}]", flush=True)
+    step_ms = 1e3 * float(np.median(trainer.step_seconds))
+    mvs_losses = [lo.mvs_loss for lo in trainer.losses]
+    print(f"[cascade] {TRAIN_STEPS} steps on stage 0's volumes: loss "
+          f"{losses[0]:.5f} -> {losses[-1]:.5f}, mvs loss {mvs_losses[0]:.5f}"
+          f" -> {mvs_losses[-1]:.5f}, median {step_ms:.2f} ms/step [{card}]",
+          flush=True)
+    print(f"[cascade] feedback renders {CASCADE_RES[0]}x{CASCADE_RES[1]}: "
+          + ", ".join(f"{s:.3f} s" for s in res["feedback_seconds"])
+          + f"; fused SDF launches {res['feedback_launches']} [{card}]",
+          flush=True)
+
+    # The main path's own stages of the first view, at full width,
+    # against the CPU.
+    errs = stages_against_cpu(engine, res["samples"][0],
+                              [res["outs"][0][f"stage{k + 1}"]
+                               for k in range(3)])
+    _check(errs["prob"] <= PROB_TOL and errs["depth_rel"] <= DEPTH_RTOL,
+           f"full-width cascade card vs CPU: {errs} (tol prob {PROB_TOL}, "
+           f"depth rel {DEPTH_RTOL})")
+    print(f"[cascade] 3 stages of view {res['samples'][0].view_ids[0]} at "
+          f"{H2}x{W2}, D "
+          f"{'/'.join(map(str, CASCADE_NDEPTHS))}, card vs CPU: prob "
+          f"max|diff| {errs['prob']:.3e} (tol {PROB_TOL}), depth max rel "
+          f"diff {errs['depth_rel']:.3e} (tol {DEPTH_RTOL}); CPU "
+          f"{errs['cpu_s']:.2f} s", flush=True)
+
+    errs = cascade_card_vs_cpu(dev, os.path.join(tmp, "small"))
+    _check(errs["prob"] <= PROB_TOL and errs["depth_rel"] <= DEPTH_RTOL,
+           f"cascade card vs CPU: {errs} (tol prob {PROB_TOL}, depth "
+           f"rel {DEPTH_RTOL})")
+    print(f"[cascade] 3 stages at {SMALL_RES[0]}x{SMALL_RES[1]}, D "
+          f"{'/'.join(map(str, SMALL_NDEPTHS))}, card vs CPU: prob max|diff| "
+          f"{errs['prob']:.3e} (tol {PROB_TOL}), depth max rel diff "
+          f"{errs['depth_rel']:.3e} (tol {DEPTH_RTOL})", flush=True)
+    return launches
 
 
 def _median_ms(fn, reps: int = 20) -> float:
@@ -225,14 +444,21 @@ def main() -> None:
            f"6x8 render, card vs CPU plain: {ref_err} > {RENDER_TOL}")
     print(f"[render] 6x8 render card vs CPU plain path: max|diff| "
           f"{ref_err:.3e} (tol {RENDER_TOL})", flush=True)
+    del trainer
 
-    # 6. Results.
+    # 6. The cascade and the scene runner.
+    with tempfile.TemporaryDirectory() as tmp:
+        cascade_launches = run_cascade(dev, card, tmp)
+    print(f"[cascade] fused SDF launches: {launches} on the training and "
+          f"render path, {cascade_launches} on the cascade path", flush=True)
+
+    # 7. Results.
     print(json.dumps({"kernels": [{
         "name": "fused_sdf",
         "route": "cuda",
         "source": "s_volsdf_tpu_torch/csrc/fused_sdf.cu",
         "replaces": "s_volsdf_tpu/ops/pallas/fused_sdf.py:116",
-        "launches": launches,
+        "launches": launches + cascade_launches,
         "max_abs_err": max(errs.values()),
         "ms": kernel_ms,
         "plain_ms": plain_ms,

@@ -4,12 +4,24 @@ The JAX VolSDF parameters are the pytree
 {"sdf": [{"v", "g", "b"} | {"w", "b"}, ...], "rgb": [...],
  "density": {"beta"}}; the port's `VolSDFParams` keeps the same leaves in
 the same layouts ((in, out) weights), so the conversion is one to one
-and exact. Both functions take and give numpy arrays; neither imports
-JAX.
+and exact.
+
+The JAX CasMVSNet parameters are {"feature": {...}, "cost_reg": [...]},
+each conv a {"w", "b"?, "bn"?: {"scale", "bias", "mean", "var"}} leaf
+dict with HWIO / DHWIO kernels; the transposed convs' kernels are
+stored flipped, for an input-dilated conv. `from_jax_mvs_params` and
+`to_jax_mvs_params` transpose them to OIHW / OIDHW, flip the transposed
+convs back into `ConvTranspose3d`'s (I, O, kD, kH, kW), and map BN onto
+weight / bias / running_mean / running_var; both directions are exact.
+`load_mvs_checkpoint` reads a converted checkpoint (tools/convert_ckpt.py
+writes one: `state.npz` of the pytree's leaves in JAX's flatten order).
+
+All functions take and give numpy arrays; none imports JAX.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict, List
 
 import numpy as np
@@ -18,6 +30,8 @@ from torch import nn
 
 from s_volsdf_tpu_torch.models.density import LaplaceDensity
 from s_volsdf_tpu_torch.models.layers import Linear, WeightNormLinear
+from s_volsdf_tpu_torch.models.mvs.blocks import ConvBnReLU
+from s_volsdf_tpu_torch.models.mvs.casmvsnet import CasMVSNet
 from s_volsdf_tpu_torch.models.network import VolSDFParams
 
 
@@ -59,3 +73,141 @@ def to_jax_params(params: VolSDFParams) -> Dict:
         "rgb": _mlp_to(params.rgb),
         "density": {"beta": params.density.beta.detach().cpu().numpy().copy()},
     }
+
+
+# --------------------------------------------------------------------------
+# CasMVSNet
+# --------------------------------------------------------------------------
+
+_CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)
+_TORCH_NAME = {"cost_reg": "cost_regularization"}
+_JAX_NAME = {v: k for k, v in _TORCH_NAME.items()}
+
+
+def _kernel_from_jax(conv: nn.Module, w: np.ndarray) -> np.ndarray:
+    if isinstance(conv, nn.ConvTranspose3d):
+        # Flipped DHWIO -> (I, O, kD, kH, kW).
+        return np.flip(w, (0, 1, 2)).transpose(3, 4, 0, 1, 2)
+    if w.ndim == 4:
+        return w.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+    return w.transpose(4, 3, 0, 1, 2)           # DHWIO -> OIDHW
+
+
+def _kernel_to_jax(conv: nn.Module, w: np.ndarray) -> np.ndarray:
+    if isinstance(conv, nn.ConvTranspose3d):
+        return np.flip(w.transpose(2, 3, 4, 0, 1), (0, 1, 2))
+    if w.ndim == 4:
+        return w.transpose(2, 3, 1, 0)
+    return w.transpose(2, 3, 4, 1, 0)
+
+
+def _split(mod: nn.Module):
+    """(conv, bn or None) of a block or a plain conv."""
+    if isinstance(mod, ConvBnReLU):
+        return mod.conv, mod.bn
+    return mod, None
+
+
+@torch.no_grad()
+def load_conv(mod: nn.Module, p: Dict) -> None:
+    """Load one JAX conv leaf {"w", "b"?, "bn"?} into a block or a plain
+    conv, in place."""
+    conv, bn = _split(mod)
+    if ("b" in p) != (conv.bias is not None) or ("bn" in p) != (bn is not None):
+        raise ValueError(f"conv leaf {sorted(p)} does not match {mod}")
+    w = np.ascontiguousarray(
+        _kernel_from_jax(conv, np.asarray(p["w"], np.float32)))
+    if tuple(w.shape) != tuple(conv.weight.shape):
+        raise ValueError(f"kernel {w.shape} vs {tuple(conv.weight.shape)}")
+    dev = conv.weight.device
+    conv.weight.copy_(_tensor(w, dev))
+    if "b" in p:
+        conv.bias.copy_(_tensor(p["b"], dev))
+    if "bn" in p:
+        q = p["bn"]
+        bn.weight.copy_(_tensor(q["scale"], dev))
+        bn.bias.copy_(_tensor(q["bias"], dev))
+        bn.running_mean.copy_(_tensor(q["mean"], dev))
+        bn.running_var.copy_(_tensor(q["var"], dev))
+
+
+def _load_tree(mod: nn.Module, tree) -> None:
+    if isinstance(tree, list):
+        if len(tree) != len(mod):
+            raise ValueError(f"{len(tree)} entries for {len(mod)} modules")
+        for m, t in zip(mod, tree):
+            _load_tree(m, t)
+    elif "w" in tree:
+        load_conv(mod, tree)
+    else:
+        for k, t in tree.items():
+            _load_tree(getattr(mod, _TORCH_NAME.get(k, k)), t)
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy().copy()
+
+
+def _conv_to(mod: nn.Module) -> Dict:
+    conv, bn = _split(mod)
+    p = {"w": np.ascontiguousarray(_kernel_to_jax(conv, _np(conv.weight)))}
+    if conv.bias is not None:
+        p["b"] = _np(conv.bias)
+    if bn is not None:
+        p["bn"] = {"scale": _np(bn.weight), "bias": _np(bn.bias),
+                   "mean": _np(bn.running_mean), "var": _np(bn.running_var)}
+    return p
+
+
+def _tree_to(mod: nn.Module):
+    if isinstance(mod, (ConvBnReLU,) + _CONVS):
+        return _conv_to(mod)
+    if isinstance(mod, (nn.Sequential, nn.ModuleList)):
+        return [_tree_to(m) for m in mod]
+    return {_JAX_NAME.get(k, k): _tree_to(m) for k, m in mod.named_children()}
+
+
+def from_jax_mvs_params(np_params: Dict, ndepths=(192, 32, 8),
+                        cr_base_chs=(8, 8, 8), device=None) -> CasMVSNet:
+    """The JAX CasMVSNet pytree of numpy arrays -> a frozen CasMVSNet."""
+    base = np.asarray(np_params["feature"]["conv0"][0]["w"]).shape[-1]
+    net = CasMVSNet(ndepths, base, cr_base_chs).to(device)
+    _load_tree(net, np_params)
+    return net.eval().requires_grad_(False)
+
+
+def to_jax_mvs_params(net: CasMVSNet) -> Dict:
+    """CasMVSNet -> the JAX pytree, as numpy arrays."""
+    return _tree_to(net)
+
+
+def _leaf_slots(tree, out: List) -> List:
+    """(container, key) of every leaf in JAX's flatten order: dict keys
+    sorted, lists in order."""
+    items = sorted(tree.items()) if isinstance(tree, dict) \
+        else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            _leaf_slots(v, out)
+        else:
+            out.append((tree, k))
+    return out
+
+
+def load_mvs_checkpoint(net: CasMVSNet, path: str) -> CasMVSNet:
+    """Load a converted checkpoint directory (`state.npz` with leaves
+    `leaf_<i>` in JAX's flatten order of the pytree) into `net`."""
+    tree = to_jax_mvs_params(net)
+    slots = _leaf_slots(tree, [])
+    with np.load(os.path.join(path, "state.npz")) as data:
+        if len(data.files) != len(slots):
+            raise ValueError(f"{path}: {len(data.files)} leaves, the "
+                             f"network has {len(slots)}")
+        for i, (container, key) in enumerate(slots):
+            leaf = data[f"leaf_{i}"]
+            if leaf.shape != container[key].shape:
+                raise ValueError(f"{path}: leaf_{i} {leaf.shape} vs "
+                                 f"{container[key].shape}")
+            container[key] = leaf
+    _load_tree(net, tree)
+    return net

@@ -8,11 +8,14 @@ must run without it.
 
 The port runs float32 only: `check_float32` raises on the bf16 knobs
 instead of ignoring them (their JAX defaults are bf16, so callers set
-the three `train.*_dtype` knobs to "float32").
+the three `train.*_dtype` knobs and `mvs.compute_dtype` to "float32").
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
+import os
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -98,14 +101,60 @@ class TrainConfig:
 
 
 @dataclass(unsafe_hash=True)
+class DatasetConfig:
+    data_dir: str = "DTU"          # 'DTU' | 'BlendedMVS'
+    img_res: Tuple[int, int] = (576, 768)
+    scan_id: int = 114
+    num_views: int = 3
+    data_dir_root: str = "data_s_volsdf"
+
+
+@dataclass(unsafe_hash=True)
+class MVSConfig:
+    model_name: str = "casmvsnet"  # only casmvsnet is ported
+    ndepths: Tuple[int, ...] = (192, 32, 8)
+    depth_inter_r: Tuple[float, ...] = (1.0, 0.5, 0.5)
+    numdepth: int = 192
+    interval_scale: float = 1.06
+    share_cr: bool = False
+    cr_base_chs: Tuple[int, ...] = (8, 8, 8)
+    grad_method: str = "detach"
+    x2_mvsres: bool = True         # upscale images x2 for MVS
+    fea_base_channels: int = 8
+    compute_dtype: str = "bfloat16"
+
+
+@dataclass(unsafe_hash=True)
+class FilterConfig:
+    """Point-cloud fusion knobs (fusion is not ported yet)."""
+    conf: float = 0.0
+    filter_dist: float = 1.0
+    filter_diff: float = 0.01
+    thres_view: int = 1
+    eval_mask: bool = True
+
+
+@dataclass(unsafe_hash=True)
 class Config:
+    num_view: int = 3
+    testlist: str = "scan106"
+    outdir: str = "exps_mvs"
+    exps_folder: str = "exps_vsdf"
+    data_dir_root: str = "data_s_volsdf"
     max_h: int = 576
     max_w: int = 768
     use_mvs: bool = True
+    opt_stepNs: Tuple[int, ...] = (100000, 0, 0)
+    use_nerf_d: Tuple[int, ...] = (1, 0, 0)
+    inverse_depth: bool = False
+    ablate: bool = False
     seed: int = 0
+    mvs: MVSConfig = field(default_factory=MVSConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    filter: FilterConfig = field(default_factory=FilterConfig)
 
 
 def dtu_config() -> Config:
@@ -114,6 +163,61 @@ def dtu_config() -> Config:
     cfg = Config()
     cfg.train.num_pixels = 512
     return cfg
+
+
+def per_scene_overrides(cfg: Config, scene: str) -> Config:
+    """Per-scan tweaks (counterpart of s_volsdf_tpu/config.py:309-323)."""
+    cfg = dataclasses.replace(cfg)  # shallow copy of top level
+    cfg.loss = dataclasses.replace(cfg.loss)
+    if cfg.dataset.data_dir == "DTU":
+        if scene == "scan37":
+            cfg.loss.sparse_weight = 0.1
+        elif scene == "scan24":
+            cfg.loss.sparse_weight = 0.0
+    elif cfg.dataset.data_dir == "BlendedMVS":
+        if scene in ("scan2", "scan3", "scan7", "scan9"):
+            cfg.loss.sparse_weight = 0.0
+        if scene in ("scan1", "scan2", "scan5", "scan6", "scan8", "scan9"):
+            cfg.inverse_depth = True
+    return cfg
+
+
+def _require(ok: bool, what: str) -> None:
+    if not ok:
+        raise ValueError(what)
+
+
+def validate_config(cfg: Config) -> Config:
+    """The invariants of s_volsdf_tpu/config.py:400-415 that the cascade
+    and the trainer rely on; raises ValueError."""
+    _require(cfg.dataset.data_dir in ("DTU", "BlendedMVS"),
+             f"dataset.data_dir={cfg.dataset.data_dir!r}")
+    _require(len(cfg.mvs.ndepths) == len(cfg.mvs.depth_inter_r) == 3,
+             "mvs.ndepths and mvs.depth_inter_r need 3 stages")
+    _require(len(cfg.opt_stepNs) == 3 and len(cfg.use_nerf_d) == 3,
+             "opt_stepNs and use_nerf_d need 3 stages")
+    _require(cfg.mvs.numdepth == cfg.mvs.ndepths[0],
+             "numdepth must match stage-1 hypothesis count")
+    if cfg.dataset.data_dir == "BlendedMVS":
+        _require(cfg.mvs.interval_scale == 1.0,
+                 "BlendedMVS requires interval_scale=1")
+    for d in cfg.mvs.ndepths:
+        _require(d % 8 == 0, f"ndepths must be multiples of 8 (3-level "
+                 f"cost UNet), got {d}")
+    H, W = cfg.dataset.img_res
+    _require((cfg.max_h, cfg.max_w) == (H, W),
+             "max_h/max_w must equal dataset.img_res")
+    _require(H % 32 == 0 and W % 32 == 0,
+             "img_res must be multiples of 32 for the MVS pyramids")
+    return cfg
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Snapshot the config as JSON, which YAML readers also parse (the
+    JAX package writes the same file name with PyYAML)."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(dataclasses.asdict(cfg), f, indent=1)
 
 
 def _require_float32(section, prefix: str, names) -> None:
@@ -133,12 +237,20 @@ def check_model_float32(mcfg: ModelConfig) -> ModelConfig:
     return mcfg
 
 
+def check_mvs_float32(mcfg: MVSConfig) -> MVSConfig:
+    """Raise on bf16 cascade convs (the JAX default)."""
+    _require_float32(mcfg, "mvs", ("compute_dtype",))
+    return mcfg
+
+
 def check_float32(cfg: Config) -> Config:
     """Raise on what the port does not implement: any precision knob
-    other than "float32", the BMVS background model and gate rescue."""
+    other than "float32" (the cascade's included), the BMVS background
+    model and gate rescue."""
     _require_float32(cfg.train, "train", (
         "train_compute_dtype", "train_activation_dtype", "mvs_pack_dtype",
         "feedback_render_dtype"))
+    check_mvs_float32(cfg.mvs)
     check_model_float32(cfg.model)
     if cfg.loss.gate_rescue:
         raise NotImplementedError("loss.gate_rescue is not ported")

@@ -1,29 +1,47 @@
-"""The scene fields that per-scene training reads (the subset of
-s_volsdf_tpu/data/scene_dataset.py:SceneData that the port uses)."""
+"""The scene that per-scene training reads, and the IDR-format loader
+(counterpart of s_volsdf_tpu/data/scene_dataset.py:32-183, without the
+NVS eval masks).
+
+Host-side numpy: images and cameras are loaded once; the trainer moves
+the training views to the device.
+"""
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
+from s_volsdf_tpu_torch.data.io import glob_imgs, read_png
+from s_volsdf_tpu_torch.data.splits import get_trains_ids
 from s_volsdf_tpu_torch.data.synthetic import SyntheticScene
+from s_volsdf_tpu_torch.utils.cameras import load_K_Rt_from_P
+from s_volsdf_tpu_torch.utils.image import gaussian_blur, resize
 
 
 @dataclass
 class SceneData:
-    """rgb layouts are (V, H*W, 3) rows, as in the JAX package."""
+    """rgb layouts are (V, H*W, 3) rows, as in the JAX package. A scene
+    loaded from disk names its dataset and scan; a synthetic one does
+    not, and then every view is a training view."""
     img_res: Tuple[int, int]
     intrinsics: np.ndarray      # (V, 4, 4)
     poses: np.ndarray           # (V, 4, 4) camera-to-world
     rgb: np.ndarray             # (V, H*W, 3)
     rgb_smooth: np.ndarray      # (V, H*W, 3)
     scale_factor: float = 1.0
+    data_dir: Optional[str] = None
+    scan_id: Optional[int] = None
+    num_views: Optional[int] = None
+    scale_mat: Optional[np.ndarray] = None
 
     def trains_ids(self) -> List[int]:
-        """Every view is a training view."""
-        return list(range(self.rgb.shape[0]))
+        if self.data_dir is None:
+            return list(range(self.rgb.shape[0]))
+        return get_trains_ids(self.data_dir, f"scan{self.scan_id}",
+                              self.num_views)
 
 
 def scene_from_synthetic(scene: SyntheticScene) -> SceneData:
@@ -34,3 +52,67 @@ def scene_from_synthetic(scene: SyntheticScene) -> SceneData:
     return SceneData(img_res=scene.img_res, intrinsics=scene.intrinsics,
                      poses=scene.poses, rgb=rgb, rgb_smooth=rgb,
                      scale_factor=scene.scale_factor)
+
+
+def _load_rgb(path: str) -> np.ndarray:
+    img = read_png(path).astype(np.float32)
+    if img.max() > 1.5:
+        img = img / 255.0
+    return img
+
+
+def load_scene(data_dir: str, img_res: Tuple[int, int], scan_id: int,
+               num_views: int, data_dir_root: str) -> SceneData:
+    """Load an IDR-format scene directory: every image, resized to
+    img_res (cubic) if needed, its 31x31 sigma-90 blur (the annealed RGB
+    target), and the cameras decomposed from world_mat @ scale_mat."""
+    H, W = img_res
+    instance_dir = os.path.join(data_dir_root, data_dir, f"scan{scan_id}")
+    image_dir = os.path.join(instance_dir, "image")
+    cam_file = os.path.join(instance_dir, "cameras.npz")
+    if not os.path.exists(cam_file) and int(scan_id) < 200:
+        cam_file = os.path.join(data_dir_root, data_dir, "scan114",
+                                "cameras.npz")
+    if not os.path.exists(image_dir):
+        raise FileNotFoundError(f"missing {image_dir}")
+    if not os.path.exists(cam_file):
+        raise FileNotFoundError(f"missing {cam_file}")
+
+    image_paths = sorted(glob_imgs(image_dir))
+    n_images = len(image_paths)
+    cams = np.load(cam_file)
+    scale_mats = [cams[f"scale_mat_{i}"].astype(np.float32)
+                  for i in range(n_images)]
+    world_mats = [cams[f"world_mat_{i}"].astype(np.float32)
+                  for i in range(n_images)]
+
+    first = _load_rgb(image_paths[0])
+    scale_h = H / first.shape[0]
+    scale_w = W / first.shape[1]
+
+    scale_factor = float(scale_mats[0][0, 0])
+    if scan_id == 5 and data_dir == "BlendedMVS":
+        scale_factor = 1.0      # scan5's scale_mat is wrong; use 1
+
+    intrinsics_all, poses, rgbs, smooths = [], [], [], []
+    for i, path in enumerate(image_paths):
+        P = (world_mats[i] @ scale_mats[i])[:3, :4]
+        intr, pose = load_K_Rt_from_P(P)
+        intr[0, :] *= scale_w
+        intr[1, :] *= scale_h
+        intrinsics_all.append(intr)
+        poses.append(pose)
+
+        img = _load_rgb(path)[..., :3]
+        if scale_h != 1 or scale_w != 1:
+            img = resize(img, (H, W))
+        rgbs.append(img.reshape(-1, 3))
+        smooths.append(gaussian_blur(img, 31, 90).reshape(-1, 3))
+
+    return SceneData(
+        img_res=img_res,
+        intrinsics=np.stack(intrinsics_all).astype(np.float32),
+        poses=np.stack(poses).astype(np.float32),
+        rgb=np.stack(rgbs), rgb_smooth=np.stack(smooths),
+        scale_factor=scale_factor, data_dir=data_dir, scan_id=scan_id,
+        num_views=num_views, scale_mat=scale_mats[0])

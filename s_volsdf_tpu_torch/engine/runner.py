@@ -1,0 +1,283 @@
+"""The per-scene pipeline: the 3-stage CasMVSNet cascade interleaved
+with VolSDF optimisation and depth feedback (counterpart of
+s_volsdf_tpu/engine/runner.py:46-250, 321-353, 377-516, 519-561,
+604-626).
+
+save_scene_depth, per scene:
+  (a) runs the frozen cascade stage by stage (features once per scene,
+      a cost volume per stage per reference view),
+  (b) at a stage with an optimisation budget, hands the probability
+      volumes to the VolSDF trainer (they stay on the device), trains,
+      renders VolSDF depth for each training view and feeds it to the
+      next stage as its hypothesis centre,
+  (c) writes the depth and confidence PFMs and the cam files.
+
+Serial over reference views on one device. Not ported yet: fusion
+(pcd_filter), the depth/confidence PNG visualisations and the images/
+copy, the trainer's checkpoints, UCSNet and TransMVSNet.
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from s_volsdf_tpu_torch.bridge import load_mvs_checkpoint
+from s_volsdf_tpu_torch.config import (Config, check_mvs_float32,
+                                       per_scene_overrides, save_config,
+                                       validate_config)
+from s_volsdf_tpu_torch.data.io import save_pfm, write_cam
+from s_volsdf_tpu_torch.data.mvs_dataset import MVSDataset
+from s_volsdf_tpu_torch.data.scene_dataset import load_scene
+from s_volsdf_tpu_torch.data.splits import get_trains_ids
+from s_volsdf_tpu_torch.engine.trainer import VolTrainer
+from s_volsdf_tpu_torch.models.mvs import blocks as B
+from s_volsdf_tpu_torch.models.mvs.casmvsnet import (casmvsnet_features,
+                                                     casmvsnet_stage,
+                                                     init_casmvsnet)
+from s_volsdf_tpu_torch.ops.fused_sdf import fused_sdf_values
+
+logger = logging.getLogger("s_volsdf_tpu_torch")
+
+
+class MVSEngine:
+    """The frozen cascade on one device. Weights come from a converted
+    checkpoint (tools/convert_ckpt.py) or are random from `rng_seed`.
+    Only casmvsnet is ported; other models raise."""
+
+    def __init__(self, cfg: Config, weights_path: Optional[str] = None,
+                 rng_seed: int = 0, *, device):
+        self.cfg = cfg
+        self.name = cfg.mvs.model_name
+        if self.name != "casmvsnet":
+            raise NotImplementedError(
+                f"mvs.model_name={self.name!r}: the port runs casmvsnet only")
+        check_mvs_float32(cfg.mvs)
+        self.device = torch.device(device)
+        self.net = init_casmvsnet(torch.Generator().manual_seed(rng_seed),
+                                  ndepths=cfg.mvs.ndepths,
+                                  cr_base_chs=cfg.mvs.cr_base_chs,
+                                  device=self.device)
+        if weights_path and os.path.exists(weights_path):
+            load_mvs_checkpoint(self.net, weights_path)
+            logger.info(f"loaded MVS weights from {weights_path}")
+        else:
+            logger.warning(
+                f"MVS model '{self.name}' running with RANDOM weights "
+                f"(no checkpoint at {weights_path}); convert a torch "
+                f"ckpt with tools/convert_ckpt.py for real runs")
+
+    def _put(self, a) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
+
+    def scene_feature_cache(self, imgs_all: np.ndarray) -> Dict:
+        """Feature pyramids of a scene's training views (V, H, W, 3),
+        computed once per scene and reused by every stage and sample."""
+        imgs = self._put(imgs_all).permute(0, 3, 1, 2).contiguous()
+        with torch.no_grad():
+            return {"feats": casmvsnet_features(self.net, imgs)}
+
+    def stage(self, stage_idx: int, features, proj, depth_values,
+              prev_depth, img_hw, inverse_depth: bool) -> Dict:
+        """One cascade stage of one sample; `features` are its views'
+        pyramids, reference first."""
+        prev = None if prev_depth is None else self._put(prev_depth)
+        with torch.no_grad():
+            return casmvsnet_stage(
+                self.net, stage_idx, features, self._put(proj),
+                self._put(depth_values), prev, img_hw,
+                ndepths=self.cfg.mvs.ndepths,
+                depth_inter_r=self.cfg.mvs.depth_inter_r,
+                inverse_depth=inverse_depth)
+
+
+def setup_scene(cfg: Config, scene_name: str, *, exps_root: str = ".",
+                device) -> Dict:
+    """The per-scene pieces: the MVS samples, the loaded scene and its
+    VolTrainer, and the empty per-stage accumulators."""
+    validate_config(cfg)
+    outdir = os.path.join(exps_root, cfg.outdir)
+    os.makedirs(os.path.join(outdir, scene_name), exist_ok=True)
+    save_config(cfg, os.path.join(outdir, scene_name, "args.yaml"))
+
+    trains_i = get_trains_ids(cfg.dataset.data_dir, scene_name, cfg.num_view)
+    mvs_datapath = os.path.join(cfg.data_dir_root, cfg.dataset.data_dir,
+                                "mvs_data")
+    dataset = MVSDataset(
+        datapath=mvs_datapath, scan=scene_name, nviews=cfg.num_view,
+        data_dir=cfg.dataset.data_dir, ndepths=cfg.mvs.numdepth,
+        interval_scale=(cfg.mvs.interval_scale
+                        if cfg.dataset.data_dir == "DTU" else 1.0),
+        max_h=cfg.max_h, max_w=cfg.max_w, trains_i=trains_i,
+        data_dir_root=cfg.data_dir_root, x2_mvsres=cfg.mvs.x2_mvsres)
+    scene = load_scene(cfg.dataset.data_dir, tuple(cfg.dataset.img_res),
+                       int(scene_name[4:]), cfg.num_view, cfg.data_dir_root)
+    trainer = VolTrainer(cfg, scene, device=device)
+    if trainer.trains_i != trains_i:
+        raise ValueError(f"training views {trainer.trains_i} != {trains_i}")
+    samples = [dataset[i] for i in range(len(dataset))]
+    return {"cfg": cfg, "name": scene_name, "samples": samples,
+            "trainer": trainer, "trains_i": trains_i, "outdir": outdir,
+            "outs_samples": [None] * len(samples),
+            "stage_seconds": [], "stage_peak_bytes": [],
+            "feedback_seconds": [], "feedback_launches": []}
+
+
+def run_mvs_stage(cfg: Config, engine: MVSEngine, sc: Dict,
+                  stage_idx: int) -> List[Dict]:
+    """One cascade stage over a scene's reference views. The 2D maps
+    (depth, photometric_confidence) come back to the host; the volumes
+    (prob_volume, depth_values) stay on the device for the trainer.
+
+    Records the stage's seconds in sc["stage_seconds"] and, on a CUDA
+    device, its peak allocated bytes in sc["stage_peak_bytes"] (this
+    resets the device's peak-memory counter)."""
+    samples, outs_samples = sc["samples"], sc["outs_samples"]
+    dev = engine.device
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    if "feat_cache" not in sc:
+        imgs_all = np.stack([s.imgs[0] for s in samples])
+        sc["feat_cache"] = engine.scene_feature_cache(imgs_all)
+    inv = cfg.inverse_depth and stage_idx == 0
+    outs: List[Dict] = []
+    for i, s in enumerate(samples):
+        feats = [sc["feat_cache"]["feats"][sc["trains_i"].index(v)]
+                 for v in s.view_ids]
+        prev_depth = None
+        if stage_idx > 0 and outs_samples[i] is not None:
+            prev_depth = outs_samples[i]["depth"]
+        outs.append(engine.stage(
+            stage_idx, feats, s.proj_matrices[f"stage{stage_idx + 1}"],
+            s.depth_values, prev_depth, (s.imgs.shape[1], s.imgs.shape[2]),
+            inverse_depth=inv))
+    # Fetch the 2D maps only after every view's stage is queued; the
+    # fetch is also the device sync for the stage's time.
+    for out in outs:
+        for k in ("depth", "photometric_confidence"):
+            out[k] = out[k].cpu().numpy()
+        out[f"stage{stage_idx + 1}_confidence"] = \
+            out["photometric_confidence"]
+    sc["stage_seconds"].append(time.perf_counter() - t0)
+    if dev.type == "cuda":
+        sc["stage_peak_bytes"].append(torch.cuda.max_memory_allocated(dev))
+    logger.info(f"{sc['name']} stage {stage_idx}: cost volumes in "
+                f"{sc['stage_seconds'][-1]:.1f}s")
+    return outs
+
+
+def feedback_depths(sc: Dict, outs: List[Dict]) -> None:
+    """Render VolSDF depth per training view, resize it (bilinear) to
+    the view's MVS resolution and overwrite the cascade depth. Records
+    each render's seconds in sc["feedback_seconds"] and its fused-SDF
+    kernel launches (0 on the CPU) in sc["feedback_launches"]."""
+    trainer, samples = sc["trainer"], sc["samples"]
+    for i, vid in enumerate(sc["trains_i"]):
+        t0 = time.perf_counter()
+        launches = fused_sdf_values.launches
+        depth = trainer.render_mvs(vid)       # returns on the host
+        sc["feedback_seconds"].append(time.perf_counter() - t0)
+        sc["feedback_launches"].append(fused_sdf_values.launches - launches)
+        Hm, Wm = samples[i].imgs.shape[1:3]
+        d = torch.as_tensor(depth, device=trainer.device)[None, None]
+        outs[i]["depth"] = B.interpolate_bilinear(
+            d, (Hm, Wm))[0, 0].cpu().numpy()
+
+
+def accumulate_stage(sc: Dict, outs: List[Dict], stage_idx: int) -> None:
+    for i in range(len(sc["samples"])):
+        if sc["outs_samples"][i] is None:
+            sc["outs_samples"][i] = {}
+        sc["outs_samples"][i].update(outs[i])
+        sc["outs_samples"][i][f"stage{stage_idx + 1}"] = outs[i]
+
+
+def save_scene_depth(cfg: Config, scene_name: str, *,
+                     mvs_weights: Optional[str] = None,
+                     exps_root: str = ".",
+                     engine: Optional[MVSEngine] = None,
+                     device=None) -> Dict:
+    """Run the interleaved 3-stage MVS/VolSDF pipeline for one scene and
+    save depth/confidence/cams under cfg.outdir. Pass either a shared
+    `engine` (when looping scenes) or the `device` to build one on; the
+    trainer runs on the engine's device. Returns the trainer, the output
+    directory, the epoch counter, the MVS samples, every view's
+    per-stage outputs ("outs") and the stage, peak-memory and
+    feedback-render records."""
+    if engine is None:
+        engine = MVSEngine(cfg, weights_path=mvs_weights, device=device)
+    elif device is not None:
+        raise ValueError("pass an engine or a device, not both: the "
+                         "trainer runs on the engine's device")
+    sc = setup_scene(cfg, scene_name, exps_root=exps_root,
+                     device=engine.device)
+    trainer = sc["trainer"]
+    epoch = 0
+    for stage_idx in range(3):
+        outs = run_mvs_stage(cfg, engine, sc, stage_idx)
+        do_volopt = (not cfg.ablate
+                     and cfg.opt_stepNs[stage_idx] > 0
+                     and cfg.use_nerf_d[stage_idx] > 0)
+        if do_volopt:
+            trainer.stg = stage_idx
+            trainer.get_mvs_input(outs)
+            # > 1, not > 0: a budget of 1 hands the volumes over and
+            # renders the feedback depth without a step.
+            if cfg.opt_stepNs[stage_idx] > 1:
+                epoch = trainer.run(cfg.opt_stepNs[stage_idx])
+            logger.info("rendering VolSDF depth for cascade feedback")
+            feedback_depths(sc, outs)
+        accumulate_stage(sc, outs, stage_idx)
+
+    save_scene_outputs(sc)
+    logger.info(f"scene {scene_name}: outputs saved to {sc['outdir']}")
+    return {"trainer": trainer, "outdir": sc["outdir"], "epoch": epoch,
+            "samples": sc["samples"], "outs": sc["outs_samples"],
+            **{k: sc[k] for k in ("stage_seconds", "stage_peak_bytes",
+                                  "feedback_seconds", "feedback_launches")}}
+
+
+def save_scene_outputs(sc: Dict) -> None:
+    """Write each view's depth_est and confidence PFMs (the confidence is
+    the product of the three stages' maps, each resized bilinearly to
+    the final resolution) and its cams/*_cam.txt."""
+    outdir = sc["outdir"]
+    for s, outputs in zip(sc["samples"], sc["outs_samples"]):
+        depth_est = np.asarray(outputs["depth"], np.float32)
+        H, W = depth_est.shape
+        conf_final = None
+        for k in ("stage1", "stage2", "stage3"):
+            c = torch.as_tensor(outputs[k]["photometric_confidence"])
+            if tuple(c.shape) != (H, W):
+                c = B.interpolate_bilinear(c[None, None], (H, W))[0, 0]
+            conf_final = c if conf_final is None else conf_final * c
+        save_pfm(os.path.join(outdir, s.filename.format("depth_est", ".pfm")),
+                 depth_est)
+        save_pfm(os.path.join(outdir,
+                              s.filename.format("confidence", ".pfm")),
+                 conf_final.numpy().astype(np.float32))
+        cam = np.asarray(s.proj_matrices["stage3"][0])
+        write_cam(os.path.join(outdir, s.filename.format("cams", "_cam.txt")),
+                  cam, s.cam_near_far)
+
+
+def save_depth(cfg: Config, testlist: List[str], *,
+               mvs_weights: Optional[str] = None, exps_root: str = ".",
+               device) -> None:
+    """Every scene of `testlist` with its per-scan overrides, sharing
+    one MVSEngine (the overrides never touch cfg.mvs)."""
+    engine = MVSEngine(cfg, weights_path=mvs_weights, device=device) \
+        if testlist else None
+    for scene in testlist:
+        scene_cfg = per_scene_overrides(cfg, scene)
+        logger.info(
+            f"{scene}: sparse_weight={scene_cfg.loss.sparse_weight} "
+            f"inverse_depth={scene_cfg.inverse_depth}")
+        save_scene_depth(scene_cfg, scene, mvs_weights=mvs_weights,
+                         exps_root=exps_root, engine=engine)

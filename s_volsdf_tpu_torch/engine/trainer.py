@@ -1,5 +1,5 @@
 """Per-scene VolSDF trainer (counterpart of
-s_volsdf_tpu/engine/trainer.py:41-77, 290-375, 422-443).
+s_volsdf_tpu/engine/trainer.py:41-77, 124-224, 290-375, 422-443).
 
 The JAX package runs a chunk of steps as one `lax.scan` program; here a
 chunk is a Python loop over eager steps (`make_scan_train_fn`). Not
@@ -32,20 +32,28 @@ logger = logging.getLogger("s_volsdf_tpu_torch")
 def make_scan_train_fn(cfg: Config, tx: Optimizer, *, use_mvs: bool,
                        n_views: int, img_res: Tuple[int, int]):
     """A function running `n_steps` optimisation steps with on-device
-    pixel sampling; returns the state and each step's LossOutput."""
+    pixel sampling; returns the state, each step's LossOutput and each
+    step's host seconds (a step ends in the NaN guard's host sync, so
+    that is its device time plus host overhead)."""
     one_step = make_one_step(cfg, tx, use_mvs=use_mvs, n_views=n_views,
                              img_res=img_res)
 
     def run_chunk(state: TrainState, n_steps: int, scene: Dict,
                   mvs: Optional[MVSVolumes], gen: torch.Generator
-                  ) -> Tuple[TrainState, List[LossOutput]]:
-        losses = []
+                  ) -> Tuple[TrainState, List[LossOutput], List[float]]:
+        losses, seconds = [], []
         for _ in range(n_steps):
+            t0 = time.perf_counter()
             state, lo = one_step(scene, mvs, state, gen)
+            seconds.append(time.perf_counter() - t0)
             losses.append(lo)
-        return state, losses
+        return state, losses, seconds
 
     return run_chunk
+
+
+def _put(a, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a, np.float32), device=device)
 
 
 def _host_losses(lo: LossOutput) -> LossOutput:
@@ -61,6 +69,7 @@ class VolTrainer:
         self.scene = scene
         self.device = torch.device(device)
         self.chunk_steps = chunk_steps
+        self.stg = 2        # the cascade stage whose volumes are loaded
         params = init_volsdf_params(torch.Generator().manual_seed(cfg.seed),
                                     cfg.model, self.device)
         self.tx = make_optimizer(cfg, params)
@@ -72,6 +81,29 @@ class VolTrainer:
         self.gen = torch.Generator(device=self.device).manual_seed(cfg.seed + 1)
         self.losses: List[LossOutput] = []   # every step of the last run
         self.chunk_seconds: List[float] = []  # each chunk of the last run
+        self.step_seconds: List[float] = []   # each step of the last run
+
+    def get_mvs_input(self, outs: List[Dict]) -> MVSVolumes:
+        """Stack the cascade's per-view prob volumes and hypothesis slabs
+        (outs[i]["prob_volume"], ["depth_values"], (D, Hc, Wc) tensors)
+        into MVSVolumes, on the device they are on: depths in the
+        trainer's units (/ scale_factor), the near plane clamped to the
+        bounding sphere's radius."""
+        r = self.cfg.model.scene_bounding_sphere
+        probs, slabs = [], []
+        for out in outs:
+            dvals = out["depth_values"] / self.scale_factor
+            probs.append(out["prob_volume"])
+            slabs.append(torch.stack([torch.clamp(dvals[0], max=r),
+                                      dvals[-1]], dim=0))
+        ti = self.trains_i
+        dev = probs[0].device
+        self.mvs = MVSVolumes(
+            prob=torch.stack(probs), z_slab=torch.stack(slabs),
+            intrinsics=_put(self.scene.intrinsics[ti], dev),
+            c2w=_put(self.scene.poses[ti], dev), img_res=self.scene.img_res,
+            inverse_depth=bool(self.cfg.inverse_depth) and self.stg == 0)
+        return self.mvs
 
     def run(self, opt_stepN: int, log_every: int = 1000) -> int:
         """Optimise for opt_stepN steps; returns the epoch counter (an
@@ -81,31 +113,24 @@ class VolTrainer:
         run_chunk = make_scan_train_fn(self.cfg, self.tx, use_mvs=use_mvs,
                                        n_views=len(ti),
                                        img_res=self.scene.img_res)
-        dev = self.device
-
-        def put(a):
-            return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-        scene_dev = {
-            "rgb": put(self.scene.rgb[ti]),
-            "rgb_smooth": put(self.scene.rgb_smooth[ti]),
-            "poses": put(self.scene.poses[ti]),
-            "intrinsics": put(self.scene.intrinsics[ti]),
-        }
+        scene_dev = {k: _put(getattr(self.scene, k)[ti], self.device)
+                     for k in ("rgb", "rgb_smooth", "poses", "intrinsics")}
         start = self.state.iter_step
         done = 0
         self.losses = []
         self.chunk_seconds = []
+        self.step_seconds = []
         next_log = log_every
         while done < opt_stepN:
             n = min(self.chunk_steps, opt_stepN - done)
             t0 = time.perf_counter()
-            self.state, losses = run_chunk(self.state, n, scene_dev,
-                                           self.mvs if use_mvs else None,
-                                           self.gen)
+            self.state, losses, seconds = run_chunk(
+                self.state, n, scene_dev, self.mvs if use_mvs else None,
+                self.gen)
             # Host time of the chunk; every step ends in the guard's
             # host sync, so this is the device time plus host overhead.
             self.chunk_seconds.append(time.perf_counter() - t0)
+            self.step_seconds += seconds
             self.losses += [_host_losses(lo) for lo in losses]
             done += n
             if done >= next_log or done >= opt_stepN:

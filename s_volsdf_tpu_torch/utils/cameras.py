@@ -1,8 +1,11 @@
-"""Camera math: ray generation and bounding-sphere intersections
-(counterpart of s_volsdf_tpu/utils/cameras.py:14-75)."""
+"""Camera math: ray generation, bounding-sphere intersections and the
+projection-matrix decomposition (counterpart of
+s_volsdf_tpu/utils/cameras.py:14-96)."""
 
 from __future__ import annotations
 
+import numpy as np
+import scipy.linalg
 import torch
 
 
@@ -60,3 +63,31 @@ def get_sphere_intersections(cam_loc, ray_dirs, r=1.0):
     sign = torch.tensor([-1.0, 1.0], dtype=sqrt.dtype, device=sqrt.device)
     both = sqrt * sign - ray_cam_dot
     return torch.clamp(both, min=0.0)
+
+
+def load_K_Rt_from_P(P: np.ndarray):
+    """Decompose a 3x4 projection P = K [R | t] into intrinsics (4, 4)
+    and the camera-to-world pose (4, 4), float32 (host-side numpy).
+
+    What cv2.decomposeProjectionMatrix gives the JAX package: K and R by
+    an RQ decomposition of P[:, :3] with the signs fixed so diag(K) > 0,
+    K scaled to K[2, 2] = 1, and the camera centre from the null space
+    of P. A reflection (det P[:, :3] < 0) moves into K[2, 2] before the
+    scaling, so R is always a proper rotation."""
+    P = np.asarray(P, np.float64)
+    K, R = scipy.linalg.rq(P[:, :3])
+    signs = np.diag(np.sign(np.diag(K)))
+    K, R = K @ signs, signs @ R
+    if np.linalg.det(R) < 0:
+        # A proper rotation, as cv2 returns: K[2, 2] takes the sign.
+        K[:, 2] *= -1.0
+        R[2] *= -1.0
+    K = K / K[2, 2]
+    centre = np.linalg.svd(P)[2][-1]
+
+    intrinsics = np.eye(4, dtype=np.float32)
+    intrinsics[:3, :3] = K
+    pose = np.eye(4, dtype=np.float32)
+    pose[:3, :3] = R.transpose()
+    pose[:3, 3] = centre[:3] / centre[3]
+    return intrinsics, pose

@@ -38,7 +38,7 @@ def shrink(cfg):
     """The small size of the port's CPU tests, applied to either config
     tree (the two share field names): SDF (32,)*4 with skip at 2 and
     multires 4, radiance (32, 32), feature 32, sampler 24/16/4, 16 rays,
-    and the three float32 knobs."""
+    and the four float32 knobs (three training ones, the cascade's)."""
     imp = cfg.model.implicit
     imp.dims, imp.skip_in, imp.multires = (32,) * 4, (2,), 4
     cfg.model.rendering.dims = (32, 32)
@@ -49,6 +49,7 @@ def shrink(cfg):
     cfg.train.train_compute_dtype = "float32"
     cfg.train.train_activation_dtype = "float32"
     cfg.train.mvs_pack_dtype = "float32"
+    cfg.mvs.compute_dtype = "float32"
     return cfg
 
 
@@ -136,14 +137,62 @@ def test_config_defaults_match_jax():
 
 
 @pytest.mark.parametrize("knob", ["train_compute_dtype",
-                                  "train_activation_dtype", "mvs_pack_dtype"])
+                                  "train_activation_dtype", "mvs_pack_dtype",
+                                  "mvs.compute_dtype"])
 def test_bf16_knobs_raise(knob):
-    """The bf16 knobs are refused, not ignored."""
+    """The bf16 knobs are refused, not ignored. A knob without a section
+    is under `train`."""
     _, cfg = small_configs()
     tconfig.check_float32(cfg)
-    setattr(cfg.train, knob, "bfloat16")
+    section, _, name = knob.rpartition(".")
+    setattr(getattr(cfg, section or "train"), name, "bfloat16")
     with pytest.raises(NotImplementedError, match=knob):
         tconfig.check_float32(cfg)
+
+
+@pytest.mark.parametrize("section", ["mvs", "dataset", "filter"])
+def test_new_sections_match_jax(section):
+    """The cascade's, the dataset's and fusion's dataclasses carry every
+    field of their JAX counterparts, with the same defaults."""
+    t = getattr(tconfig.Config(), section)
+    j = getattr(jconfig.Config(), section)
+    assert dataclasses.asdict(t) == dataclasses.asdict(j)
+
+
+def test_runner_fields_match_jax():
+    names = ("num_view", "testlist", "outdir", "exps_folder",
+             "data_dir_root", "opt_stepNs", "use_nerf_d", "inverse_depth",
+             "ablate")
+    t, j = tconfig.dtu_config(), jconfig.dtu_config()
+    assert [getattr(t, n) for n in names] == [getattr(j, n) for n in names]
+
+
+@pytest.mark.parametrize("scene", ["scan24", "scan37", "scan106"])
+@pytest.mark.parametrize("data_dir", ["DTU", "BlendedMVS"])
+def test_per_scene_overrides_match_jax(scene, data_dir):
+    t, j = tconfig.dtu_config(), jconfig.dtu_config()
+    t.dataset.data_dir = j.dataset.data_dir = data_dir
+    for s in (scene, "scan2", "scan5"):
+        a = tconfig.per_scene_overrides(t, s)
+        b = jconfig.per_scene_overrides(j, s)
+        assert a.loss.sparse_weight == b.loss.sparse_weight
+        assert a.inverse_depth == b.inverse_depth
+    assert t.loss.sparse_weight == 1.0 and not t.inverse_depth
+
+
+@pytest.mark.parametrize("field,value", [
+    ("mvs.numdepth", 96), ("mvs.ndepths", (192, 32, 4)),
+    ("opt_stepNs", (1, 0)), ("max_h", 512), ("dataset.data_dir", "ETH3D")])
+def test_validate_config_raises(field, value):
+    """The invariants the cascade relies on; the JAX asserts hold the
+    same configs invalid."""
+    for mod in (tconfig, jconfig):
+        cfg = mod.dtu_config()
+        section, _, name = field.rpartition(".")
+        setattr(getattr(cfg, section) if section else cfg, name, value)
+        with pytest.raises((ValueError, AssertionError)):
+            mod.validate_config(cfg)
+    tconfig.validate_config(tconfig.dtu_config())
 
 
 def test_sphere_scene_bit_equal():

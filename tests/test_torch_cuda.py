@@ -1,20 +1,27 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernel against its plain PyTorch version, and the
+CasMVSNet cascade on the card against the same cascade on the CPU.
 
-Every test here needs an NVIDIA GPU and nvcc; without them it skips with
-the reason. On a machine with a card:
+Every test here needs an NVIDIA GPU (and nvcc for the kernel); without
+one it skips with the reason. On a machine with a card:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 This file imports no JAX (the card's machine need not have it).
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
-from s_volsdf_tpu_torch import config as tconfig
-from s_volsdf_tpu_torch.models.network import init_volsdf_params
-from s_volsdf_tpu_torch.ops import fused_sdf
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402
+from s_volsdf_tpu_torch import config as tconfig  # noqa: E402
+from s_volsdf_tpu_torch.models.network import init_volsdf_params  # noqa: E402
+from s_volsdf_tpu_torch.ops import fused_sdf  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -24,6 +31,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the fused SDF kernel has no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -78,3 +86,13 @@ def test_unsupported_config_raises(cuda):
     pts = torch.zeros((64, 3), device=cuda)
     with pytest.raises(ValueError, match="family"):
         fused_sdf.fused_sdf_values(params.sdf, cfg.model, pts, 3.0)
+
+
+def test_cascade_stages_match_cpu(cuda, tmp_path):
+    """The three CasMVSNet stages of one 64x96 view, D = 16/8/8, on the
+    card and on the CPU with the same bridged weights, each fed the same
+    previous depth. prob_volume within 1e-4, depth within 1e-5 relative
+    (cuDNN's float32 convs sum in another order than the CPU's)."""
+    errs = chip_smoke.cascade_card_vs_cpu(cuda, str(tmp_path / "data"))
+    assert errs["prob"] <= chip_smoke.PROB_TOL, errs
+    assert errs["depth_rel"] <= chip_smoke.DEPTH_RTOL, errs

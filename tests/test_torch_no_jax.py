@@ -1,8 +1,9 @@
-"""The port and chip_smoke.py run without JAX: an AST scan finds no
-import of jax, optax or flax, nor of the JAX package, in any of their
-files (the port's config and synthetic-scene modules included, its own
-copies of the JAX package's), and they import in a process where those
-imports fail."""
+"""The port and chip_smoke.py run without JAX and without an image
+library: an AST scan finds no import of jax, optax or flax, nor of the
+JAX package, nor of cv2, imageio or PIL (the card's machine has none of
+them), in any of their files (the port's config, synthetic-scene and
+split modules included, its own copies of the JAX package's), and they
+import in a process where those imports fail."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "s_volsdf_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "s_volsdf_tpu", "cv2",
+             "imageio", "PIL"}
 
 
 def _imported_roots(path):
@@ -45,14 +47,18 @@ def test_scan_sees_imports(tmp_path):
     probe = tmp_path / "probe.py"
     probe.write_text("import jax\nfrom jax import numpy\nimport optax as o\n"
                      "from flax import struct\n"
-                     "from s_volsdf_tpu.config import Config\n")
+                     "from s_volsdf_tpu.config import Config\n"
+                     "def f():\n    import cv2\n"
+                     "    import imageio.v2 as imageio\n"
+                     "    from PIL import Image\n")
     mods = {m for _, m in _imported_roots(probe)}
-    assert mods == {"jax", "optax", "flax", "s_volsdf_tpu"}
+    assert mods == {"jax", "optax", "flax", "s_volsdf_tpu", "cv2",
+                    "imageio", "PIL"}
 
 
 def test_imports_with_jax_blocked():
     """Every port module and chip_smoke.py import in a process where
-    importing jax, optax, flax or s_volsdf_tpu fails."""
+    importing any of FORBIDDEN fails."""
     mods = ["chip_smoke"] + [
         ".".join(p.relative_to(ROOT).with_suffix("").parts)
         for p in (ROOT / "s_volsdf_tpu_torch").rglob("*.py")
