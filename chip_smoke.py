@@ -8,12 +8,18 @@ checks it, in phases that print in order:
   1. environment: torch and CUDA versions, the card, its power limit;
   2. build: compiles csrc/fused_sdf.cu with nvcc (seconds printed);
   3. kernel: the fused SDF kernel against its plain PyTorch version on
-     65,536 and 700 points (max |diff| <= 1e-4), and both timed;
+     65,536, 700 and 2,097,152 points (one training sweep, a ragged
+     tail, one render launch; max |diff| <= 1e-4); the kernel timed at
+     65,536 and 2,097,152 points with its TFLOP/s and its share of the
+     bound (three bf16 products per multiply-add at 989 TFLOP/s), the
+     plain version at 65,536; after phase 5, the kernel again on 65,536
+     points of the trained field's own rays nearest its surface;
   4. training: 20 steps of VolTrainer at bench.py's shapes (576x768
      scene, 512 rays/step, three 192x288x384 MVS volumes), float32;
   5. feedback render: render_mvs of view 0 at quarter resolution
-     (144x192, fast=-1, chunk 16,384), and a 6x8-pixel render on the card
-     against the same render on the CPU's plain path;
+     (144x192, fast=-1, chunk 16,384; the weights packed once for it),
+     and a 6x8-pixel render on the card against the same render on the
+     CPU's plain path;
   6. cascade: `save_scene_depth` on a 576x768 DTU-layout fixture (scan106)
      at x2 MVS resolution (1152x1536), D = 192/32/8, the full casmvsnet
      and dtu VolSDF widths: stage 0, 20 VolSDF steps regularised by its
@@ -61,11 +67,15 @@ from s_volsdf_tpu_torch.data.synthetic import gt_prob_volume, make_sphere_scene
 from s_volsdf_tpu_torch.engine.render import render_depth
 from s_volsdf_tpu_torch.engine.runner import MVSEngine, save_scene_depth
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer
-from s_volsdf_tpu_torch.models.network import init_volsdf_params
+from s_volsdf_tpu_torch.models.network import init_volsdf_params, render_rays
 from s_volsdf_tpu_torch.ops import fused_sdf
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
 
-KERNEL_TOL = 1e-4     # f32 sums in another order across 9 layers
+# The kernel's bf16 x 3 split (about 2^-16 of each product) and f32 sums
+# in another order across 9 layers.
+KERNEL_TOL = 1e-4
+KERNEL_SWEEP, KERNEL_RENDER = 65536, 2097152   # one step's sweep, one render launch
+BF16_TFLOPS = 989.0   # the H100's dense bf16 tensor-core peak
 RENDER_TOL = 2e-4     # the VolSDF render bar (README "Verified parity")
 TRAIN_STEPS = 20
 CASCADE_RES = (576, 768)            # the dtu images
@@ -318,6 +328,40 @@ def run_cascade(dev, card: str, tmp: str) -> int:
     return launches
 
 
+def sdf_flops_per_point(sdf_params) -> int:
+    """2 x the multiply-adds of one point through the SDF MLP: every
+    layer with its input width padded to 4, the last one for its SDF
+    column only (459,264 multiply-adds at the dtu width)."""
+    wb = fused_sdf.normalized_weights(sdf_params)
+    return 2 * sum(-(-w.shape[0] // 4) * 4 * (w.shape[1] if l < len(wb) - 1
+                                              else 1)
+                   for l, (w, _) in enumerate(wb))
+
+
+def near_surface_points(trainer, n_rays: int = 2048, keep: int = 65536):
+    """The sampler's final samples on n_rays random pixels of view 0
+    (render_rays, eval, fast=-1), the `keep` of them nearest the trained
+    field's surface by the plain SDF; and the largest |sdf| kept."""
+    cfg, scene, dev = trainer.cfg.model, trainer.scene, trainer.device
+    H, W = scene.img_res
+    pix = np.random.default_rng(3).integers(0, H * W, n_rays)
+    uv = torch.as_tensor(np.stack([pix % W, pix // W], -1)[None]
+                         .astype(np.float32), device=dev)
+    pose = torch.as_tensor(scene.poses[:1], dtype=torch.float32, device=dev)
+    intr = torch.as_tensor(scene.intrinsics[:1], dtype=torch.float32,
+                           device=dev)
+    params = trainer.state.params
+    with torch.no_grad():
+        out = render_rays(params, cfg, uv, pose, intr,
+                          torch.Generator(device=dev).manual_seed(0),
+                          training=False, fast=-1)
+    xyz = out.xyz.detach().reshape(-1, 3).contiguous()
+    sdf = fused_sdf.sdf_values_plain(params.sdf, cfg, xyz,
+                                     cfg.scene_bounding_sphere).abs()
+    idx = torch.argsort(sdf)[:keep]
+    return xyz[idx].contiguous(), sdf[idx].max().item()
+
+
 def _median_ms(fn, reps: int = 20) -> float:
     for _ in range(3):
         fn()
@@ -368,7 +412,7 @@ def main() -> None:
     params = init_volsdf_params(torch.Generator().manual_seed(0), cfg.model,
                                 dev)
     errs = {}
-    for n in (65536, 700):
+    for n in (KERNEL_SWEEP, 700, KERNEL_RENDER):
         pts = torch.as_tensor(
             np.random.default_rng(1).normal(size=(n, 3)).astype(np.float32),
             device=dev)
@@ -378,17 +422,38 @@ def main() -> None:
         errs[n] = torch.max(torch.abs(got - ref)).item()
         _check(errs[n] <= KERNEL_TOL,
                f"kernel vs plain at {n} points: {errs[n]} > {KERNEL_TOL}")
-    pts = torch.as_tensor(
-        np.random.default_rng(1).normal(size=(65536, 3)).astype(np.float32),
-        device=dev)
-    kernel_ms = _median_ms(
-        lambda: fused_sdf.fused_sdf_values(params.sdf, cfg.model, pts, 3.0))
-    plain_ms = _median_ms(
-        lambda: fused_sdf.sdf_values_plain(params.sdf, cfg.model, pts, 3.0))
-    print(f"[kernel] fused_sdf vs plain: max|diff| {errs[65536]:.3e} at "
-          f"65536 pts, {errs[700]:.3e} at 700 pts (tol {KERNEL_TOL}); "
-          f"median of 20: kernel {kernel_ms:.3f} ms, plain {plain_ms:.3f} ms "
-          f"at 65536 pts [{card}]", flush=True)
+        del got, ref
+    t0 = time.perf_counter()
+    pack = fused_sdf.pack_sdf(params.sdf, cfg.model)
+    torch.cuda.synchronize()
+    pack_ms = 1e3 * (time.perf_counter() - t0)
+    flop = sdf_flops_per_point(params.sdf)
+    kernel_ms, bound_ms = {}, {}
+    for n in (KERNEL_SWEEP, KERNEL_RENDER):
+        pts = torch.as_tensor(
+            np.random.default_rng(1).normal(size=(n, 3)).astype(np.float32),
+            device=dev)
+        kernel_ms[n] = _median_ms(lambda: fused_sdf.fused_sdf_values(
+            params.sdf, cfg.model, pts, 3.0, pack=pack))
+        bound_ms[n] = 3 * n * flop / (BF16_TFLOPS * 1e12) * 1e3
+        if n == KERNEL_SWEEP:
+            plain_ms = _median_ms(lambda: fused_sdf.sdf_values_plain(
+                params.sdf, cfg.model, pts, 3.0))
+    tflops = {n: n * flop / (ms * 1e-3) / 1e12 for n, ms in kernel_ms.items()}
+    print(f"[kernel] fused_sdf vs plain: max|diff| {errs[KERNEL_SWEEP]:.3e} "
+          f"at {KERNEL_SWEEP} pts, {errs[700]:.3e} at 700 pts, "
+          f"{errs[KERNEL_RENDER]:.3e} at {KERNEL_RENDER} pts (tol "
+          f"{KERNEL_TOL}) [{card}]", flush=True)
+    for n in (KERNEL_SWEEP, KERNEL_RENDER):
+        print(f"[kernel] {n} pts: kernel {kernel_ms[n]:.4f} ms (median of "
+              f"20), {tflops[n]:.1f} TFLOP/s, bound {bound_ms[n]:.4f} ms "
+              f"(3 bf16 products at {BF16_TFLOPS:.0f} TFLOP/s): "
+              f"{100 * bound_ms[n] / kernel_ms[n]:.1f}% of bound"
+              + (f"; plain {plain_ms:.3f} ms" if n == KERNEL_SWEEP else "")
+              + f" [{card}]", flush=True)
+    print(f"[kernel] pack_sdf (weight norm, split, layout) {pack_ms:.2f} ms "
+          f"[{card}]", flush=True)
+    del pack
 
     # 4. Training at bench.py's shapes.
     t0 = time.perf_counter()
@@ -415,10 +480,13 @@ def main() -> None:
 
     # 5. Feedback render of view 0 at quarter resolution.
     t0 = time.perf_counter()
+    builds = fused_sdf.pack_sdf.builds
     depth = trainer.render_mvs(0, res_scale=0.25)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
     launches = fused_sdf.fused_sdf_values.launches   # the main path ends here
+    _check(fused_sdf.pack_sdf.builds == builds + 1,
+           f"packs built in one render: {fused_sdf.pack_sdf.builds - builds}")
     _check(depth.shape == (144, 192), f"render shape {depth.shape}")
     _check(bool(np.isfinite(depth).all()), "finite depth")
     _check(launches > train_launches,
@@ -444,7 +512,24 @@ def main() -> None:
            f"6x8 render, card vs CPU plain: {ref_err} > {RENDER_TOL}")
     print(f"[render] 6x8 render card vs CPU plain path: max|diff| "
           f"{ref_err:.3e} (tol {RENDER_TOL})", flush=True)
-    del trainer
+
+    # 3, continued: the kernel on the trained field's own rays, nearest
+    # its surface, where the sampler's choices are most sensitive.
+    near, near_sdf = near_surface_points(trainer)
+    bs = cfg.model.scene_bounding_sphere
+    got = fused_sdf.fused_sdf_values(trainer.state.params.sdf, cfg.model,
+                                     near, bs)
+    ref = fused_sdf.sdf_values_plain(trainer.state.params.sdf, cfg.model,
+                                     near, bs)
+    torch.cuda.synchronize()
+    errs["near_surface"] = torch.max(torch.abs(got - ref)).item()
+    _check(errs["near_surface"] <= KERNEL_TOL,
+           f"kernel vs plain near the trained surface: "
+           f"{errs['near_surface']} > {KERNEL_TOL}")
+    print(f"[kernel] trained field, {near.shape[0]} sampler points of view 0 "
+          f"with |sdf| <= {near_sdf:.3e}: kernel vs plain max|diff| "
+          f"{errs['near_surface']:.3e} (tol {KERNEL_TOL})", flush=True)
+    del trainer, near, got, ref
 
     # 6. The cascade and the scene runner.
     with tempfile.TemporaryDirectory() as tmp:
@@ -460,8 +545,14 @@ def main() -> None:
         "replaces": "s_volsdf_tpu/ops/pallas/fused_sdf.py:116",
         "launches": launches + cascade_launches,
         "max_abs_err": max(errs.values()),
-        "ms": kernel_ms,
+        "ms": kernel_ms[KERNEL_SWEEP],
         "plain_ms": plain_ms,
+        "bound_ms": bound_ms[KERNEL_SWEEP],
+        "bound_by": "operations",
+        "library_ms": None,
+        "tflops": tflops[KERNEL_SWEEP],
+        f"ms_at_{KERNEL_RENDER}": kernel_ms[KERNEL_RENDER],
+        f"bound_ms_at_{KERNEL_RENDER}": bound_ms[KERNEL_RENDER],
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -22,12 +22,10 @@ from s_volsdf_tpu_torch.utils.cameras import (depth_scale_factor,
                                               get_camera_params)
 
 
-def _depth_chunk(params: VolSDFParams, uv, pose, intrinsics, gen, *,
+def _depth_chunk(params: VolSDFParams, uv, pose, intrinsics, gen, sdf_fn, *,
                  cfg: ModelConfig, fast: int) -> Dict[str, torch.Tensor]:
     """Depth and accumulated weight of uv (B, N, 2); skips the radiance
-    MLP and the normals."""
-    bounding = 0.0 if (cfg.white_bkgd or cfg.with_background) \
-        else cfg.scene_bounding_sphere
+    MLP and the normals. sdf_fn: `sampler_sdf_fn` of the params."""
     ray_dirs, cam_loc = get_camera_params(uv, pose, intrinsics)
     depth_scale = depth_scale_factor(uv, intrinsics)
     B, N, _ = ray_dirs.shape
@@ -36,7 +34,6 @@ def _depth_chunk(params: VolSDFParams, uv, pose, intrinsics, gen, *,
     cam_loc = cam_loc[:, None, :].expand(B, N, 3).reshape(R, 3)
     depth_scale = depth_scale.reshape(R, 1)
 
-    sdf_fn = sampler_sdf_fn(params, cfg, bounding)
     beta0 = get_beta(params.density, cfg.density.beta_min)
     n_iters = fast if fast >= 0 else cfg.sampler.max_total_iters
     s_out = error_bound_sample(
@@ -74,11 +71,14 @@ def render_depth(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
     pose_b = torch.as_tensor(np.asarray(pose, np.float32), device=device)[None]
     intr_b = torch.as_tensor(np.asarray(intrinsics, np.float32),
                              device=device)[None]
+    bounding = 0.0 if (cfg.white_bkgd or cfg.with_background) \
+        else cfg.scene_bounding_sphere
+    sdf_fn = sampler_sdf_fn(params, cfg, bounding)   # one pack per render
     depth, acc = [], []
     with torch.no_grad():
         for i in range(0, uv.shape[0], chunk):
             o = _depth_chunk(params, uv[i:i + chunk][None], pose_b, intr_b,
-                             gen, cfg=cfg, fast=fast)
+                             gen, sdf_fn, cfg=cfg, fast=fast)
             depth.append(o["depth_values"].reshape(chunk))
             acc.append(o["acc"].reshape(chunk))
     depth = torch.cat(depth)[:n].reshape(H, W).cpu().numpy()

@@ -205,12 +205,20 @@ def save_scene_depth(cfg: Config, scene_name: str, *,
                      device=None) -> Dict:
     """Run the interleaved 3-stage MVS/VolSDF pipeline for one scene and
     save depth/confidence/cams under cfg.outdir. Pass either a shared
-    `engine` (when looping scenes) or the `device` to build one on; the
-    trainer runs on the engine's device. Returns the trainer, the output
-    directory, the epoch counter, the MVS samples, every view's
-    per-stage outputs ("outs") and the stage, peak-memory and
-    feedback-render records."""
+    `engine` (when looping scenes) or the `device` to build one on
+    (default "cuda"; without a CUDA device this raises rather than run
+    on the CPU, which takes device="cpu"); the trainer runs on the
+    engine's device. Returns the trainer, the output directory, the
+    epoch counter, the MVS samples, every view's per-stage outputs
+    ("outs") and the stage, peak-memory and feedback-render records."""
     if engine is None:
+        if device is None:
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    "save_scene_depth: no CUDA device; the scene runs on "
+                    "'cuda' by default (pass device='cpu' to run it on "
+                    "the CPU)")
+            device = "cuda"
         engine = MVSEngine(cfg, weights_path=mvs_weights, device=device)
     elif device is not None:
         raise ValueError("pass an engine or a device, not both: the "

@@ -7,8 +7,9 @@ density.beta (bridge.py converts between the two).
 
 The sampler's SDF sweep goes through `ops.fused_sdf.fused_sdf_values`
 (the CUDA kernel on a CUDA tensor) under no_grad on detached
-parameters. The gradient-carrying SDF evaluations (`sdf_feat_grad`,
-`sdf_gradient`) run the plain MLP and take the spatial gradient with
+parameters, packed once per step. The gradient-carrying SDF
+evaluations (`sdf_feat_grad`, `sdf_gradient`) run the plain MLP and
+take the spatial gradient with
 `torch.autograd.grad(..., create_graph=True)`, so the eikonal term and
 the normals fed to the radiance MLP train the SDF (double backprop).
 """
@@ -26,7 +27,7 @@ from s_volsdf_tpu_torch.models.density import (get_beta, init_laplace_density,
                                                laplace_density)
 from s_volsdf_tpu_torch.models.embedder import embed_dim, positional_encoding
 from s_volsdf_tpu_torch.models.sampler import error_bound_sample
-from s_volsdf_tpu_torch.ops.fused_sdf import fused_sdf_values
+from s_volsdf_tpu_torch.ops.fused_sdf import fused_sdf_values, pack_sdf
 from s_volsdf_tpu_torch.utils.cameras import (depth_scale_factor,
                                               get_camera_params)
 
@@ -171,10 +172,14 @@ class RenderOutput(NamedTuple):
 def sampler_sdf_fn(params: VolSDFParams, cfg: ModelConfig,
                    bounding_sphere: float):
     """The sampler's no-grad SDF sweep: the fused kernel on detached
-    parameters."""
+    parameters, packed once here (`pack_sdf`) for every sweep the
+    returned function serves (a training step's, or a whole render's)."""
+    pack = pack_sdf(params.sdf, cfg)
+
     def sdf_fn(pts):
         with torch.no_grad():
-            return fused_sdf_values(params.sdf, cfg, pts, bounding_sphere)
+            return fused_sdf_values(params.sdf, cfg, pts, bounding_sphere,
+                                    pack=pack)
     return sdf_fn
 
 

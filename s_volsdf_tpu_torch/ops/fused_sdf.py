@@ -13,6 +13,12 @@ Dispatch is by the device of `pts` alone. A CPU tensor goes through
 config outside `supported`, a failed build, a refused launch). There is
 no fallback from the kernel to the plain version.
 
+The kernel runs its products on the tensor cores as three bf16 products
+(hi/lo split, f32 accumulation). `pack_sdf` lays the weights out for it
+once per weight version: the callers pack once per training step and
+once per render (`models/network.sampler_sdf_fn`) and hand the pack to
+every launch; `fused_sdf_values` without a pack packs for itself.
+
 The kernel library is built with nvcc at first use into `_build/`
 (rebuilt when the source is newer) and bound with ctypes.
 """
@@ -20,11 +26,12 @@ The kernel library is built with nvcc at first use into `_build/`
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import os
 import shutil
 import subprocess
 import threading
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -40,24 +47,26 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 MAX_LAYERS = 16      # csrc/fused_sdf.cu MAX_LAYERS
-MAX_WIDTH = 256      # csrc/fused_sdf.cu MAX_WIDTH
-MAX_MULTIRES = 10    # PE_STRIDE = 64 columns
+WIDTH = 256          # csrc/fused_sdf.cu WIDTH: N of every hidden product
+KCHUNK = 64          # csrc/fused_sdf.cu KCHUNK: K per stage
+MAX_MULTIRES = 10    # d_pe <= 63: layer 0's input is one K chunk
+INV_SQRT2 = 0.7071067811865475
+# |w - (hi + lo)| <= 2^-16 |w|: each half rounded to nearest bf16 (8
+# significant bits) is within 2^-8 of what it rounds.
+SPLIT_REL_ERR = 2.0 ** -16
 
 
 class SdfMeta(ctypes.Structure):
     """Mirror of `struct SdfMeta` in csrc/fused_sdf.cu (passed by value)."""
     _fields_ = [
-        ("n_layers", ctypes.c_int),
-        ("skip_layer", ctypes.c_int),
-        ("multires", ctypes.c_int),
+        ("n_hidden", ctypes.c_int),
+        ("n_stages", ctypes.c_int),
+        ("skip", ctypes.c_int),
+        ("pe_col", ctypes.c_int),
         ("d_pe", ctypes.c_int),
         ("bounding_sphere", ctypes.c_float),
         ("sphere_scale", ctypes.c_float),
-        ("in_dim", ctypes.c_int * MAX_LAYERS),
-        ("in_pad", ctypes.c_int * MAX_LAYERS),
-        ("out", ctypes.c_int * MAX_LAYERS),
-        ("w_off", ctypes.c_int * MAX_LAYERS),
-        ("b_off", ctypes.c_int * MAX_LAYERS),
+        ("chunks", ctypes.c_int * MAX_LAYERS),
     ]
 
 
@@ -67,7 +76,7 @@ def supported(cfg: ModelConfig) -> bool:
     layers. Same family as the Pallas kernel's `supported`."""
     imp = cfg.implicit
     return (imp.d_in == 3 and 0 < imp.multires <= MAX_MULTIRES
-            and len(set(imp.dims)) == 1 and imp.dims[0] <= MAX_WIDTH
+            and len(set(imp.dims)) == 1 and imp.dims[0] <= WIDTH
             and len(imp.skip_in) <= 1
             and all(0 < s <= len(imp.dims) for s in imp.skip_in)
             and len(imp.dims) + 1 <= MAX_LAYERS)
@@ -88,10 +97,9 @@ def sdf_values_plain(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
         wb = normalized_weights(sdf_params)
         inp = positional_encoding(pts, imp.multires)
         h = inp
-        inv_sqrt2 = 0.7071067811865475
         for l, (w, b) in enumerate(wb):
             if l in imp.skip_in:
-                h = torch.cat([h, inp], dim=-1) * inv_sqrt2
+                h = torch.cat([h, inp], dim=-1) * INV_SQRT2
             if l == len(wb) - 1:
                 h = h @ w[:, :1] + b[:1]
             else:
@@ -103,35 +111,94 @@ def sdf_values_plain(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
         return sdf
 
 
-def _pack_params(sdf_params, cfg: ModelConfig, bounding_sphere: float,
-                 device) -> Tuple[torch.Tensor, SdfMeta]:
-    """One contiguous f32 buffer of every layer's (W, b), rows padded to
-    a multiple of 4 with zeros, the last layer as its SDF column only;
-    plus the kernel's layer table."""
+def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x (f32) as hi + lo, each rounded to nearest bf16: the kernel's
+    split of every operand."""
+    hi = x.to(torch.bfloat16)
+    return hi, (x - hi.float()).to(torch.bfloat16)
+
+
+def swizzle128(t: torch.Tensor) -> torch.Tensor:
+    """(..., rows, 64) bf16: each row is 128 bytes, eight 16-byte units;
+    unit u of row r moves to u ^ (r % 8), the tensor cores' 128-byte
+    swizzle (it is its own inverse)."""
+    rows = t.shape[-2]
+    r = torch.arange(rows, device=t.device)
+    u = torch.arange(8, device=t.device)
+    idx = (u[None, :] ^ (r[:, None] % 8))[..., None].expand(rows, 8, 8)
+    t8 = t.reshape(*t.shape[:-1], 8, 8)
+    return torch.gather(t8, -2, idx.expand_as(t8)).reshape(t.shape)
+
+
+@dataclasses.dataclass
+class SdfPack:
+    """The kernel's operands for one version of the SDF weights.
+
+    weights: (n_stages, 256, 64) bf16, the stream the kernel's producer
+      copies stage by stage: for each hidden layer, for each K chunk of
+      64, W_hi then W_lo of that chunk, as (out, in) (K-major), zero-
+      padded to N = 256 and K = 64 * chunks, in the 128-byte swizzle.
+      The skip layer's 1/sqrt(2) is folded in.
+    vec: f32, the hidden layers' biases (n_hidden x 256, zero-padded),
+      then the SDF column of the last layer (256, zero-padded), its
+      rows that multiply the encoding when the skip junction feeds the
+      last layer (64, else zeros), and its bias.
+    meta: the layer table (bounding_sphere and sphere_scale are set per
+      launch)."""
+    weights: torch.Tensor
+    vec: torch.Tensor
+    meta: SdfMeta
+
+
+def pack_sdf(sdf_params, cfg: ModelConfig, device=None) -> SdfPack:
+    """Weight norm, the 1/sqrt(2) fold, the hi/lo split and the padded,
+    swizzled K-major layout, on `device` (default: the weights')."""
+    pack_sdf.builds += 1
     imp = cfg.implicit
-    wb = normalized_weights(sdf_params)
-    meta = SdfMeta()
-    meta.n_layers = len(wb)
-    meta.skip_layer = imp.skip_in[0] if imp.skip_in else -1
-    meta.multires = imp.multires
-    meta.d_pe = embed_dim(imp.multires, imp.d_in)
-    meta.bounding_sphere = float(bounding_sphere)
-    meta.sphere_scale = float(imp.sphere_scale)
-    chunks, off = [], 0
-    for l, (w, b) in enumerate(wb):
-        if l == len(wb) - 1:
-            w, b = w[:, :1], b[:1]
-        d_in, d_out = w.shape
-        in_pad = -(-d_in // 4) * 4
-        if in_pad > d_in:
-            w = torch.cat([w, w.new_zeros((in_pad - d_in, d_out))], dim=0)
-        meta.in_dim[l], meta.in_pad[l], meta.out[l] = d_in, in_pad, d_out
-        meta.w_off[l] = off
-        meta.b_off[l] = off + w.numel()
-        off += w.numel() + b.numel()
-        chunks += [w.reshape(-1), b.reshape(-1)]
-    packed = torch.cat(chunks).to(device=device, dtype=torch.float32)
-    return packed.contiguous(), meta
+    with torch.no_grad():
+        wb = normalized_weights(sdf_params)
+        device = torch.device(device) if device is not None \
+            else wb[0][0].device
+        n_hidden = len(wb) - 1
+        skip = imp.skip_in[0] if imp.skip_in else -1
+        meta = SdfMeta()
+        meta.n_hidden = n_hidden
+        meta.skip = skip
+        meta.pe_col = wb[skip - 1][0].shape[1] if skip > 0 else 0
+        meta.d_pe = embed_dim(imp.multires, imp.d_in)
+        wt = torch.zeros((n_hidden, WIDTH, WIDTH), device=device)
+        vec = torch.zeros((n_hidden + 1) * WIDTH + KCHUNK + 1, device=device)
+        take = []
+        for l, (w, b) in enumerate(wb):
+            w = w.to(device=device, dtype=torch.float32)
+            b = b.to(device=device, dtype=torch.float32)
+            if l == skip:
+                w = w * INV_SQRT2
+            if l == n_hidden:
+                col = w[:, 0]
+                if l == skip:   # [h, pe]: the pe part goes after the column
+                    vec[(l + 1) * WIDTH:(l + 1) * WIDTH + meta.d_pe] = \
+                        col[meta.pe_col:]
+                    col = col[:meta.pe_col]
+                vec[l * WIDTH:l * WIDTH + col.shape[0]] = col
+                vec[-1] = b[0]
+                break
+            k, n = w.shape
+            wt[l, :n, :k] = w.T
+            vec[l * WIDTH:l * WIDTH + n] = b
+            meta.chunks[l] = -(-k // KCHUNK)
+            take += [l * (WIDTH // KCHUNK) + c for c in range(meta.chunks[l])]
+        # (layer, chunk, hi/lo, N, K chunk), then the chunks each layer has.
+        hi, lo = split_bf16(wt)
+        stages = torch.stack([hi, lo], dim=1).reshape(
+            n_hidden, 2, WIDTH, WIDTH // KCHUNK, KCHUNK).permute(0, 3, 1, 2, 4)
+        stages = stages.reshape(-1, 2, WIDTH, KCHUNK)[
+            torch.tensor(take, device=device)].reshape(-1, WIDTH, KCHUNK)
+        meta.n_stages = stages.shape[0]
+        return SdfPack(swizzle128(stages).contiguous(), vec, meta)
+
+
+pack_sdf.builds = 0
 
 
 _LIB = None
@@ -167,28 +234,35 @@ def build(force: bool = False) -> str:
     return LIB_PATH
 
 
+def bind(path: str):
+    """Load a build of csrc/fused_sdf.cu and declare its C entry points."""
+    lib = ctypes.CDLL(path)
+    lib.fused_sdf_forward.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, SdfMeta, ctypes.c_void_p]
+    lib.fused_sdf_forward.restype = ctypes.c_int
+    lib.fused_sdf_error_string.argtypes = [ctypes.c_int]
+    lib.fused_sdf_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _load():
     global _LIB
     with _LIB_LOCK:
         if _LIB is None:
-            lib = ctypes.CDLL(build())
-            lib.fused_sdf_forward.argtypes = [
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, SdfMeta, ctypes.c_void_p]
-            lib.fused_sdf_forward.restype = ctypes.c_int
-            lib.fused_sdf_error_string.argtypes = [ctypes.c_int]
-            lib.fused_sdf_error_string.restype = ctypes.c_char_p
-            _LIB = lib
+            _LIB = bind(build())
         return _LIB
 
 
 def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
-                     bounding_sphere: float) -> torch.Tensor:
+                     bounding_sphere: float,
+                     pack: Optional[SdfPack] = None) -> torch.Tensor:
     """Clamped SDF values (N,) of pts (N, 3) f32, without gradient.
 
-    CPU tensor: `sdf_values_plain`. CUDA tensor: one launch of the fused
-    kernel on the current stream (counted in `fused_sdf_values.launches`),
-    or an exception."""
+    CPU tensor: `sdf_values_plain` (`pack` unused). CUDA tensor: one
+    launch of the fused kernel on the current stream (counted in
+    `fused_sdf_values.launches`) with `pack` (`pack_sdf` of the same
+    weights; packed here when None), or an exception."""
     if pts.device.type == "cpu":
         return sdf_values_plain(sdf_params, cfg, pts, bounding_sphere)
     if pts.device.type != "cuda":
@@ -204,14 +278,22 @@ def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
     n = pts.shape[0]
     if n >= 2 ** 31:
         raise ValueError(f"fused_sdf_values: {n} points exceed int32 indexing")
+    if pack is None:
+        pack = pack_sdf(sdf_params, cfg, pts.device)
+    if pack.weights.device != pts.device:
+        raise ValueError(f"fused_sdf_values: pack on {pack.weights.device}, "
+                         f"points on {pts.device}")
     lib = _load()
-    with torch.no_grad():
-        packed, meta = _pack_params(sdf_params, cfg, bounding_sphere,
-                                    pts.device)
+    meta = SdfMeta.from_buffer_copy(pack.meta)
+    meta.bounding_sphere = float(bounding_sphere)
+    meta.sphere_scale = float(cfg.implicit.sphere_scale)
     out = torch.empty((n,), dtype=torch.float32, device=pts.device)
+    if n == 0:
+        return out
     stream = torch.cuda.current_stream(pts.device).cuda_stream
-    rc = lib.fused_sdf_forward(pts.data_ptr(), packed.data_ptr(),
-                               out.data_ptr(), n, meta, stream)
+    rc = lib.fused_sdf_forward(pts.data_ptr(), pack.weights.data_ptr(),
+                               pack.vec.data_ptr(), out.data_ptr(), n, meta,
+                               stream)
     if rc != 0:
         raise RuntimeError("fused_sdf kernel launch failed: "
                            + lib.fused_sdf_error_string(rc).decode())

@@ -35,10 +35,12 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n", [700, 65536])
+@pytest.mark.parametrize("n", [700, 65536, 65537, 2097152])
 def test_kernel_matches_plain(cuda, n):
-    """Full dtu width. Tolerance 1e-4: float32 sums in another order
-    across 9 layers."""
+    """Full dtu width, up to one render launch (16,384 rays x 128) and
+    with a ragged last block. Tolerance 1e-4: the kernel's bf16 x 3
+    split (about 2^-16 of each product) and float32 sums in another
+    order across 9 layers."""
     cfg = tconfig.dtu_config()
     params = init_volsdf_params(torch.Generator().manual_seed(0), cfg.model,
                                 cuda)
@@ -57,6 +59,7 @@ def test_kernel_matches_plain(cuda, n):
     ((32,) * 4, (2,), 4, 3.0),      # the CPU tests' small size
     ((64,) * 3, (), 2, 0.0),        # no skip junction, no clamp
     ((102,) * 5, (3,), 10, 3.0),    # widths that are not multiples of 4
+    ((64,) * 3, (3,), 4, 3.0),      # the skip junction feeds the SDF layer
 ])
 def test_kernel_family_matches_plain(cuda, dims, skip_in, multires,
                                      bounding_sphere):

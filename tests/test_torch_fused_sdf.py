@@ -6,11 +6,16 @@ on 700 points (a ragged tail for the kernel's tiles).
 Tolerance 3e-5 absolute, the bar tests/test_pallas_fused_sdf.py holds
 the Pallas kernel to: float32 sums in another order across 9 layers.
 The kernel itself runs only on a card (tests/test_torch_cuda.py and
-chip_smoke.py).
+chip_smoke.py); here its pack is checked, and its split arithmetic is
+emulated from the pack and held to the plain version.
 """
+
+import os
+import sys
 
 import jax
 import numpy as np
+import pytest
 import torch
 
 from s_volsdf_tpu.config import load_config
@@ -18,8 +23,15 @@ from s_volsdf_tpu.models.network import init_volsdf_params, sdf_values
 from s_volsdf_tpu.ops.pallas.fused_sdf import fused_sdf_values as jax_fused
 from s_volsdf_tpu_torch import config as tconfig
 from s_volsdf_tpu_torch.bridge import from_jax_params
+from s_volsdf_tpu_torch.models.embedder import positional_encoding
+from s_volsdf_tpu_torch.models.layers import softplus_b
+from s_volsdf_tpu_torch.models.network import init_volsdf_params as tinit
 from s_volsdf_tpu_torch.models.network import sdf_values as tsdf_values
 from s_volsdf_tpu_torch.ops import fused_sdf
+from test_torch_config import IMG_RES, VOL, shrink
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+import chip_smoke  # noqa: E402
 
 
 def test_fused_sdf_plain_matches_jax():
@@ -61,25 +73,155 @@ def test_supported_family():
     assert not fused_sdf.supported(cfg.model)
 
 
+def _stage(pack, l, c, lo=0):
+    """Index in the stream of layer l's stage for K chunk c, W_hi (lo=0)
+    or W_lo (lo=1)."""
+    return 2 * (sum(list(pack.meta.chunks)[:l]) + c) + lo
+
+
+def _pack_layers(pack):
+    """The pack's hidden layers back as (W_hi, W_lo), each (256 out,
+    64 * chunks in) bf16, from the swizzled stage stream."""
+    w = fused_sdf.swizzle128(pack.weights)    # its own inverse
+    layers = [tuple(torch.cat([w[_stage(pack, l, c, lo)]
+                               for c in range(pack.meta.chunks[l])], dim=1)
+                    for lo in (0, 1))
+              for l in range(pack.meta.n_hidden)]
+    assert _stage(pack, pack.meta.n_hidden, 0) == pack.meta.n_stages \
+        == pack.weights.shape[0]
+    return layers
+
+
 def test_packed_layout_matches_weights():
-    """The kernel's packed buffer holds each layer's materialised weights
-    (rows padded to 4 with zeros) and the last layer's SDF column."""
+    """The kernel's pack: every hidden layer's materialised weight,
+    transposed to (out, in) (K-major), as hi + lo within the split's
+    relative error; zero padding to N = 256 and to whole K chunks of 64;
+    the skip layer's 1/sqrt(2) folded in; the 128-byte swizzle; the
+    biases, then the SDF column and bias as the last layer."""
     cfg = tconfig.dtu_config()
-    from s_volsdf_tpu_torch.models.network import init_volsdf_params as tinit
     params = tinit(torch.Generator().manual_seed(0), cfg.model)
-    packed, meta = fused_sdf._pack_params(params.sdf, cfg.model, 3.0, "cpu")
+    pack = fused_sdf.pack_sdf(params.sdf, cfg.model)
+    meta = pack.meta
     wb = fused_sdf.normalized_weights(params.sdf)
-    assert meta.n_layers == 9 and meta.skip_layer == 4 and meta.d_pe == 39
-    assert list(meta.in_dim)[:9] == [39, 256, 256, 256, 256, 256, 256, 256, 256]
-    assert list(meta.in_pad)[:9] == [40] + [256] * 8
-    assert list(meta.out)[:9] == [256, 256, 256, 217, 256, 256, 256, 256, 1]
-    for l, (w, b) in enumerate(wb):
-        if l == 8:
-            w, b = w[:, :1], b[:1]
-        d_in, d_out = w.shape
-        got_w = packed[meta.w_off[l]:meta.b_off[l]].reshape(meta.in_pad[l], d_out)
-        torch.testing.assert_close(got_w[:d_in], w, rtol=0, atol=0)
-        assert torch.all(got_w[d_in:] == 0)
-        torch.testing.assert_close(
-            packed[meta.b_off[l]:meta.b_off[l] + d_out], b, rtol=0, atol=0)
-    assert packed.numel() == meta.b_off[8] + 1
+    assert meta.n_hidden == 8 and meta.skip == 4 and meta.d_pe == 39
+    assert meta.pe_col == 217 and meta.n_stages == 58
+    assert list(meta.chunks)[:8] == [1] + [4] * 7
+    assert pack.weights.dtype == torch.bfloat16
+    assert tuple(pack.weights.shape) == (58, 256, 64)
+    layers = _pack_layers(pack)
+    for l, ((hi, lo), (w, b)) in enumerate(zip(layers, wb)):
+        k, n = w.shape
+        want = w.T * (fused_sdf.INV_SQRT2 if l == 4 else 1.0)
+        got = hi.float() + lo.float()
+        assert torch.all((got[:n, :k] - want).abs()
+                         <= fused_sdf.SPLIT_REL_ERR * want.abs())
+        assert hi.float()[:n, :k].sub(want).abs().max() > 0   # lo is needed
+        assert torch.all(got[n:] == 0) and torch.all(got[:, k:] == 0)
+        torch.testing.assert_close(pack.vec[l * 256:l * 256 + n], b,
+                                   rtol=0, atol=0)
+        assert torch.all(pack.vec[l * 256 + n:(l + 1) * 256] == 0)
+    # The fold: layer 4's packed weights are 1/sqrt(2) of its own.
+    ratio = (layers[4][0].float() + layers[4][1].float())[:256, :256] \
+        / wb[4][0].T
+    assert torch.allclose(ratio[wb[4][0].T != 0],
+                          torch.tensor(fused_sdf.INV_SQRT2), rtol=1e-5)
+    # The swizzle, by its formula: (n, k) of a stage sits in row n at
+    # 16-byte unit (k // 8) ^ (n % 8).
+    hi1 = layers[1][0]
+    for n in (0, 5, 13, 130, 255):
+        for k in (0, 9, 63, 64 + 17, 255):
+            c, kc = divmod(k, 64)
+            raw = pack.weights[_stage(pack, 1, c), n,
+                               8 * ((kc // 8) ^ (n % 8)) + kc % 8]
+            assert raw == hi1[n, k]
+    # The SDF layer: its column 0 and its bias[0].
+    w8, b8 = wb[8]
+    torch.testing.assert_close(pack.vec[8 * 256:9 * 256], w8[:, 0],
+                               rtol=0, atol=0)
+    assert torch.all(pack.vec[9 * 256:9 * 256 + 64] == 0)   # no skip there
+    assert pack.vec[-1] == b8[0] and pack.vec.numel() == 9 * 256 + 64 + 1
+
+
+def emulate_kernel(pack, cfg, pts, bounding_sphere):
+    """csrc/fused_sdf.cu's arithmetic in torch on the CPU, read from its
+    pack: the positional encoding zero-padded to one K chunk; per hidden
+    layer, the input split hi/lo as the kernel's epilogue splits it,
+    A_hi W_hi + A_lo W_hi + A_hi W_lo over the K chunks accumulated in
+    f32, bias, softplus, and the encoding in the columns before the skip
+    junction; the SDF column as a dot product; the clamp."""
+    meta, vec, W = pack.meta, pack.vec, fused_sdf.WIDTH
+    pe = positional_encoding(pts, cfg.implicit.multires)
+    h = torch.nn.functional.pad(pe, (0, fused_sdf.KCHUNK - pe.shape[1]))
+    for l, (w_hi, w_lo) in enumerate(_pack_layers(pack)):
+        k = w_hi.shape[1]
+        a_hi, a_lo = (t.float() for t in fused_sdf.split_bf16(h[:, :k]))
+        w_hi, w_lo = w_hi.float().T, w_lo.float().T
+        acc = a_hi @ w_hi + a_lo @ w_hi + a_hi @ w_lo
+        h = softplus_b(acc + vec[l * W:(l + 1) * W], beta=100.0)
+        if l + 1 == meta.skip < meta.n_hidden:
+            h[:, meta.pe_col:meta.pe_col + meta.d_pe] = pe
+    n = meta.n_hidden
+    sdf = h @ vec[n * W:(n + 1) * W] + vec[-1]
+    if meta.skip == n:   # the SDF layer's own input ends in the encoding
+        sdf = sdf + pe @ vec[(n + 1) * W:(n + 1) * W + meta.d_pe]
+    if bounding_sphere > 0.0:
+        r = torch.linalg.norm(pts, dim=-1)
+        sdf = torch.minimum(sdf, cfg.implicit.sphere_scale
+                            * (bounding_sphere - r))
+    return sdf
+
+
+# The dtu width, then the family members of tests/test_torch_cuda.py.
+FAMILY = [
+    ((256,) * 8, (4,), 6, 3.0),
+    ((32,) * 4, (2,), 4, 3.0),
+    ((64,) * 3, (), 2, 0.0),
+    ((102,) * 5, (3,), 10, 3.0),
+    ((64,) * 3, (3,), 4, 3.0),      # the skip junction feeds the SDF layer
+]
+
+
+@pytest.mark.parametrize("dims,skip_in,multires,bounding_sphere", FAMILY)
+def test_kernel_emulation_matches_plain(dims, skip_in, multires,
+                                        bounding_sphere):
+    """The bf16 x 3 split predicts the card's error: the emulation is
+    held within 1e-4 of the plain float32 version (the card's bar in
+    chip_smoke.py and tests/test_torch_cuda.py) on the 700 points of the
+    JAX parity test. A split with one product fewer fails here."""
+    cfg = tconfig.dtu_config()
+    imp = cfg.model.implicit
+    imp.dims, imp.skip_in, imp.multires = dims, skip_in, multires
+    if dims[0] != 256:
+        cfg.model.feature_vector_size = 16
+    params = tinit(torch.Generator().manual_seed(0), cfg.model)
+    pts = torch.tensor(np.random.default_rng(1).normal(size=(700, 3)),
+                       dtype=torch.float32)
+    pts[::7] *= 2.5
+    pack = fused_sdf.pack_sdf(params.sdf, cfg.model)
+    want = fused_sdf.sdf_values_plain(params.sdf, cfg.model, pts,
+                                      bounding_sphere)
+    with torch.no_grad():
+        got = emulate_kernel(pack, cfg.model, pts, bounding_sphere)
+    err = (got - want).abs().max().item()
+    print(f"emulated bf16 x 3 kernel vs plain, dims {dims}: max|diff| "
+          f"{err:.3e}")   # the card's predicted error (pytest -s)
+    assert err <= 1e-4, err
+    assert err > 0.0   # the split is not exact: the emulation is live
+
+
+def test_pack_once_per_weight_version():
+    """A training step packs once; after its optimizer step the next pack
+    differs; a whole render, over several chunks, packs once."""
+    cfg = shrink(chip_smoke.float32_dtu_config())
+    trainer = chip_smoke.make_trainer(cfg, IMG_RES, VOL, "cpu")
+    sdf = trainer.state.params.sdf
+    before = fused_sdf.pack_sdf(sdf, cfg.model)
+    builds = fused_sdf.pack_sdf.builds
+    trainer.run(1)
+    assert fused_sdf.pack_sdf.builds == builds + 1
+    after = fused_sdf.pack_sdf(sdf, cfg.model)
+    assert not torch.equal(before.weights, after.weights)
+    assert not torch.equal(before.vec, after.vec)
+    builds = fused_sdf.pack_sdf.builds
+    trainer.render_mvs(0, res_scale=0.5, chunk=64)   # 6 chunks of 64 rays
+    assert fused_sdf.pack_sdf.builds == builds + 1

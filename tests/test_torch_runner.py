@@ -32,6 +32,7 @@ import os
 import jax
 import numpy as np
 import pytest
+import torch
 
 from s_volsdf_tpu import config as jconfig
 from s_volsdf_tpu.engine import runner as jrunner
@@ -170,6 +171,16 @@ def test_save_scene_depth_takes_one_device():
     engine = trunner.MVSEngine(cfg, device="cpu")
     with pytest.raises(ValueError, match="not both"):
         trunner.save_scene_depth(cfg, "scan106", engine=engine, device="cpu")
+
+
+def test_save_scene_depth_defaults_to_cuda(monkeypatch):
+    """Given neither an engine nor a device, the scene runs on "cuda";
+    with no CUDA device that is an error naming CUDA, not a silent CPU
+    run."""
+    cfg = shrink(tconfig.dtu_config())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trunner.save_scene_depth(cfg, "scan106")
 
 
 def test_port_trains_and_feeds_back(data_root, tmp_path):
