@@ -6,7 +6,8 @@ Drives the port's main path once at the dtu model's full width and
 checks it, in phases that print in order:
 
   1. environment: torch and CUDA versions, the card, its power limit;
-  2. build: compiles csrc/fused_sdf.cu with nvcc (seconds printed);
+  2. build: compiles csrc/fused_sdf.cu and csrc/fusion.cu with nvcc and
+     csrc/downsample.cpp with g++, all three at once (seconds printed);
   3. kernel: the fused SDF kernel against its plain PyTorch version on
      65,536, 700 and 2,097,152 points (one training sweep, a ragged
      tail, one render launch; max |diff| <= 1e-4); the kernel timed at
@@ -29,8 +30,23 @@ checks it, in phases that print in order:
      same inputs and bridged weights, against the card's; then the three
      stages of one view at 64x96 on the card against the CPU. Prints
      each stage's seconds and peak memory, the render seconds per view,
-     the step median;
-  7. a JSON line with the kernel's numbers, the card's name and power
+     the step median, and the seconds of writing the outputs (PFMs,
+     PNG visualisations, cams, image copies);
+  7. fusion and evaluation, on phase 6's own 1152x1536 outputs: (a) the
+     geometric-consistency kernel against its plain version on the card
+     on all 6 ordered view pairs (masks equal, depth <= 1e-12, x/y <=
+     1e-9), timed (median of 20) against its bytes bound and the plain
+     version; (b) the command line `cli.run.main([... filter_only=true])`
+     on that directory, with eval masks for the training views, its PLY
+     held to a CPU `fuse_views` of the same files (equal count, xyz
+     within one float32 ulp, rgb equal); fusion seconds, the kernel's
+     share, the point count; (c) the Chamfer distance to points on the
+     fixture's sphere (radius 0.8 x 200 = 160) of that cloud (random
+     weights need not put it on the sphere) and of the cloud the same
+     cameras fuse from the sphere's own depths (acc below 1),
+     seconds of the downsampling and of the NN queries; (d) the command
+     line end to end at 64x96 on the card (PFMs, PNGs and PLY written);
+  8. a JSON line with the kernels' numbers, the card's name and power
      limit, and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -51,24 +67,30 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
+from itertools import permutations
 from typing import Dict
 
 import numpy as np
 import torch
 
 from s_volsdf_tpu_torch.bridge import from_jax_mvs_params, to_jax_mvs_params
+from s_volsdf_tpu_torch.cli import run as cli_run
 from s_volsdf_tpu_torch.config import Config, dtu_config
 from s_volsdf_tpu_torch.data.fixtures import make_dtu_fixture
-from s_volsdf_tpu_torch.data.io import read_pfm
+from s_volsdf_tpu_torch.data.io import load_ply, read_pfm, write_png
 from s_volsdf_tpu_torch.data.mvs_dataset import MVSDataset
 from s_volsdf_tpu_torch.data.scene_dataset import scene_from_synthetic
 from s_volsdf_tpu_torch.data.splits import get_trains_ids
 from s_volsdf_tpu_torch.data.synthetic import gt_prob_volume, make_sphere_scene
+from s_volsdf_tpu_torch.engine import eval_geo
+from s_volsdf_tpu_torch.engine.fusion import (filter_depth, fuse_views,
+                                              load_views)
 from s_volsdf_tpu_torch.engine.render import render_depth
 from s_volsdf_tpu_torch.engine.runner import MVSEngine, save_scene_depth
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer
 from s_volsdf_tpu_torch.models.network import init_volsdf_params, render_rays
-from s_volsdf_tpu_torch.ops import fused_sdf
+from s_volsdf_tpu_torch.ops import fused_sdf, geo_consistency
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
 
 # The kernel's bf16 x 3 split (about 2^-16 of each product) and f32 sums
@@ -88,6 +110,23 @@ PROB_SUM_TOL = 1e-4   # every prob_volume sums to 1 along depth
 PROB_TOL = 1e-4
 DEPTH_RTOL = 1e-5
 SCAN = "scan106"
+# Fusion: the kernel repeats the host C++'s float64 arithmetic
+# (--fmad=false), so it is held to its plain version at these bars.
+FUSION_DEPTH_TOL, FUSION_XY_TOL = 1e-12, 1e-9
+HBM_TBPS = 3.35       # the H100's device-memory rate
+SPHERE_RADIUS = 0.8 * 200.0   # the fixture's sphere in its DTU-like frame
+GT_POINTS = 1_000_000
+# The fused cloud of the sphere's own depths against points on it: the
+# GT points lie about 0.57 apart, so its accuracy (mean distance of the
+# cloud to the sphere's points) is a fraction of a unit; 1.0 flags a
+# wrong frame or scale. (Its completeness is not gated: three views see
+# part of the sphere, and the GT points just past their silhouettes
+# count up to max_dist each.)
+TRUTH_ACC_TOL = 1.0
+SMALL_CLI_STEPS = 3
+# A queued device sleep (cycles) that hides a wrapper's host time when a
+# kernel alone is timed.
+BACKLOG_CYCLES = 5_000_000
 
 
 def float32_dtu_config() -> Config:
@@ -241,9 +280,10 @@ def _check_stage(out: Dict, stage: int, shape) -> None:
            f"stage {stage}: depth outside the hypothesis range")
 
 
-def run_cascade(dev, card: str, tmp: str) -> int:
+def run_cascade(dev, card: str, tmp: str):
     """Phase 6's full-width run (see the module docstring); returns the
-    fused SDF kernel's launches in it."""
+    fused SDF kernel's launches in it, save_scene_depth's result and the
+    fixture's data root."""
     data_root = os.path.join(tmp, "data")
     t0 = time.perf_counter()
     make_dtu_fixture(data_root, img_res=CASCADE_RES)
@@ -301,6 +341,9 @@ def run_cascade(dev, card: str, tmp: str) -> int:
           + ", ".join(f"{s:.3f} s" for s in res["feedback_seconds"])
           + f"; fused SDF launches {res['feedback_launches']} [{card}]",
           flush=True)
+    print(f"[cascade] outputs (PFMs, PNG visualisations, cams, image "
+          f"copies) written in {res['outputs_seconds']:.3f} s, of which the "
+          f"PNGs {png_seconds(res):.3f} s (re-encoded) [{card}]", flush=True)
 
     # The main path's own stages of the first view, at full width,
     # against the CPU.
@@ -325,7 +368,244 @@ def run_cascade(dev, card: str, tmp: str) -> int:
           f"{'/'.join(map(str, SMALL_NDEPTHS))}, card vs CPU: prob max|diff| "
           f"{errs['prob']:.3e} (tol {PROB_TOL}), depth max rel diff "
           f"{errs['depth_rel']:.3e} (tol {DEPTH_RTOL})", flush=True)
-    return launches
+    return launches, res, data_root
+
+
+def png_seconds(res) -> float:
+    """The seconds of the three PNGs per view that save_scene_outputs
+    writes (JET depth, grey confidence, image copy at MVS resolution),
+    encoded again into a scratch directory from the run's PFMs."""
+    from s_volsdf_tpu_torch.utils.viz import visualize_depth
+    scan_dir = os.path.join(res["outdir"], SCAN)
+    with tempfile.TemporaryDirectory() as tmp:
+        total = 0.0
+        for s in res["samples"]:
+            v = s.view_ids[0]
+            depth, _ = read_pfm(os.path.join(scan_dir, f"depth_est/{v:08d}.pfm"))
+            conf, _ = read_pfm(os.path.join(scan_dir, f"confidence/{v:08d}.pfm"))
+            t0 = time.perf_counter()
+            write_png(os.path.join(tmp, "d.png"), visualize_depth(
+                depth, depth_min=float(np.quantile(depth, 0.01)),
+                depth_max=float(np.max(s.depth_values)))[..., ::-1], level=1)
+            write_png(os.path.join(tmp, "c.png"),
+                      visualize_depth(conf, direct=True), level=1)
+            write_png(os.path.join(tmp, "i.png"), (np.clip(
+                s.imgs[0], 0, 1) * 255).astype(np.uint8), level=1)
+            total += time.perf_counter() - t0
+    return total
+
+
+def write_train_eval_masks(data_root: str) -> str:
+    """DTU eval masks (the sphere's silhouette, at image resolution) for
+    the fixture's training views, so that fusion's eval-mask path
+    (dilation, resize to the MVS resolution) runs; returns their
+    directory."""
+    scene = make_sphere_scene(n_views=3, img_res=CASCADE_RES, cam_radius=2.8)
+    mask_dir = os.path.join(data_root, "DTU", "eval_mask", SCAN)
+    for v, vid in enumerate(get_trains_ids("DTU", SCAN, 3)):
+        write_png(os.path.join(mask_dir, "mask", f"{vid:03d}.png"),
+                  np.isfinite(scene.depths[v]).astype(np.uint8) * 255)
+    return mask_dir
+
+
+def sphere_points(n: int, seed: int = 0) -> np.ndarray:
+    """n points uniformly on the fixture's sphere (centred at the
+    origin, radius SPHERE_RADIUS), float32."""
+    d = np.random.default_rng(seed).standard_normal((n, 3))
+    return (d / np.linalg.norm(d, axis=1, keepdims=True)
+            * SPHERE_RADIUS).astype(np.float32)
+
+
+def sphere_depth(intr: np.ndarray, extr: np.ndarray, shape_hw) -> np.ndarray:
+    """The z-depth (float32) of the fixture's sphere seen by a camera
+    (intrinsics 3x3, world-to-camera 4x4) at integer pixel coordinates,
+    as fusion reads them; 0 where the ray misses."""
+    H, W = shape_hw
+    u, v = np.meshgrid(np.arange(W, dtype=np.float64),
+                       np.arange(H, dtype=np.float64))
+    rays = np.stack([u, v, np.ones_like(u)], -1) @ np.linalg.inv(
+        np.asarray(intr, np.float64)).T            # camera frame, z = 1
+    R = np.asarray(extr, np.float64)[:3, :3]
+    centre = -R.T @ np.asarray(extr, np.float64)[:3, 3]
+    d = rays @ R                                    # R^T of each ray
+    a, b = (d * d).sum(-1), 2.0 * (d @ centre)
+    disc = b * b - 4.0 * a * (centre @ centre - SPHERE_RADIUS ** 2)
+    z = (-b - np.sqrt(np.maximum(disc, 0.0))) / (2.0 * a)
+    return np.where((disc > 0) & (z > 0), z, 0.0).astype(np.float32)
+
+
+def score_cloud(what: str, xyz: np.ndarray, gt: np.ndarray, card: str):
+    """Chamfer of `xyz` against the GT points, timed in its two parts;
+    checks that each mean is finite exactly when some distance is below
+    max_dist, and returns the result."""
+    t0 = time.perf_counter()
+    down = eval_geo.downsample_radius(xyz, 0.2)
+    down_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ch = {k: float("nan") for k in ("acc", "comp", "overall")}
+    near = {"acc": 0.0, "comp": 0.0}
+    if xyz.shape[0]:
+        ch = eval_geo.chamfer(down, gt, downsample=0.0, want_detail=True)
+        detail = ch.pop("detail")
+        for k, dist in (("acc", detail["d2s"]), ("comp", detail["s2d"])):
+            inside = dist < detail["max_dist"]
+            near[k] = float(inside.mean())
+            _check(bool(np.isfinite(ch[k])) == bool(inside.any()),
+                   f"chamfer {k} {ch[k]} with {int(inside.sum())} "
+                   f"distances below {detail['max_dist']}")
+    nn_s = time.perf_counter() - t0
+    print(f"[eval] {what}: chamfer vs {gt.shape[0]} points on the sphere "
+          f"(radius {SPHERE_RADIUS}): acc {ch['acc']:.4f}, comp "
+          f"{ch['comp']:.4f}, overall {ch['overall']:.4f} (distances below "
+          f"20: {near['acc']:.3f} of the cloud, {near['comp']:.3f} of the "
+          f"sphere's points); downsampling {xyz.shape[0]} -> "
+          f"{down.shape[0]} points {down_s:.3f} s, NN queries {nn_s:.3f} s "
+          f"[{card}]", flush=True)
+    return ch
+
+
+def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
+    """Phase 7 (see the module docstring) on phase 6's outputs; returns
+    the kernel's numbers and the launches of both kernels on this
+    slice's path ((b) and (d))."""
+    cfg = dtu_config()
+    fdist, fdiff = cfg.filter.filter_dist, cfg.filter.filter_diff
+    scan_dir = os.path.join(res["outdir"], SCAN)
+    trains_i = res["trainer"].trains_i
+
+    # (a) The kernel against its plain version on the scene's own pairs.
+    views, _ = load_views(scan_dir, scan_dir, trains_i, device=dev)
+    depths = [torch.as_tensor(v["depth"], device=dev) for v in views]
+    H, W = depths[0].shape
+    mask_diff, depth_err, xy_err, kept = 0, 0.0, 0.0, []
+    for i, j in permutations(range(len(views)), 2):
+        mats = geo_consistency.pair_matrices(
+            views[i]["intrinsics"], views[i]["extrinsics"],
+            views[j]["intrinsics"], views[j]["extrinsics"])
+        got = geo_consistency.geo_consistency(depths[i], depths[j], mats,
+                                              fdist, fdiff, xy=True)
+        ref = geo_consistency.geo_consistency_plain(depths[i], depths[j], mats,
+                                                    fdist, fdiff, xy=True)
+        mask_diff += int((got[0] != ref[0]).sum())
+        depth_err = max(depth_err, (got[1] - ref[1]).abs().max().item())
+        xy_err = max(xy_err, (got[2] - ref[2]).abs().max().item(),
+                     (got[3] - ref[3]).abs().max().item())
+        kept.append(got[0].float().mean().item())
+    _check(mask_diff == 0 and depth_err <= FUSION_DEPTH_TOL
+           and xy_err <= FUSION_XY_TOL,
+           f"geo_consistency vs plain: {mask_diff} mask pixels differ, depth "
+           f"{depth_err}, x/y {xy_err}")
+    mats = geo_consistency.pair_matrices(
+        views[0]["intrinsics"], views[0]["extrinsics"],
+        views[1]["intrinsics"], views[1]["extrinsics"])
+
+    def kernel():
+        return geo_consistency.geo_consistency(depths[0], depths[1], mats,
+                                               fdist, fdiff)
+
+    kernel_ms = _median_ms(kernel, backlog=True)
+    wrapper_ms = _median_ms(kernel)
+    plain_ms = _median_ms(lambda: geo_consistency.geo_consistency_plain(
+        depths[0], depths[1], mats, fdist, fdiff), backlog=True)
+    nbytes = geo_consistency.io_bytes(H, W)
+    bound_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
+    print(f"[fusion] geo_consistency vs plain on the card, {len(kept)} "
+          f"ordered pairs of {H}x{W} depth maps: mask pixels differing "
+          f"{mask_diff}, depth max|diff| {depth_err:.3e} (tol "
+          f"{FUSION_DEPTH_TOL}), x/y max|diff| {xy_err:.3e} (tol "
+          f"{FUSION_XY_TOL}); consistent pixels "
+          + ", ".join(f"{k:.3f}" for k in kept), flush=True)
+    print(f"[fusion] one pair: kernel {kernel_ms:.4f} ms (device, median of "
+          f"20), wrapper {wrapper_ms:.4f} ms (host and device), bound "
+          f"{bound_ms:.4f} ms ({nbytes} bytes at {HBM_TBPS} TB/s): "
+          f"{100 * bound_ms / kernel_ms:.1f}% of bound; plain {plain_ms:.3f} "
+          f"ms [{card}]", flush=True)
+    # The reference cloud for (c), fused before this slice's path is
+    # counted: the same cameras and confidences with the sphere's own
+    # depths.
+    for view in views:
+        view["depth"] = sphere_depth(view["intrinsics"], view["extrinsics"],
+                                     view["depth"].shape)
+    txyz, _, _ = fuse_views(views, device=dev)
+    del views, depths
+
+    # (b) The command line, fusion only, on phase 6's output directory.
+    mask_dir = write_train_eval_masks(data_root)
+    geo_consistency.geo_consistency.launches = 0   # this slice's path starts
+    fused_sdf.fused_sdf_values.launches = 0
+    t0 = time.perf_counter()
+    plys = cli_run.main([f"outdir={res['outdir']}", f"testlist={SCAN}",
+                         f"data_dir_root={data_root}", "filter_only=true"])
+    fusion_s = time.perf_counter() - t0
+    parts = dict(filter_depth.last_seconds)
+    xyz, rgb = load_ply(plys[0])
+    t0 = time.perf_counter()
+    cviews, cmasks = load_views(scan_dir, scan_dir, trains_i,
+                                eval_mask_dir=mask_dir, device="cpu")
+    cxyz, crgb, stats = fuse_views(cviews, eval_masks=cmasks, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    _check(xyz.shape == cxyz.shape
+           and bool(np.all(np.abs(xyz - cxyz) <= np.spacing(np.abs(cxyz))))
+           and np.array_equal(rgb, crgb),
+           f"fused cloud card vs CPU: {xyz.shape} vs {cxyz.shape}")
+    n_pairs = len(trains_i) * (len(trains_i) - 1)
+    print(f"[fusion] cli.run filter_only {SCAN}: {fusion_s:.3f} s (read "
+          f"{parts['read']:.3f}, fuse {parts['fuse']:.3f}, PLY write "
+          f"{parts['write']:.3f}); the kernel {n_pairs} x {kernel_ms:.4f} ms "
+          f"= {100 * n_pairs * kernel_ms / 1e3 / parts['fuse']:.2f}% of the "
+          f"fuse; {xyz.shape[0]} points (final masks "
+          + ", ".join(f"{st['final']:.3f}" for st in stats)
+          + f"); equal to the CPU's fuse_views ({cpu_s:.2f} s) [{card}]",
+          flush=True)
+
+    # (c) Chamfer against the fixture's sphere: of the command line's
+    # cloud (random weights need not put it on the sphere), and of the
+    # cloud that the same cameras fuse from the sphere's own depths,
+    # which must lie on it.
+    gt = sphere_points(GT_POINTS)
+    score_cloud("the fused cloud", xyz, gt, card)
+    ch = score_cloud("the fused cloud of the sphere's depths", txyz, gt, card)
+    _check(txyz.shape[0] > 0 and ch["acc"] < TRUTH_ACC_TOL
+           and np.isfinite(ch["comp"]),
+           f"the sphere's own depths fused off the sphere: {ch}, "
+           f"{txyz.shape[0]} points")
+
+    # (d) The command line end to end at 64x96 on the card.
+    small = os.path.join(tmp, "small")
+    out = os.path.join(tmp, "small_exps")
+    t0 = time.perf_counter()
+    plys = cli_run.main([
+        f"testlist={SCAN}", f"outdir={out}", f"data_dir_root={small}",
+        f"dataset.data_dir_root={small}", f"max_h={SMALL_RES[0]}",
+        f"max_w={SMALL_RES[1]}", f"dataset.img_res=[{SMALL_RES[0]},"
+        f"{SMALL_RES[1]}]", f"mvs.ndepths={list(SMALL_NDEPTHS)}",
+        f"mvs.numdepth={SMALL_NDEPTHS[0]}", "mvs.x2_mvsres=false",
+        f"opt_stepNs=[{SMALL_CLI_STEPS},0,0]",
+        "train.train_compute_dtype=float32",
+        "train.train_activation_dtype=float32",
+        "train.mvs_pack_dtype=float32", "mvs.compute_dtype=float32"])
+    torch.cuda.synchronize()
+    small_s = time.perf_counter() - t0
+    geo_launches = geo_consistency.geo_consistency.launches
+    sdf_launches = fused_sdf.fused_sdf_values.launches   # ... and ends here
+    for v in trains_i:
+        for name in (f"depth_est/{v:08d}.pfm", f"depth_est/{v:08d}.png",
+                     f"confidence/{v:08d}_final.png", f"images/{v:08d}.png"):
+            path = os.path.join(out, SCAN, name)
+            _check(os.path.isfile(path), f"missing {path}")
+    _check(os.path.isfile(plys[0]), f"missing {plys[0]}")
+    _check(geo_launches == 2 * n_pairs and sdf_launches > 0,
+           f"launches on the command-line path: geo_consistency "
+           f"{geo_launches}, fused SDF {sdf_launches}")
+    print(f"[fusion] cli.run end to end {SCAN} at {SMALL_RES[0]}x"
+          f"{SMALL_RES[1]}, {SMALL_CLI_STEPS} steps: {small_s:.2f} s, "
+          f"{load_ply(plys[0])[0].shape[0]} points; launches on the command-"
+          f"line path: geo_consistency {geo_launches}, fused SDF "
+          f"{sdf_launches} [{card}]", flush=True)
+    return {"launches": geo_launches, "sdf_launches": sdf_launches,
+            "max_abs_err": max(depth_err, xy_err), "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "wrapper_ms": wrapper_ms}
 
 
 def sdf_flops_per_point(sdf_params) -> int:
@@ -362,7 +642,10 @@ def near_surface_points(trainer, n_rays: int = 2048, keep: int = 65536):
     return xyz[idx].contiguous(), sdf[idx].max().item()
 
 
-def _median_ms(fn, reps: int = 20) -> float:
+def _median_ms(fn, reps: int = 20, backlog: bool = False) -> float:
+    """Median of `reps` timings of fn by CUDA events. With `backlog`,
+    each behind a queued device sleep, so the device time of fn's
+    kernels is measured and not its host time."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
@@ -370,6 +653,8 @@ def _median_ms(fn, reps: int = 20) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if backlog:
+            torch.cuda._sleep(BACKLOG_CYCLES)
         start.record()
         fn()
         end.record()
@@ -401,11 +686,20 @@ def main() -> None:
           f"count {torch.cuda.device_count()}", flush=True)
     print(f"[env] card: {card}", flush=True)
 
-    # 2. Build.
+    # 2. Build, every source at once.
+    def timed(build):
+        t0 = time.perf_counter()
+        build(force=True)
+        return time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    fused_sdf.build(force=True)
-    print(f"[build] csrc/fused_sdf.cu built in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    sources = {"csrc/fused_sdf.cu": fused_sdf.build,
+               "csrc/fusion.cu": geo_consistency.build,
+               "csrc/downsample.cpp": eval_geo.build_downsample}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        build_s = dict(zip(sources, pool.map(timed, sources.values())))
+    print("[build] " + ", ".join(f"{k} {v:.2f} s" for k, v in build_s.items())
+          + f"; all in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. Kernel against its plain version, full dtu width.
     cfg = float32_dtu_config()
@@ -531,19 +825,23 @@ def main() -> None:
           f"{errs['near_surface']:.3e} (tol {KERNEL_TOL})", flush=True)
     del trainer, near, got, ref
 
-    # 6. The cascade and the scene runner.
+    # 6. The cascade and the scene runner; 7. fusion and evaluation on
+    # its outputs.
     with tempfile.TemporaryDirectory() as tmp:
-        cascade_launches = run_cascade(dev, card, tmp)
-    print(f"[cascade] fused SDF launches: {launches} on the training and "
-          f"render path, {cascade_launches} on the cascade path", flush=True)
+        cascade_launches, res, data_root = run_cascade(dev, card, tmp)
+        print(f"[cascade] fused SDF launches: {launches} on the training "
+              f"and render path, {cascade_launches} on the cascade path",
+              flush=True)
+        fusion = run_fusion(dev, card, tmp, res, data_root)
+        del res
 
-    # 7. Results.
+    # 8. Results.
     print(json.dumps({"kernels": [{
         "name": "fused_sdf",
         "route": "cuda",
         "source": "s_volsdf_tpu_torch/csrc/fused_sdf.cu",
         "replaces": "s_volsdf_tpu/ops/pallas/fused_sdf.py:116",
-        "launches": launches + cascade_launches,
+        "launches": launches + cascade_launches + fusion["sdf_launches"],
         "max_abs_err": max(errs.values()),
         "ms": kernel_ms[KERNEL_SWEEP],
         "plain_ms": plain_ms,
@@ -553,6 +851,20 @@ def main() -> None:
         "tflops": tflops[KERNEL_SWEEP],
         f"ms_at_{KERNEL_RENDER}": kernel_ms[KERNEL_RENDER],
         f"bound_ms_at_{KERNEL_RENDER}": bound_ms[KERNEL_RENDER],
+    }, {
+        "name": "geo_consistency",
+        "route": "cuda",
+        "source": "s_volsdf_tpu_torch/csrc/fusion.cu",
+        "replaces": "s_volsdf_tpu/native/fusion.cpp:59",
+        "launches": fusion["launches"],
+        "max_abs_err": fusion["max_abs_err"],
+        "ms": fusion["ms"],
+        "plain_ms": fusion["plain_ms"],
+        "bound_ms": fusion["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": None,
+        "wrapper_ms": fusion["wrapper_ms"],
+        "shape": list(CASCADE_MVS_RES),
     }]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,85 @@
+"""The pipeline's command line (counterpart of s_volsdf_tpu/cli/run.py:
+15-71): hydra-style dotted `key=value` overrides, run on "cuda".
+
+    python -m s_volsdf_tpu_torch.cli.run testlist=scan106 \
+        train.train_compute_dtype=float32 train.train_activation_dtype=float32 \
+        train.mvs_pack_dtype=float32 mvs.compute_dtype=float32
+    python -m s_volsdf_tpu_torch.cli.run testlist=scan106 filter_only=true
+
+Each scene of `testlist` (a comma list, or a .txt file of scan names) runs
+the cascade with VolSDF feedback and writes its depth maps
+(`save_depth`, skipped with filter_only=true); then fusion writes
+<outdir>/mvsnet{id:03d}_l3.ply (`pcd_filter`). `+key=value` works like
+`key=value`; `preset=` (or the hydra group `vol=`) picks the dtu, bmvs
+or default preset; `mvs_weights=` names a converted cascade checkpoint.
+The port runs float32 only, so the four precision knobs above are
+needed for a run that trains.
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+from typing import List
+
+from s_volsdf_tpu_torch.config import load_config, validate_config
+from s_volsdf_tpu_torch.engine.runner import pcd_filter, save_depth
+
+logger = logging.getLogger("s_volsdf_tpu_torch")
+
+_TRUE = ("1", "true", "yes")
+
+
+def parse_testlist(testlist: str) -> List[str]:
+    """A file of scan names, or a comma list."""
+    if "txt" in testlist:
+        with open(testlist) as f:
+            return [line.rstrip() for line in f if line.strip()]
+    return [x for x in testlist.replace(" ", "").split(",") if x]
+
+
+def main(argv: List[str], *, device=None) -> List[str]:
+    """Run the pipeline for argv's overrides on `device` ("cuda" by
+    default; device="cpu" runs it on the CPU). Returns the fused PLYs'
+    paths."""
+    overrides = [a for a in argv if "=" in a]
+    extra = {k.lstrip("+"): v
+             for k, v in (o.split("=", 1) for o in overrides)}
+    # Pop 'vol' on its own line: a default argument of pop() would be
+    # evaluated eagerly and swallow 'vol=' whenever 'preset=' is given.
+    vol = extra.pop("vol", None)
+    preset = extra.pop("preset", None)
+    if preset and vol and preset != vol:
+        raise SystemExit(f"conflicting preset={preset} and vol={vol}")
+    preset = preset or vol or "dtu"
+    create_scene = extra.pop("create_scene", "false").lower() in _TRUE
+    multiscene = extra.pop("multiscene", "false").lower() in _TRUE
+    mvs_weights = extra.pop("mvs_weights", None)
+
+    cfg = validate_config(load_config(
+        preset, overrides=[f"{k}={v}" for k, v in extra.items()]))
+    testlist = parse_testlist(cfg.testlist)
+    logger.info(f"testlist={testlist} outdir={cfg.outdir} "
+                f"exps={cfg.exps_folder}")
+
+    if create_scene:
+        raise NotImplementedError(
+            "create_scene=true: image-based rendering (engine/ibr.py) is "
+            "not ported yet (ROADMAP queue 1, 'IBR')")
+    if not cfg.filter_only:
+        if multiscene and len(testlist) > 1:
+            raise NotImplementedError(
+                "multiscene=true: joint multi-scene training "
+                "(engine/multiscene.py) is not ported yet (ROADMAP queue 1, "
+                "'Multi-scene and multi-device')")
+        save_depth(cfg, testlist, mvs_weights=mvs_weights, device=device)
+    return pcd_filter(cfg, testlist, device=device)
+
+
+def cli() -> None:
+    logging.basicConfig(level=logging.INFO, format="%(message)s")
+    main(sys.argv[1:])
+
+
+if __name__ == "__main__":
+    cli()

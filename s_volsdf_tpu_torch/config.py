@@ -13,11 +13,12 @@ the three `train.*_dtype` knobs and `mvs.compute_dtype` to "float32").
 
 from __future__ import annotations
 
+import ast
 import dataclasses
 import json
 import os
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Any, List, Optional, Tuple
 
 
 @dataclass(unsafe_hash=True)
@@ -126,7 +127,7 @@ class MVSConfig:
 
 @dataclass(unsafe_hash=True)
 class FilterConfig:
-    """Point-cloud fusion knobs (fusion is not ported yet)."""
+    """Point-cloud fusion (engine/fusion.py, runner.pcd_filter)."""
     conf: float = 0.0
     filter_dist: float = 1.0
     filter_diff: float = 0.01
@@ -148,6 +149,8 @@ class Config:
     use_nerf_d: Tuple[int, ...] = (1, 0, 0)
     inverse_depth: bool = False
     ablate: bool = False
+    filter_only: bool = False
+    num_worker: int = 4
     seed: int = 0
     mvs: MVSConfig = field(default_factory=MVSConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
@@ -165,6 +168,20 @@ def dtu_config() -> Config:
     return cfg
 
 
+def bmvs_config() -> Config:
+    """Counterpart of `s_volsdf_tpu.config.bmvs_config`, for the fields
+    the port has. It builds; `check_float32` refuses its background
+    model (`with_background`) when a run starts."""
+    cfg = dtu_config()
+    cfg.dataset.data_dir = "BlendedMVS"
+    cfg.dataset.scan_id = 1
+    cfg.model.with_background = True
+    cfg.model.implicit.sphere_scale = 1.0
+    cfg.model.sampler.inverse_sphere_bg = True
+    cfg.model.sampler.add_tiny = 1e-6
+    return cfg
+
+
 def per_scene_overrides(cfg: Config, scene: str) -> Config:
     """Per-scan tweaks (counterpart of s_volsdf_tpu/config.py:309-323)."""
     cfg = dataclasses.replace(cfg)  # shallow copy of top level
@@ -179,6 +196,72 @@ def per_scene_overrides(cfg: Config, scene: str) -> Config:
             cfg.loss.sparse_weight = 0.0
         if scene in ("scan1", "scan2", "scan5", "scan6", "scan8", "scan9"):
             cfg.inverse_depth = True
+    return cfg
+
+
+# --------------------------------------------------------------------------
+# Presets and dotted command-line overrides (s_volsdf_tpu/config.py:330-395)
+# --------------------------------------------------------------------------
+
+_PRESETS = {"dtu": dtu_config, "bmvs": bmvs_config, "default": Config}
+
+
+def _parse_literal(value: str) -> Any:
+    """A command-line value by JSON rules (`[20,0,0]`, `1e-3`, `null`),
+    then Python literal rules (`(1, 2)`, `None`), else the string."""
+    try:
+        return json.loads(value)
+    except ValueError:
+        pass
+    try:
+        return ast.literal_eval(value)
+    except (ValueError, SyntaxError):
+        return value
+
+
+def _coerce(value: str, current: Any) -> Any:
+    """Parse a command-line string into the type of the field's value."""
+    if current is None:
+        return _parse_literal(value)
+    if isinstance(current, bool):
+        return value.lower() in ("1", "true", "yes", "on")
+    if isinstance(current, int):
+        return int(value)
+    if isinstance(current, float):
+        return float(value)
+    if isinstance(current, tuple):
+        parsed = _parse_literal(value)
+        if not isinstance(parsed, (list, tuple)):
+            parsed = [parsed]
+        return tuple(parsed)
+    return value
+
+
+def apply_override(cfg: Any, dotted_key: str, value: str) -> None:
+    """Set `cfg.<dotted.key> = value` with type coercion. A key or
+    section the port's config does not have raises, naming the key."""
+    parts = dotted_key.split(".")
+    obj = cfg
+    for i, p in enumerate(parts):
+        names = ({f.name for f in dataclasses.fields(obj)}
+                 if dataclasses.is_dataclass(obj) else set())
+        if p not in names:
+            raise ValueError(f"config override {dotted_key!r}: the port's "
+                           f"config has no {'.'.join(parts[:i + 1])!r}")
+        if i < len(parts) - 1:
+            obj = getattr(obj, p)
+    setattr(obj, parts[-1], _coerce(value, getattr(obj, parts[-1])))
+
+
+def load_config(preset: str = "dtu",
+                overrides: Optional[List[str]] = None) -> Config:
+    """A Config from a preset ("dtu", "bmvs" or "default") and
+    `key.subkey=value` overrides. The JAX loader's YAML file argument
+    is left out: the card's machine has no YAML parser."""
+    cfg = _PRESETS[preset]()
+    for ov in overrides or []:
+        key, _, value = ov.partition("=")
+        apply_override(cfg, key.strip(), value.strip())
     return cfg
 
 

@@ -1,5 +1,6 @@
-"""Host-side file IO: PFM, MVS cam files, PNG images (counterpart of
-s_volsdf_tpu/data/io.py:23-70, 188-215).
+"""Host-side file IO: PFM, binary PLY, MVS cam files, PNG images
+(counterpart of s_volsdf_tpu/data/io.py:23-106, 137-215). `save_ply`
+writes the same bytes as the JAX package's.
 
 The JAX package reads and writes images with imageio; the port carries
 its own PNG codec on zlib and numpy, so it needs no image library: 8-bit
@@ -71,8 +72,99 @@ def save_pfm(filename: str, image: np.ndarray, scale: float = 1.0) -> None:
 
 
 # --------------------------------------------------------------------------
+# PLY (binary little-endian, xyz + optional rgb and triangles)
+# --------------------------------------------------------------------------
+
+def save_ply(filename: str, xyz: np.ndarray,
+             rgb: Optional[np.ndarray] = None,
+             faces: Optional[np.ndarray] = None) -> None:
+    """xyz: (N, 3) float; rgb: (N, 3) uint8 or None; faces: (M, 3)
+    int or None (triangle mesh)."""
+    os.makedirs(os.path.dirname(filename) or ".", exist_ok=True)
+    n = xyz.shape[0]
+    with open(filename, "wb") as f:
+        header = ["ply", "format binary_little_endian 1.0",
+                  f"element vertex {n}",
+                  "property float x", "property float y", "property float z"]
+        if rgb is not None:
+            header += ["property uchar red", "property uchar green",
+                       "property uchar blue"]
+        if faces is not None:
+            header += [f"element face {faces.shape[0]}",
+                       "property list uchar int vertex_indices"]
+        header += ["end_header"]
+        f.write(("\n".join(header) + "\n").encode())
+        if rgb is None:
+            xyz.astype("<f4").tofile(f)
+        else:
+            rec = np.empty(n, dtype=[("x", "<f4"), ("y", "<f4"), ("z", "<f4"),
+                                     ("r", "u1"), ("g", "u1"), ("b", "u1")])
+            rec["x"], rec["y"], rec["z"] = xyz.T.astype(np.float32)
+            rec["r"], rec["g"], rec["b"] = rgb.T.astype(np.uint8)
+            rec.tofile(f)
+        if faces is not None:
+            frec = np.empty(faces.shape[0], dtype=[
+                ("n", "u1"), ("a", "<i4"), ("b", "<i4"), ("c", "<i4")])
+            frec["n"] = 3
+            frec["a"], frec["b"], frec["c"] = faces.T.astype(np.int32)
+            frec.tofile(f)
+
+
+_PLY_TYPES = {b"float": "<f4", b"float32": "<f4", b"double": "<f8",
+              b"uchar": "u1", b"uint8": "u1", b"int": "<i4"}
+
+
+def load_ply(filename: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """The vertices of a PLY as (xyz (N, 3) float32, rgb (N, 3) uint8 or
+    None): the files `save_ply` writes, and ascii or binary vertex-only
+    files whose first three properties are x, y, z."""
+    with open(filename, "rb") as f:
+        if f.readline().strip() != b"ply":
+            raise ValueError(f"{filename}: not a PLY file")
+        fmt = f.readline().strip().split()[1]
+        n = 0
+        props = []
+        in_vertex = False   # inside the vertex element's block
+        while True:
+            line = f.readline().strip()
+            if line.startswith(b"element vertex"):
+                n = int(line.split()[-1])
+                in_vertex = True
+            elif line.startswith(b"property") and in_vertex:
+                props.append(line.split()[1:])
+            elif line == b"end_header":
+                break
+            elif line.startswith(b"element"):
+                in_vertex = False
+        if fmt == b"ascii":
+            data = np.loadtxt(f, max_rows=n)
+            xyz = data[:, :3].astype(np.float32)
+            rgb = data[:, 3:6].astype(np.uint8) if data.shape[1] >= 6 else None
+            return xyz, rgb
+        dtype = np.dtype([(f"p{i}", _PLY_TYPES[p[0]])
+                          for i, p in enumerate(props)])
+        rec = np.fromfile(f, dtype=dtype, count=n)
+        xyz = np.stack([rec["p0"], rec["p1"], rec["p2"]], -1).astype(np.float32)
+        rgb = None
+        if len(props) >= 6 and props[3][0] in (b"uchar", b"uint8"):
+            rgb = np.stack([rec["p3"], rec["p4"], rec["p5"]], -1)
+        return xyz, rgb
+
+
+# --------------------------------------------------------------------------
 # MVS cam txt
 # --------------------------------------------------------------------------
+
+def read_camera_parameters(filename: str) -> Tuple[np.ndarray, np.ndarray]:
+    """(intrinsics (3, 3), extrinsics (4, 4)) float32 of a cam file."""
+    with open(filename) as f:
+        lines = [line.rstrip() for line in f.readlines()]
+    extrinsics = np.fromstring(" ".join(lines[1:5]), dtype=np.float32,
+                               sep=" ").reshape((4, 4))
+    intrinsics = np.fromstring(" ".join(lines[7:10]), dtype=np.float32,
+                               sep=" ").reshape((3, 3))
+    return intrinsics, extrinsics
+
 
 def write_cam(filename: str, cam: np.ndarray,
               near_far: Optional[np.ndarray] = None) -> None:

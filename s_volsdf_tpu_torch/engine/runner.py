@@ -10,11 +10,13 @@ save_scene_depth, per scene:
       volumes to the VolSDF trainer (they stay on the device), trains,
       renders VolSDF depth for each training view and feeds it to the
       next stage as its hypothesis centre,
-  (c) writes the depth and confidence PFMs and the cam files.
+  (c) writes the depth and confidence PFMs, their PNG visualisations,
+      the cam files and the images/ copy.
 
-Serial over reference views on one device. Not ported yet: fusion
-(pcd_filter), the depth/confidence PNG visualisations and the images/
-copy, the trainer's checkpoints, UCSNet and TransMVSNet.
+pcd_filter then fuses each scene's depth maps into its point cloud
+(engine/fusion.py). Serial over reference views and scenes on one
+device. Not ported yet: the trainer's checkpoints, UCSNet and
+TransMVSNet.
 """
 
 from __future__ import annotations
@@ -31,16 +33,19 @@ from s_volsdf_tpu_torch.bridge import load_mvs_checkpoint
 from s_volsdf_tpu_torch.config import (Config, check_mvs_float32,
                                        per_scene_overrides, save_config,
                                        validate_config)
-from s_volsdf_tpu_torch.data.io import save_pfm, write_cam
+from s_volsdf_tpu_torch.data.io import save_pfm, write_cam, write_png
 from s_volsdf_tpu_torch.data.mvs_dataset import MVSDataset
 from s_volsdf_tpu_torch.data.scene_dataset import load_scene
 from s_volsdf_tpu_torch.data.splits import get_trains_ids
+from s_volsdf_tpu_torch.engine.fusion import filter_depth
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer
 from s_volsdf_tpu_torch.models.mvs import blocks as B
 from s_volsdf_tpu_torch.models.mvs.casmvsnet import (casmvsnet_features,
                                                      casmvsnet_stage,
                                                      init_casmvsnet)
 from s_volsdf_tpu_torch.ops.fused_sdf import fused_sdf_values
+from s_volsdf_tpu_torch.utils.device import resolve_device
+from s_volsdf_tpu_torch.utils.viz import visualize_depth
 
 logger = logging.getLogger("s_volsdf_tpu_torch")
 
@@ -204,22 +209,17 @@ def save_scene_depth(cfg: Config, scene_name: str, *,
                      engine: Optional[MVSEngine] = None,
                      device=None) -> Dict:
     """Run the interleaved 3-stage MVS/VolSDF pipeline for one scene and
-    save depth/confidence/cams under cfg.outdir. Pass either a shared
-    `engine` (when looping scenes) or the `device` to build one on
-    (default "cuda"; without a CUDA device this raises rather than run
-    on the CPU, which takes device="cpu"); the trainer runs on the
-    engine's device. Returns the trainer, the output directory, the
-    epoch counter, the MVS samples, every view's per-stage outputs
-    ("outs") and the stage, peak-memory and feedback-render records."""
+    save its outputs under cfg.outdir (`save_scene_outputs`). Pass
+    either a shared `engine` (when looping scenes) or the `device` to
+    build one on (default "cuda"; without a CUDA device this raises
+    rather than run on the CPU, which takes device="cpu"); the trainer
+    runs on the engine's device. Returns the trainer, the output
+    directory, the epoch counter, the MVS samples, every view's
+    per-stage outputs ("outs"), the stage, peak-memory and
+    feedback-render records and the seconds of writing the outputs."""
     if engine is None:
-        if device is None:
-            if not torch.cuda.is_available():
-                raise RuntimeError(
-                    "save_scene_depth: no CUDA device; the scene runs on "
-                    "'cuda' by default (pass device='cpu' to run it on "
-                    "the CPU)")
-            device = "cuda"
-        engine = MVSEngine(cfg, weights_path=mvs_weights, device=device)
+        engine = MVSEngine(cfg, weights_path=mvs_weights,
+                           device=resolve_device(device, "save_scene_depth"))
     elif device is not None:
         raise ValueError("pass an engine or a device, not both: the "
                          "trainer runs on the engine's device")
@@ -243,10 +243,13 @@ def save_scene_depth(cfg: Config, scene_name: str, *,
             feedback_depths(sc, outs)
         accumulate_stage(sc, outs, stage_idx)
 
+    t0 = time.perf_counter()
     save_scene_outputs(sc)
+    outputs_seconds = time.perf_counter() - t0
     logger.info(f"scene {scene_name}: outputs saved to {sc['outdir']}")
     return {"trainer": trainer, "outdir": sc["outdir"], "epoch": epoch,
             "samples": sc["samples"], "outs": sc["outs_samples"],
+            "outputs_seconds": outputs_seconds,
             **{k: sc[k] for k in ("stage_seconds", "stage_peak_bytes",
                                   "feedback_seconds", "feedback_launches")}}
 
@@ -254,7 +257,11 @@ def save_scene_depth(cfg: Config, scene_name: str, *,
 def save_scene_outputs(sc: Dict) -> None:
     """Write each view's depth_est and confidence PFMs (the confidence is
     the product of the three stages' maps, each resized bilinearly to
-    the final resolution) and its cams/*_cam.txt."""
+    the final resolution), their PNG visualisations (JET depth between
+    the 1st depth percentile and the largest hypothesis; grey
+    confidence), its cams/*_cam.txt and images/*.png, the reference
+    image at MVS resolution. The JAX package writes that copy as a
+    JPEG; the port writes the exact 8-bit pixels losslessly."""
     outdir = sc["outdir"]
     for s, outputs in zip(sc["samples"], sc["outs_samples"]):
         depth_est = np.asarray(outputs["depth"], np.float32)
@@ -265,23 +272,74 @@ def save_scene_outputs(sc: Dict) -> None:
             if tuple(c.shape) != (H, W):
                 c = B.interpolate_bilinear(c[None, None], (H, W))[0, 0]
             conf_final = c if conf_final is None else conf_final * c
+        conf_final = conf_final.numpy().astype(np.float32)
         save_pfm(os.path.join(outdir, s.filename.format("depth_est", ".pfm")),
                  depth_est)
         save_pfm(os.path.join(outdir,
                               s.filename.format("confidence", ".pfm")),
-                 conf_final.numpy().astype(np.float32))
+                 conf_final)
+        # BGR like cv2's; cv2.imwrite stores it as RGB. zlib level 1 is
+        # cv2's default PNG compression.
+        dep_max = float(np.asarray(s.depth_values).max())
+        dmin = float(np.quantile(depth_est, 0.01))
+        write_png(os.path.join(outdir, s.filename.format("depth_est", ".png")),
+                  visualize_depth(depth_est, depth_min=dmin,
+                                  depth_max=dep_max)[..., ::-1], level=1)
+        write_png(os.path.join(outdir,
+                               s.filename.format("confidence", "_final.png")),
+                  visualize_depth(conf_final, direct=True), level=1)
         cam = np.asarray(s.proj_matrices["stage3"][0])
         write_cam(os.path.join(outdir, s.filename.format("cams", "_cam.txt")),
                   cam, s.cam_near_far)
+        img = (np.clip(s.imgs[0], 0, 1) * 255).astype(np.uint8)
+        write_png(os.path.join(outdir, s.filename.format("images", ".png")),
+                  img, level=1)
+
+
+def pcd_filter(cfg: Config, testlist: List[str], exps_root: str = ".", *,
+               device=None) -> List[str]:
+    """Fuse each scene's depth maps into <outdir>/mvsnet{id:03d}_l3.ply
+    (counterpart of s_volsdf_tpu/engine/runner.py:574-601), with the
+    eval masks of <data_dir_root>/<data_dir>/eval_mask/<scan> when
+    cfg.filter.eval_mask and that directory exists. Returns the PLY
+    paths.
+
+    Fusion runs on `device` ("cuda" by default), serially over the
+    scenes in this process: a forked worker cannot reuse the parent's
+    CUDA context, so cfg.num_worker does not fan out here. With one
+    process there is no scene partition across hosts either."""
+    dev = resolve_device(device, "pcd_filter")
+    outdir = os.path.join(exps_root, cfg.outdir)
+    plys = []
+    for scan in testlist:
+        trains_i = get_trains_ids(cfg.dataset.data_dir, scan, cfg.num_view)
+        ply = os.path.join(outdir, f"mvsnet{int(scan[4:]):03d}_l3.ply")
+        eval_mask_dir = None
+        if cfg.filter.eval_mask:
+            d = os.path.join(cfg.data_dir_root, cfg.dataset.data_dir,
+                             "eval_mask", scan)
+            eval_mask_dir = d if os.path.isdir(d) else None
+        scan_dir = os.path.join(outdir, scan)
+        plys.append(filter_depth(
+            scan_dir, scan_dir, ply, trains_i, conf_thresh=cfg.filter.conf,
+            thres_view=cfg.filter.thres_view,
+            filter_dist=cfg.filter.filter_dist,
+            filter_diff=cfg.filter.filter_diff, eval_mask_dir=eval_mask_dir,
+            device=dev))
+    return plys
 
 
 def save_depth(cfg: Config, testlist: List[str], *,
                mvs_weights: Optional[str] = None, exps_root: str = ".",
-               device) -> None:
+               device=None) -> None:
     """Every scene of `testlist` with its per-scan overrides, sharing
-    one MVSEngine (the overrides never touch cfg.mvs)."""
-    engine = MVSEngine(cfg, weights_path=mvs_weights, device=device) \
-        if testlist else None
+    one MVSEngine (the overrides never touch cfg.mvs), on `device`
+    ("cuda" by default; without a CUDA device this raises rather than
+    run on the CPU, which takes device="cpu")."""
+    dev = resolve_device(device, "save_depth")
+    if not testlist:
+        return
+    engine = MVSEngine(cfg, weights_path=mvs_weights, device=dev)
     for scene in testlist:
         scene_cfg = per_scene_overrides(cfg, scene)
         logger.info(

@@ -28,8 +28,6 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import os
-import shutil
-import subprocess
 import threading
 from typing import List, Optional, Tuple
 
@@ -38,13 +36,10 @@ import torch
 from s_volsdf_tpu_torch.config import ModelConfig
 from s_volsdf_tpu_torch.models.embedder import embed_dim, positional_encoding
 from s_volsdf_tpu_torch.models.layers import softplus_b
+from s_volsdf_tpu_torch.ops.build import (CSRC_DIR, NVCC_FLAGS,
+                                          build_library, nvcc)
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "fused_sdf.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-LIB_PATH = os.path.join(BUILD_DIR, "libfused_sdf.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+SOURCE = os.path.join(CSRC_DIR, "fused_sdf.cu")
 
 MAX_LAYERS = 16      # csrc/fused_sdf.cu MAX_LAYERS
 WIDTH = 256          # csrc/fused_sdf.cu WIDTH: N of every hidden product
@@ -205,33 +200,12 @@ _LIB = None
 _LIB_LOCK = threading.Lock()
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (PATH or $CUDA_HOME/bin): the "
-                           "fused SDF kernel cannot be built")
-    return path
-
-
 def build(force: bool = False) -> str:
     """Compile csrc/fused_sdf.cu into _build/libfused_sdf.so unless an
-    up-to-date library exists. Written to a temporary name and renamed,
-    so concurrent processes never load a partial file. Raises on failure."""
-    if (not force and os.path.exists(LIB_PATH)
-            and os.path.getmtime(LIB_PATH) >= os.path.getmtime(SOURCE)):
-        return LIB_PATH
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.tmp.{os.getpid()}"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({' '.join(cmd)}):\n{res.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return LIB_PATH
+    up-to-date library exists (`ops.build.build_library`). Raises on
+    failure."""
+    return build_library([nvcc()] + NVCC_FLAGS, SOURCE, "libfused_sdf.so",
+                         force)
 
 
 def bind(path: str):

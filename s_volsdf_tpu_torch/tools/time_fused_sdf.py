@@ -118,11 +118,9 @@ def trace(block: int = 100) -> None:
     import torch
     sys.path.insert(0, REPO)
     from s_volsdf_tpu_torch.ops import fused_sdf as fs
-    so = os.path.join(fs.BUILD_DIR, "libfused_sdf_trace.so")
-    os.makedirs(fs.BUILD_DIR, exist_ok=True)
-    subprocess.run([fs._nvcc()] + fs.NVCC_FLAGS
-                   + [f"-DFUSED_SDF_TRACE={block}", "-o", so, fs.SOURCE],
-                   check=True)
+    from s_volsdf_tpu_torch.ops.build import NVCC_FLAGS, build_library, nvcc
+    so = build_library([nvcc()] + NVCC_FLAGS + [f"-DFUSED_SDF_TRACE={block}"],
+                       fs.SOURCE, "libfused_sdf_trace.so", force=True)
     lib = fs.bind(so)
     lib.fused_sdf_trace.argtypes = [ctypes.c_void_p]
     dev = torch.device("cuda")

@@ -1,5 +1,6 @@
-"""The port's CUDA kernel against its plain PyTorch version, and the
-CasMVSNet cascade on the card against the same cascade on the CPU.
+"""The port's CUDA kernels against their plain PyTorch versions, the
+CasMVSNet cascade on the card against the same cascade on the CPU, and
+fusion on the card against fusion on the CPU.
 
 Every test here needs an NVIDIA GPU (and nvcc for the kernel); without
 one it skips with the reason. On a machine with a card:
@@ -21,7 +22,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from s_volsdf_tpu_torch import config as tconfig  # noqa: E402
 from s_volsdf_tpu_torch.models.network import init_volsdf_params  # noqa: E402
-from s_volsdf_tpu_torch.ops import fused_sdf  # noqa: E402
+from s_volsdf_tpu_torch.engine import fusion  # noqa: E402
+from s_volsdf_tpu_torch.ops import fused_sdf, geo_consistency  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -29,7 +31,8 @@ pytestmark = pytest.mark.cuda
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device (the fused SDF kernel has no CPU mode)")
+        pytest.skip("needs a CUDA device (the port's CUDA kernels have no "
+                    "CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
@@ -99,3 +102,68 @@ def test_cascade_stages_match_cpu(cuda, tmp_path):
     errs = chip_smoke.cascade_card_vs_cpu(cuda, str(tmp_path / "data"))
     assert errs["prob"] <= chip_smoke.PROB_TOL, errs
     assert errs["depth_rel"] <= chip_smoke.DEPTH_RTOL, errs
+
+
+def _depth_pair(H, W, angle, seed=0):
+    """Two noisy depth maps of a smooth surface about 600 units away,
+    5% holes, seen by float32 cameras `angle` radians apart."""
+    rng = np.random.default_rng(seed)
+    intr = np.array([[1.1 * W, 0, W / 2], [0, 1.1 * W, H / 2], [0, 0, 1]],
+                    np.float32)
+
+    def extr(a):
+        c, s = np.cos(a), np.sin(a)
+        E = np.eye(4, dtype=np.float32)
+        E[:3, :3] = [[c, 0, s], [0, 1, 0], [-s, 0, c]]
+        E[:3, 3] = [40 * a, 0, 600]
+        return E
+
+    base = (600 + 30 * np.sin(np.linspace(0, 3, W))[None]
+            + 20 * np.cos(np.linspace(0, 2, H))[:, None])
+    d_ref = (base + rng.standard_normal((H, W))).astype(np.float32)
+    d_src = (base + rng.standard_normal((H, W))).astype(np.float32)
+    d_ref[rng.random((H, W)) < 0.05] = 0
+    return d_ref, intr, extr(0.0), d_src, intr, extr(angle)
+
+
+@pytest.mark.parametrize("H,W,angle", [(1152, 1536, 0.1), (64, 96, 0.1),
+                                       (37, 131, 0.8)])
+@pytest.mark.parametrize("xy", [False, True])
+def test_geo_consistency_kernel_matches_plain(cuda, H, W, angle, xy):
+    """The kernel (built with --fmad=false) against its plain version on
+    the card and on the CPU: masks equal, depth within 1e-12, x/y within
+    1e-9 (measured equal)."""
+    d_ref, K1, E1, d_src, K2, E2 = _depth_pair(H, W, angle)
+    mats = geo_consistency.pair_matrices(K1, E1, K2, E2)
+    a, b = torch.tensor(d_ref, device=cuda), torch.tensor(d_src, device=cuda)
+    before = geo_consistency.geo_consistency.launches
+    got = geo_consistency.geo_consistency(a, b, mats, 1.0, 0.01, xy=xy)
+    torch.cuda.synchronize()
+    assert geo_consistency.geo_consistency.launches == before + 1
+    for ref in (geo_consistency.geo_consistency_plain(a, b, mats, 1.0, 0.01, xy),
+                geo_consistency.geo_consistency_plain(a.cpu(), b.cpu(), mats,
+                                                      1.0, 0.01, xy)):
+        assert torch.equal(got[0].cpu(), ref[0].cpu())
+        assert (got[1].cpu() - ref[1].cpu()).abs().max().item() <= 1e-12
+        if xy:
+            for g, r in zip(got[2:], ref[2:]):
+                assert (g.cpu() - r.cpu()).abs().max().item() <= 1e-9
+        else:
+            assert got[2] is None and got[3] is None
+
+
+def test_fuse_views_card_matches_cpu(cuda):
+    """The whole fusion of three views on the card against the CPU:
+    equal counts, xyz within one float32 ulp, rgb equal."""
+    rng = np.random.default_rng(1)
+    views = []
+    for angle in (0.0, 0.05, -0.05):
+        d, K, _, _, _, E = _depth_pair(96, 128, angle, seed=2)
+        views.append({"depth": d, "confidence": rng.random(d.shape, np.float32),
+                      "intrinsics": K, "extrinsics": E,
+                      "image": rng.random(d.shape + (3,), np.float32)})
+    got = fusion.fuse_views(views, device=cuda)
+    want = fusion.fuse_views(views, device="cpu")
+    assert got[0].shape == want[0].shape and got[0].shape[0] > 0
+    assert np.all(np.abs(got[0] - want[0]) <= np.spacing(np.abs(want[0])))
+    np.testing.assert_array_equal(got[1], want[1])

@@ -1,6 +1,7 @@
 """The port's data path against the JAX package's: the PNG codec against
-imageio, PFM and cam files, the projection decomposition, the DTU
-fixture, `load_scene` and `MVSDataset`.
+imageio, PFM, PLY and cam files, the depth visualisation, the
+projection decomposition, the DTU fixture, `load_scene` and
+`MVSDataset`. PLY bytes and visualisation pixels are equal.
 
 Tolerances: PNG pixels, PFM arrays, fixture cameras and pixels, and the
 hypothesis depths bit-equal; `load_K_Rt_from_P` 1e-5 (scipy's RQ against
@@ -132,6 +133,79 @@ def test_cam_file_round_trip(tmp_path):
     K, E = jio.read_camera_parameters(str(tmp_path / "a.txt"))
     np.testing.assert_array_equal(E, cam[0])
     np.testing.assert_array_equal(K, cam[1][:3, :3])
+
+
+def test_read_camera_parameters_matches_jax(tmp_path):
+    cam = np.random.default_rng(6).normal(size=(2, 4, 4)).astype(np.float32)
+    tio.write_cam(str(tmp_path / "a.txt"), cam, np.array([425.0, 2.65]))
+    for got, want in zip(tio.read_camera_parameters(str(tmp_path / "a.txt")),
+                         jio.read_camera_parameters(str(tmp_path / "a.txt"))):
+        assert got.dtype == want.dtype == np.float32
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("parts", ["xyz", "rgb", "faces", "rgb_faces",
+                                   "empty"])
+def test_save_ply_byte_equal(tmp_path, parts):
+    """save_ply writes the JAX package's bytes; load_ply (both packages')
+    reads them back."""
+    rng = np.random.default_rng(7)
+    n = 0 if parts == "empty" else 57
+    xyz = rng.normal(size=(n, 3)) * 100
+    rgb = rng.integers(0, 256, (n, 3)).astype(np.uint8) \
+        if "rgb" in parts else None
+    faces = rng.integers(0, n, (20, 3)) if "faces" in parts else None
+    tio.save_ply(str(tmp_path / "a.ply"), xyz, rgb, faces)
+    jio.save_ply(str(tmp_path / "b.ply"), xyz, rgb, faces)
+    assert (tmp_path / "a.ply").read_bytes() == (tmp_path / "b.ply").read_bytes()
+    for reader in (tio.load_ply, jio.load_ply):
+        got_xyz, got_rgb = reader(str(tmp_path / "a.ply"))
+        np.testing.assert_array_equal(got_xyz, xyz.astype(np.float32))
+        if rgb is None:
+            assert got_rgb is None
+        else:
+            np.testing.assert_array_equal(got_rgb, rgb)
+
+
+def test_load_ply_ascii(tmp_path):
+    path = tmp_path / "a.ply"
+    path.write_text("ply\nformat ascii 1.0\nelement vertex 2\n"
+                    "property float x\nproperty float y\nproperty float z\n"
+                    "property uchar red\nproperty uchar green\n"
+                    "property uchar blue\nend_header\n"
+                    "1 2 3 4 5 6\n-1.5 0 2 255 0 7\n")
+    for reader in (tio.load_ply, jio.load_ply):
+        xyz, rgb = reader(str(path))
+        np.testing.assert_array_equal(xyz, [[1, 2, 3], [-1.5, 0, 2]])
+        np.testing.assert_array_equal(rgb, [[4, 5, 6], [255, 0, 7]])
+
+
+def _viz_depth():
+    """Every 8-bit level once (a ramp of 256 values from 100 to 355), plus
+    NaN, +-inf and masked pixels."""
+    depth = np.linspace(100.0, 355.0, 256).reshape(16, 16)
+    depth = np.concatenate([depth, np.full((1, 16), 50.0)])
+    depth[16, :3] = [np.nan, np.inf, -np.inf]
+    mask = np.ones(depth.shape, bool)
+    mask[16, 5:8] = False
+    return depth.astype(np.float32), mask
+
+
+@pytest.mark.parametrize("direct", [False, True])
+@pytest.mark.parametrize("with_mask,ranged", [(False, True), (True, True),
+                                              (True, False)])
+def test_visualize_depth_matches_jax(direct, with_mask, ranged):
+    from s_volsdf_tpu.utils.viz import visualize_depth as jviz
+    from s_volsdf_tpu_torch.utils.viz import visualize_depth as tviz
+    depth, mask = _viz_depth()
+    kw = dict(mask=mask if with_mask else None, direct=direct)
+    if ranged:
+        kw.update(depth_min=100.0, depth_max=355.0)
+    got, want = tviz(depth, **kw), jviz(depth, **kw)
+    assert got.dtype == want.dtype == np.uint8
+    np.testing.assert_array_equal(got, want)
+    if ranged and not direct:   # all 256 colours of the table
+        assert len(np.unique(got[:16].reshape(-1, 3), axis=0)) == 256
 
 
 def test_load_K_Rt_from_P_matches_cv2():

@@ -23,6 +23,11 @@ Tolerances on every view's PFMs:
   a whole window). Measured max 7.5e-09, no such pixel.
 - cam files: within 1e-5.
 
+The port's PNG outputs: the depth and confidence visualisations equal
+the JAX function's pixels of the port's own PFMs; the image copy is the
+MVS sample's exact pixels (the JAX package's JPEG is within a mean
+error of 2 levels of it).
+
 A second test runs the port alone with three steps: finite losses,
 depths inside the fixture's range.
 """
@@ -39,7 +44,7 @@ from s_volsdf_tpu.engine import runner as jrunner
 from s_volsdf_tpu.utils import checkpoint as jckpt
 from s_volsdf_tpu_torch import config as tconfig
 from s_volsdf_tpu_torch.data.fixtures import make_dtu_fixture
-from s_volsdf_tpu_torch.data.io import read_pfm
+from s_volsdf_tpu_torch.data.io import read_pfm, read_png
 from s_volsdf_tpu_torch.engine import runner as trunner
 from s_volsdf_tpu_torch.engine import trainer as ttrainer
 from s_volsdf_tpu_torch.ops import fused_sdf
@@ -181,6 +186,41 @@ def test_save_scene_depth_defaults_to_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         trunner.save_scene_depth(cfg, "scan106")
+
+
+def test_save_depth_defaults_to_cuda(monkeypatch):
+    """The scene-list entry point, like the single scene's, runs on
+    "cuda" unless told otherwise, and without a card raises naming CUDA."""
+    cfg = shrink(tconfig.dtu_config())
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trunner.save_depth(cfg, ["scan106"])
+
+
+@pytest.mark.parametrize("view", VIEWS)
+def test_output_pngs(both_runs, view):
+    """The visualisations hold the JAX function's BGR pixels of the
+    port's own PFMs, stored as cv2.imwrite stores them; the image copy is
+    the sample's exact 8-bit pixels, within JPEG error of the JAX
+    package's copy."""
+    import cv2
+    from s_volsdf_tpu.utils.viz import visualize_depth as jviz
+    jdir, tdir, res = both_runs
+    sample = next(s for s in res["samples"] if s.view_ids[0] == view)
+    depth, _ = read_pfm(os.path.join(tdir, f"depth_est/{view:08d}.pfm"))
+    conf, _ = read_pfm(os.path.join(tdir, f"confidence/{view:08d}.pfm"))
+    want = jviz(depth, depth_min=float(np.quantile(depth, 0.01)),
+                depth_max=float(np.max(sample.depth_values)))
+    got = cv2.imread(os.path.join(tdir, f"depth_est/{view:08d}.png"))
+    np.testing.assert_array_equal(got, want)
+    got = cv2.imread(os.path.join(tdir, f"confidence/{view:08d}_final.png"),
+                     cv2.IMREAD_UNCHANGED)
+    np.testing.assert_array_equal(got, jviz(conf, direct=True))
+    img = read_png(os.path.join(tdir, f"images/{view:08d}.png"))
+    np.testing.assert_array_equal(
+        img, (np.clip(sample.imgs[0], 0, 1) * 255).astype(np.uint8))
+    jpg = cv2.imread(os.path.join(jdir, f"images/{view:08d}.jpg"))[..., ::-1]
+    assert np.abs(img.astype(int) - jpg).mean() < 2.0
 
 
 def test_port_trains_and_feeds_back(data_root, tmp_path):
