@@ -6,36 +6,54 @@ Drives the port's main path once at the dtu model's full width and
 checks it, in phases that print in order:
 
   1. environment: torch and CUDA versions, the card, its power limit;
-  2. build: compiles csrc/fused_sdf.cu and csrc/fusion.cu with nvcc and
-     csrc/downsample.cpp with g++, all three at once (seconds printed);
-  3. kernel: the fused SDF kernel against its plain PyTorch version on
+  2. build: compiles csrc/fused_sdf.cu, csrc/cost_mapping.cu and
+     csrc/fusion.cu with nvcc and csrc/downsample.cpp with g++, all at
+     once (seconds printed);
+  3. kernels: the fused SDF kernel against its plain PyTorch version on
      65,536, 700 and 2,097,152 points (one training sweep, a ragged
-     tail, one render launch; max |diff| <= 1e-4); the kernel timed at
-     65,536 and 2,097,152 points with its TFLOP/s and its share of the
-     bound (three bf16 products per multiply-add at 989 TFLOP/s), the
-     plain version at 65,536; after phase 5, the kernel again on 65,536
-     points of the trained field's own rays nearest its surface;
+     tail, one render launch) in both modes: float32 (bf16 x 3 split,
+     max |diff| <= 1e-4) and bfloat16 (the training default: one bf16
+     product per layer, bf16 activations; within 2^-6 (|sdf| + 1) of
+     its plain bf16 version); each mode timed at 65,536 and 2,097,152
+     points with its TFLOP/s and its share of the bound (three bf16
+     products, or one, per multiply-add at 989 TFLOP/s), the plain
+     versions at 65,536; the cost-mapping kernel against its plain
+     version at bench.py's shapes (512 rays x 96 samples, three
+     192x288x384 volumes, float32 and bf16, linear and inverse depth;
+     masks equal, pi/pj within 1e-6), timed behind a queued device sleep
+     against its bytes bound (the distinct 32-byte sectors its samples
+     read) and the plain version; after phase 5, the fused kernel again
+     on 65,536 points of the trained field's own rays nearest its
+     surface, in both modes;
   4. training: 20 steps of VolTrainer at bench.py's shapes (576x768
-     scene, 512 rays/step, three 192x288x384 MVS volumes), float32;
-  5. feedback render: render_mvs of view 0 at quarter resolution
-     (144x192, fast=-1, chunk 16,384; the weights packed once for it),
-     and a 6x8-pixel render on the card against the same render on the
-     CPU's plain path;
+     scene, 512 rays/step, three 192x288x384 MVS volumes) at the JAX
+     defaults (bf16 products and activations in the training render,
+     bf16 volumes), then 20 in float32; both medians, the launches of
+     each fused-SDF mode and of the cost-mapping kernel;
+  5. feedback render: render_mvs of view 0 at 576x768 (fast=-1, chunk
+     16,384; the weights packed once per render) with
+     feedback_render_dtype float32 and bfloat16, and a 6x8-pixel render
+     on the card against the same render on the CPU's plain path;
   6. cascade: `save_scene_depth` on a 576x768 DTU-layout fixture (scan106)
      at x2 MVS resolution (1152x1536), D = 192/32/8, the full casmvsnet
-     and dtu VolSDF widths: stage 0, 20 VolSDF steps regularised by its
-     volumes, the three 576x768 feedback renders (fused SDF kernel),
-     stages 1 and 2 on the fed-back depth, the PFMs and cam files; the
-     three stages of the run's first view recomputed on the CPU from the
-     same inputs and bridged weights, against the card's; then the three
-     stages of one view at 64x96 on the card against the CPU. Prints
-     each stage's seconds and peak memory, the render seconds per view,
-     the step median, and the seconds of writing the outputs (PFMs,
-     PNG visualisations, cams, image copies);
-  7. fusion and evaluation, on phase 6's own 1152x1536 outputs: (a) the
-     geometric-consistency kernel against its plain version on the card
-     on all 6 ordered view pairs (masks equal, depth <= 1e-12, x/y <=
-     1e-9), timed (median of 20) against its bytes bound and the plain
+     (its random convs at He's gain, `he_gain`) and dtu VolSDF widths,
+     float32: stage 0, 20 VolSDF steps regularised
+     by its volumes, the three 576x768 feedback renders (fused SDF
+     kernel), stages 1 and 2 on the fed-back depth, the PFMs and cam
+     files; the three stages of the run's first view recomputed on the
+     CPU from the same inputs and bridged weights, against the card's
+     (the engine keeps TF32 off on its own; this script sets no TF32
+     flag); then the three stages of one view at 64x96 on the card
+     against the CPU; then the same scene at the JAX defaults (bf16
+     cascade convs, bf16 training), its volumes checked and its stage-0
+     prob of the first view held to the float32 run's. Prints each
+     stage's seconds and peak memory, the render seconds per view, the
+     step median, and the seconds of writing the outputs (PFMs, PNG
+     visualisations, cams, image copies), for both runs;
+  7. fusion and evaluation, on phase 6's float32 1152x1536 outputs: (a)
+     the geometric-consistency kernel against its plain version on the
+     card on all 6 ordered view pairs (masks equal, depth <= 1e-12, x/y
+     <= 1e-9), timed (median of 20) against its bytes bound and the plain
      version; (b) the command line `cli.run.main([... filter_only=true])`
      on that directory, with eval masks for the training views, its PLY
      held to a CPU `fuse_views` of the same files (equal count, xyz
@@ -45,22 +63,25 @@ checks it, in phases that print in order:
      weights need not put it on the sphere) and of the cloud the same
      cameras fuse from the sphere's own depths (acc below 1),
      seconds of the downsampling and of the NN queries; (d) the command
-     line end to end at 64x96 on the card (PFMs, PNGs and PLY written);
+     line end to end at 64x96 on the card with no precision override
+     (PFMs, PNGs and PLY written);
   8. a JSON line with the kernels' numbers, the card's name and power
      limit, and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA device. Weights are random,
-from seed 0. The matmul and cuDNN TF32 paths are switched off: the
-plain version is the float32 reference.
+from seed 0. Each path's launch counts are set to 0 just before it is
+driven and read just after.
 
 The helpers `float32_dtu_config`, `make_volumes` and `make_trainer` are
-shared with the CPU test of the same loop (tests/test_torch_trainer.py),
-`cascade_config` and `cascade_card_vs_cpu` with tests/test_torch_cuda.py.
+shared with the CPU tests of the same loop (tests/test_torch_trainer.py,
+tests/test_torch_precision.py), `cascade_config` and
+`cascade_card_vs_cpu` with tests/test_torch_cuda.py.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -88,18 +109,30 @@ from s_volsdf_tpu_torch.engine.fusion import (filter_depth, fuse_views,
                                               load_views)
 from s_volsdf_tpu_torch.engine.render import render_depth
 from s_volsdf_tpu_torch.engine.runner import MVSEngine, save_scene_depth
+from s_volsdf_tpu_torch.engine.train_step import training_model_config
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer
 from s_volsdf_tpu_torch.models.network import init_volsdf_params, render_rays
-from s_volsdf_tpu_torch.ops import fused_sdf, geo_consistency
+from s_volsdf_tpu_torch.ops import cost_mapping, fused_sdf, geo_consistency
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
 
 # The kernel's bf16 x 3 split (about 2^-16 of each product) and f32 sums
 # in another order across 9 layers.
 KERNEL_TOL = 1e-4
+# The bfloat16 mode against its plain bf16 version: |d| <= 2^-6 (|sdf| +
+# 1), four bf16 units. wgmma sums each layer in another order than the
+# plain matmul, which moves a bf16 rounding of an activation now and then
+# and the SDF with it: measured up to 3.2e-3 (|sdf| + 1) at 2,097,152
+# points.
+BF16_KERNEL_UNITS = 2.0 ** -6
 KERNEL_SWEEP, KERNEL_RENDER = 65536, 2097152   # one step's sweep, one render launch
 BF16_TFLOPS = 989.0   # the H100's dense bf16 tensor-core peak
 RENDER_TOL = 2e-4     # the VolSDF render bar (README "Verified parity")
 TRAIN_STEPS = 20
+# cost_mapping against its plain version: the same float32 operations in
+# the same order (--fmad=false), measured bit-equal; masks equal.
+COST_TOL = 1e-6
+COST_RAYS, COST_SAMPLES = 512, 96   # one step: 512 rays x (64 + 32) samples
+BENCH_VOLUMES = (192, 288, 384)     # bench.py's three stage-0 volumes
 CASCADE_RES = (576, 768)            # the dtu images
 CASCADE_X2, CASCADE_MVS_RES = True, (1152, 1536)   # x2_mvsres
 CASCADE_NDEPTHS = (192, 32, 8)
@@ -131,8 +164,7 @@ BACKLOG_CYCLES = 5_000_000
 
 def float32_dtu_config() -> Config:
     """The dtu preset with the three training precision knobs and the
-    cascade's at float32 (the JAX defaults are bf16, which the port
-    refuses)."""
+    cascade's at float32 (their JAX defaults are bf16)."""
     cfg = dtu_config()
     cfg.train.train_compute_dtype = "float32"
     cfg.train.train_activation_dtype = "float32"
@@ -142,9 +174,10 @@ def float32_dtu_config() -> Config:
 
 
 def make_volumes(scene, vol_shape, device) -> MVSVolumes:
-    """Informative MVS volumes (D, Hc, Wc) for every view, with
+    """Informative float32 MVS volumes (D, Hc, Wc) for every view, with
     bench.py's arguments (sigma 1 interval, floor 0.02, depth noise
-    2.5/200, hypotheses linspace(0.5, 5.0, D))."""
+    2.5/200, hypotheses linspace(0.5, 5.0, D)); a trainer stores them in
+    its train.mvs_pack_dtype when it runs."""
     D, Hc, Wc = vol_shape
     H, W = scene.img_res
     dvals = np.linspace(0.5, 5.0, D).astype(np.float32)
@@ -181,10 +214,11 @@ def make_trainer(cfg: Config, img_res, vol_shape, device) -> VolTrainer:
 
 
 def cascade_config(data_root: str, img_res, ndepths, x2_mvsres: bool,
-                   opt_stepNs) -> Config:
-    """The float32 dtu preset reading the DTU-layout fixture under
-    data_root at img_res, with the cascade's hypothesis counts."""
-    cfg = float32_dtu_config()
+                   opt_stepNs, base=float32_dtu_config) -> Config:
+    """The dtu preset (`base`: float32, or `dtu_config` for the JAX
+    defaults) reading the DTU-layout fixture under data_root at img_res,
+    with the cascade's hypothesis counts."""
+    cfg = base()
     cfg.data_dir_root = cfg.dataset.data_dir_root = data_root
     cfg.max_h, cfg.max_w = img_res
     cfg.dataset.img_res = tuple(img_res)
@@ -280,33 +314,46 @@ def _check_stage(out: Dict, stage: int, shape) -> None:
            f"stage {stage}: depth outside the hypothesis range")
 
 
-def run_cascade(dev, card: str, tmp: str):
-    """Phase 6's full-width run (see the module docstring); returns the
-    fused SDF kernel's launches in it, save_scene_depth's result and the
-    fixture's data root."""
-    data_root = os.path.join(tmp, "data")
-    t0 = time.perf_counter()
-    make_dtu_fixture(data_root, img_res=CASCADE_RES)
-    print(f"[cascade] {CASCADE_RES[0]}x{CASCADE_RES[1]} DTU fixture written "
-          f"in {time.perf_counter() - t0:.2f} s", flush=True)
-    cfg = cascade_config(data_root, CASCADE_RES, CASCADE_NDEPTHS, CASCADE_X2,
-                         (TRAIN_STEPS, 0, 0))
+def he_gain(net: torch.nn.Module) -> None:
+    """Every conv kernel of `net` times sqrt(6), in place: He's gain for
+    the +-sqrt(1/fan_in) uniform init, so that random features keep their
+    size through the ReLUs and the stage-0 probabilities are not uniform
+    (with the plain init they are 1/D to the bit, and bf16 convs could
+    not be told from float32 ones)."""
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d,
+                              torch.nn.ConvTranspose3d)):
+                m.weight.mul_(6 ** 0.5)
+
+
+def _scene_run(dev, card: str, cfg: Config, exps_root: str, what: str):
+    """One `save_scene_depth` of phase 6 with `cfg` and the He-gain
+    cascade weights, its launch counts set to 0 before and read after;
+    checks its losses, feedback renders, volumes and files, and prints
+    its numbers. Returns the engine, the result and the launches
+    {"fused_sdf": {mode: n}, "cost_mapping": n}."""
     engine = MVSEngine(cfg, device=dev)
-    fused_sdf.fused_sdf_values.launches = 0     # the cascade path starts
+    he_gain(engine.net)
+    fused_sdf.reset_launches()                  # this path starts
+    cost_mapping.cost_mapping.launches = 0
     t0 = time.perf_counter()
-    res = save_scene_depth(cfg, SCAN, exps_root=tmp, engine=engine)
+    res = save_scene_depth(cfg, SCAN, exps_root=exps_root, engine=engine)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = fused_sdf.fused_sdf_values.launches   # ... and ends here
-    trainer = res["trainer"]
+    launches = {"fused_sdf": dict(fused_sdf.fused_sdf_values.mode_launches),
+                "cost_mapping": cost_mapping.cost_mapping.launches}
+    trainer = res["trainer"]                    # ... and ends here
 
     losses = [lo.loss for lo in trainer.losses]
     _check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
-           f"cascade: finite losses: {losses}")
+           f"cascade {what}: finite losses: {losses}")
     _check(len(res["feedback_launches"]) == 3
            and all(n > 0 for n in res["feedback_launches"]),
-           f"fused SDF launches per feedback render: "
+           f"cascade {what}: fused SDF launches per feedback render: "
            f"{res['feedback_launches']}")
+    _check(launches["cost_mapping"] == TRAIN_STEPS,
+           f"cascade {what}: cost_mapping launches {launches}")
     H2, W2 = CASCADE_MVS_RES
     for out in res["outs"]:
         for stage, scale in enumerate((4, 2, 1)):
@@ -324,26 +371,45 @@ def run_cascade(dev, card: str, tmp: str):
                        f"{path}: shape {arr.shape}, finite "
                        f"{np.isfinite(arr).all()}")
 
-    print(f"[cascade] save_scene_depth {SCAN}, MVS {H2}x{W2}, D "
+    print(f"[cascade] {what}: save_scene_depth {SCAN}, MVS {H2}x{W2}, D "
           f"{'/'.join(map(str, CASCADE_NDEPTHS))}, {TRAIN_STEPS} steps: "
           f"{total_s:.2f} s [{card}]", flush=True)
-    for stage, (s, peak) in enumerate(zip(res["stage_seconds"],
-                                          res["stage_peak_bytes"])):
-        print(f"[cascade] stage {stage}: {s:.3f} s for 3 views, peak "
-              f"allocated {peak / 2**30:.2f} GiB [{card}]", flush=True)
+    for stage, (sec, peak) in enumerate(zip(res["stage_seconds"],
+                                            res["stage_peak_bytes"])):
+        print(f"[cascade] {what}: stage {stage}: {sec:.3f} s for 3 views, "
+              f"peak allocated {peak / 2**30:.2f} GiB [{card}]", flush=True)
     step_ms = 1e3 * float(np.median(trainer.step_seconds))
     mvs_losses = [lo.mvs_loss for lo in trainer.losses]
-    print(f"[cascade] {TRAIN_STEPS} steps on stage 0's volumes: loss "
-          f"{losses[0]:.5f} -> {losses[-1]:.5f}, mvs loss {mvs_losses[0]:.5f}"
-          f" -> {mvs_losses[-1]:.5f}, median {step_ms:.2f} ms/step [{card}]",
+    print(f"[cascade] {what}: {TRAIN_STEPS} steps on stage 0's volumes: "
+          f"loss {losses[0]:.5f} -> {losses[-1]:.5f}, mvs loss "
+          f"{mvs_losses[0]:.5f} -> {mvs_losses[-1]:.5f}, median "
+          f"{step_ms:.2f} ms/step [{card}]", flush=True)
+    print(f"[cascade] {what}: feedback renders {CASCADE_RES[0]}x"
+          f"{CASCADE_RES[1]}: "
+          + ", ".join(f"{sec:.3f} s" for sec in res["feedback_seconds"])
+          + f"; fused SDF launches {res['feedback_launches']}; launches on "
+          f"the path {launches} [{card}]", flush=True)
+    print(f"[cascade] {what}: outputs (PFMs, PNG visualisations, cams, "
+          f"image copies) written in {res['outputs_seconds']:.3f} s, of "
+          f"which the PNGs {png_seconds(res):.3f} s (re-encoded) [{card}]",
           flush=True)
-    print(f"[cascade] feedback renders {CASCADE_RES[0]}x{CASCADE_RES[1]}: "
-          + ", ".join(f"{s:.3f} s" for s in res["feedback_seconds"])
-          + f"; fused SDF launches {res['feedback_launches']} [{card}]",
-          flush=True)
-    print(f"[cascade] outputs (PFMs, PNG visualisations, cams, image "
-          f"copies) written in {res['outputs_seconds']:.3f} s, of which the "
-          f"PNGs {png_seconds(res):.3f} s (re-encoded) [{card}]", flush=True)
+    return engine, res, launches
+
+
+def run_cascade(dev, card: str, tmp: str):
+    """Phase 6 (see the module docstring); returns the launches on its
+    two paths (`_scene_run`), the float32 run's result and the fixture's
+    data root."""
+    data_root = os.path.join(tmp, "data")
+    t0 = time.perf_counter()
+    make_dtu_fixture(data_root, img_res=CASCADE_RES)
+    print(f"[cascade] {CASCADE_RES[0]}x{CASCADE_RES[1]} DTU fixture written "
+          f"in {time.perf_counter() - t0:.2f} s", flush=True)
+    args = (data_root, CASCADE_RES, CASCADE_NDEPTHS, CASCADE_X2,
+            (TRAIN_STEPS, 0, 0))
+    engine, res, launches = _scene_run(dev, card, cascade_config(*args), tmp,
+                                       "float32")
+    H2, W2 = CASCADE_MVS_RES
 
     # The main path's own stages of the first view, at full width,
     # against the CPU.
@@ -359,6 +425,7 @@ def run_cascade(dev, card: str, tmp: str):
           f"max|diff| {errs['prob']:.3e} (tol {PROB_TOL}), depth max rel "
           f"diff {errs['depth_rel']:.3e} (tol {DEPTH_RTOL}); CPU "
           f"{errs['cpu_s']:.2f} s", flush=True)
+    del engine
 
     errs = cascade_card_vs_cpu(dev, os.path.join(tmp, "small"))
     _check(errs["prob"] <= PROB_TOL and errs["depth_rel"] <= DEPTH_RTOL,
@@ -368,7 +435,24 @@ def run_cascade(dev, card: str, tmp: str):
           f"{'/'.join(map(str, SMALL_NDEPTHS))}, card vs CPU: prob max|diff| "
           f"{errs['prob']:.3e} (tol {PROB_TOL}), depth max rel diff "
           f"{errs['depth_rel']:.3e} (tol {DEPTH_RTOL})", flush=True)
-    return launches, res, data_root
+
+    # The same scene at the JAX defaults: bf16 cascade convs, bf16
+    # training, bf16 volumes, float32 feedback renders.
+    f32_prob = res["outs"][0]["stage1"]["prob_volume"]
+    _, dres, dlaunches = _scene_run(
+        dev, card, cascade_config(*args, base=dtu_config),
+        os.path.join(tmp, "defaults"), "defaults")
+    _check(dlaunches["fused_sdf"]["bfloat16"] == TRAIN_STEPS,
+           f"bf16 fused-SDF launches on the defaults' scene: {dlaunches}")
+    prob = dres["outs"][0]["stage1"]["prob_volume"]
+    err = (prob - f32_prob).abs().max().item()
+    _check(err <= PROB_TOL, f"stage-0 prob, bf16 convs vs float32: {err}")
+    print(f"[cascade] defaults vs float32: stage-0 prob of view "
+          f"{dres['samples'][0].view_ids[0]} max|diff| {err:.3e} (tol "
+          f"{PROB_TOL}; its spread over hypotheses and pixels "
+          f"{(f32_prob.max() - f32_prob.min()).item():.3e})", flush=True)
+    del dres, prob, f32_prob
+    return {"float32": launches, "defaults": dlaunches}, res, data_root
 
 
 def png_seconds(res) -> float:
@@ -532,7 +616,8 @@ def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
     # (b) The command line, fusion only, on phase 6's output directory.
     mask_dir = write_train_eval_masks(data_root)
     geo_consistency.geo_consistency.launches = 0   # this slice's path starts
-    fused_sdf.fused_sdf_values.launches = 0
+    fused_sdf.reset_launches()
+    cost_mapping.cost_mapping.launches = 0
     t0 = time.perf_counter()
     plys = cli_run.main([f"outdir={res['outdir']}", f"testlist={SCAN}",
                          f"data_dir_root={data_root}", "filter_only=true"])
@@ -570,7 +655,8 @@ def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
            f"the sphere's own depths fused off the sphere: {ch}, "
            f"{txyz.shape[0]} points")
 
-    # (d) The command line end to end at 64x96 on the card.
+    # (d) The command line end to end at 64x96 on the card, with no
+    # precision override (the JAX defaults).
     small = os.path.join(tmp, "small")
     out = os.path.join(tmp, "small_exps")
     t0 = time.perf_counter()
@@ -580,29 +666,33 @@ def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
         f"max_w={SMALL_RES[1]}", f"dataset.img_res=[{SMALL_RES[0]},"
         f"{SMALL_RES[1]}]", f"mvs.ndepths={list(SMALL_NDEPTHS)}",
         f"mvs.numdepth={SMALL_NDEPTHS[0]}", "mvs.x2_mvsres=false",
-        f"opt_stepNs=[{SMALL_CLI_STEPS},0,0]",
-        "train.train_compute_dtype=float32",
-        "train.train_activation_dtype=float32",
-        "train.mvs_pack_dtype=float32", "mvs.compute_dtype=float32"])
+        f"opt_stepNs=[{SMALL_CLI_STEPS},0,0]"])
     torch.cuda.synchronize()
     small_s = time.perf_counter() - t0
     geo_launches = geo_consistency.geo_consistency.launches
-    sdf_launches = fused_sdf.fused_sdf_values.launches   # ... and ends here
+    sdf_launches = dict(fused_sdf.fused_sdf_values.mode_launches)
+    cost_launches = cost_mapping.cost_mapping.launches   # ... and ends here
     for v in trains_i:
         for name in (f"depth_est/{v:08d}.pfm", f"depth_est/{v:08d}.png",
                      f"confidence/{v:08d}_final.png", f"images/{v:08d}.png"):
             path = os.path.join(out, SCAN, name)
             _check(os.path.isfile(path), f"missing {path}")
     _check(os.path.isfile(plys[0]), f"missing {plys[0]}")
-    _check(geo_launches == 2 * n_pairs and sdf_launches > 0,
+    _check(geo_launches == 2 * n_pairs
+           and sdf_launches["bfloat16"] == SMALL_CLI_STEPS
+           and sdf_launches["float32"] > 0
+           and cost_launches == SMALL_CLI_STEPS,
            f"launches on the command-line path: geo_consistency "
-           f"{geo_launches}, fused SDF {sdf_launches}")
+           f"{geo_launches}, fused SDF {sdf_launches}, cost_mapping "
+           f"{cost_launches}")
     print(f"[fusion] cli.run end to end {SCAN} at {SMALL_RES[0]}x"
-          f"{SMALL_RES[1]}, {SMALL_CLI_STEPS} steps: {small_s:.2f} s, "
-          f"{load_ply(plys[0])[0].shape[0]} points; launches on the command-"
-          f"line path: geo_consistency {geo_launches}, fused SDF "
-          f"{sdf_launches} [{card}]", flush=True)
+          f"{SMALL_RES[1]}, {SMALL_CLI_STEPS} steps, no precision override: "
+          f"{small_s:.2f} s, {load_ply(plys[0])[0].shape[0]} points; launches "
+          f"on the command-line path: geo_consistency {geo_launches}, fused "
+          f"SDF {sdf_launches}, cost_mapping {cost_launches} [{card}]",
+          flush=True)
     return {"launches": geo_launches, "sdf_launches": sdf_launches,
+            "cost_launches": cost_launches,
             "max_abs_err": max(depth_err, xy_err), "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms,
             "wrapper_ms": wrapper_ms}
@@ -668,130 +758,234 @@ def _check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def main() -> None:
-    # 1. Environment.
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device; this script runs on a GPU only",
-              file=sys.stderr)
-        sys.exit(1)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
-    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
-          f"device {torch.cuda.get_device_name(0)} "
-          f"count {torch.cuda.device_count()}", flush=True)
-    print(f"[env] card: {card}", flush=True)
+def _bf16_within(got, ref) -> float:
+    """The bfloat16 mode's check against its plain version: raises past
+    BF16_KERNEL_UNITS (|ref| + 1); returns max |got - ref|."""
+    err = (got - ref).abs()
+    worst = (err / (ref.abs() + 1)).max().item()
+    _check(worst <= BF16_KERNEL_UNITS,
+           f"bf16 kernel vs plain: {worst} (|sdf| + 1) > {BF16_KERNEL_UNITS}")
+    return err.max().item()
 
-    # 2. Build, every source at once.
-    def timed(build):
-        t0 = time.perf_counter()
-        build(force=True)
-        return time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    sources = {"csrc/fused_sdf.cu": fused_sdf.build,
-               "csrc/fusion.cu": geo_consistency.build,
-               "csrc/downsample.cpp": eval_geo.build_downsample}
-    with ThreadPoolExecutor(len(sources)) as pool:
-        build_s = dict(zip(sources, pool.map(timed, sources.values())))
-    print("[build] " + ", ".join(f"{k} {v:.2f} s" for k, v in build_s.items())
-          + f"; all in {time.perf_counter() - t0:.2f} s", flush=True)
-
-    # 3. Kernel against its plain version, full dtu width.
-    cfg = float32_dtu_config()
+def check_fused_sdf(dev, card: str) -> Dict:
+    """Phase 3, the fused SDF kernel in both modes (see the module
+    docstring); returns each mode's numbers."""
+    cfg = dtu_config()
+    models = {"float32": cfg.model, "bfloat16": training_model_config(cfg)}
     params = init_volsdf_params(torch.Generator().manual_seed(0), cfg.model,
                                 dev)
-    errs = {}
-    for n in (KERNEL_SWEEP, 700, KERNEL_RENDER):
-        pts = torch.as_tensor(
-            np.random.default_rng(1).normal(size=(n, 3)).astype(np.float32),
-            device=dev)
-        got = fused_sdf.fused_sdf_values(params.sdf, cfg.model, pts, 3.0)
-        ref = fused_sdf.sdf_values_plain(params.sdf, cfg.model, pts, 3.0)
-        torch.cuda.synchronize()
-        errs[n] = torch.max(torch.abs(got - ref)).item()
-        _check(errs[n] <= KERNEL_TOL,
-               f"kernel vs plain at {n} points: {errs[n]} > {KERNEL_TOL}")
-        del got, ref
-    t0 = time.perf_counter()
-    pack = fused_sdf.pack_sdf(params.sdf, cfg.model)
-    torch.cuda.synchronize()
-    pack_ms = 1e3 * (time.perf_counter() - t0)
     flop = sdf_flops_per_point(params.sdf)
-    kernel_ms, bound_ms = {}, {}
-    for n in (KERNEL_SWEEP, KERNEL_RENDER):
-        pts = torch.as_tensor(
-            np.random.default_rng(1).normal(size=(n, 3)).astype(np.float32),
-            device=dev)
-        kernel_ms[n] = _median_ms(lambda: fused_sdf.fused_sdf_values(
-            params.sdf, cfg.model, pts, 3.0, pack=pack))
-        bound_ms[n] = 3 * n * flop / (BF16_TFLOPS * 1e12) * 1e3
-        if n == KERNEL_SWEEP:
-            plain_ms = _median_ms(lambda: fused_sdf.sdf_values_plain(
-                params.sdf, cfg.model, pts, 3.0))
-    tflops = {n: n * flop / (ms * 1e-3) / 1e12 for n, ms in kernel_ms.items()}
-    print(f"[kernel] fused_sdf vs plain: max|diff| {errs[KERNEL_SWEEP]:.3e} "
-          f"at {KERNEL_SWEEP} pts, {errs[700]:.3e} at 700 pts, "
-          f"{errs[KERNEL_RENDER]:.3e} at {KERNEL_RENDER} pts (tol "
-          f"{KERNEL_TOL}) [{card}]", flush=True)
-    for n in (KERNEL_SWEEP, KERNEL_RENDER):
-        print(f"[kernel] {n} pts: kernel {kernel_ms[n]:.4f} ms (median of "
-              f"20), {tflops[n]:.1f} TFLOP/s, bound {bound_ms[n]:.4f} ms "
-              f"(3 bf16 products at {BF16_TFLOPS:.0f} TFLOP/s): "
-              f"{100 * bound_ms[n] / kernel_ms[n]:.1f}% of bound"
-              + (f"; plain {plain_ms:.3f} ms" if n == KERNEL_SWEEP else "")
-              + f" [{card}]", flush=True)
-    print(f"[kernel] pack_sdf (weight norm, split, layout) {pack_ms:.2f} ms "
-          f"[{card}]", flush=True)
-    del pack
+    out = {}
+    for mode, mcfg in models.items():
+        _check(fused_sdf.mode(mcfg) == mode, f"mode of {mcfg}")
+        errs = {}
+        for n in (KERNEL_SWEEP, 700, KERNEL_RENDER):
+            pts = torch.as_tensor(np.random.default_rng(1).normal(
+                size=(n, 3)).astype(np.float32), device=dev)
+            got = fused_sdf.fused_sdf_values(params.sdf, mcfg, pts, 3.0)
+            ref = fused_sdf.sdf_values_plain(params.sdf, mcfg, pts, 3.0)
+            torch.cuda.synchronize()
+            if mode == "float32":
+                errs[n] = torch.max(torch.abs(got - ref)).item()
+                _check(errs[n] <= KERNEL_TOL, f"kernel vs plain at {n} "
+                       f"points: {errs[n]} > {KERNEL_TOL}")
+            else:
+                errs[n] = _bf16_within(got, ref)
+            del got, ref
+        t0 = time.perf_counter()
+        pack = fused_sdf.pack_sdf(params.sdf, mcfg)
+        torch.cuda.synchronize()
+        pack_ms = 1e3 * (time.perf_counter() - t0)
+        products = 3 if mode == "float32" else 1
+        kernel_ms, bound_ms = {}, {}
+        for n in (KERNEL_SWEEP, KERNEL_RENDER):
+            pts = torch.as_tensor(np.random.default_rng(1).normal(
+                size=(n, 3)).astype(np.float32), device=dev)
+            kernel_ms[n] = _median_ms(lambda: fused_sdf.fused_sdf_values(
+                params.sdf, mcfg, pts, 3.0, pack=pack))
+            bound_ms[n] = products * n * flop / (BF16_TFLOPS * 1e12) * 1e3
+            if n == KERNEL_SWEEP:
+                plain_ms = _median_ms(lambda: fused_sdf.sdf_values_plain(
+                    params.sdf, mcfg, pts, 3.0))
+        tflops = {n: n * flop / (ms * 1e-3) / 1e12
+                  for n, ms in kernel_ms.items()}
+        tol = (f"tol {KERNEL_TOL}" if mode == "float32" else
+               f"tol {BF16_KERNEL_UNITS} (|sdf| + 1)")
+        print(f"[kernel] fused_sdf {mode} mode vs plain: max|diff| "
+              f"{errs[KERNEL_SWEEP]:.3e} at {KERNEL_SWEEP} pts, "
+              f"{errs[700]:.3e} at 700 pts, {errs[KERNEL_RENDER]:.3e} at "
+              f"{KERNEL_RENDER} pts ({tol}) [{card}]", flush=True)
+        for n in (KERNEL_SWEEP, KERNEL_RENDER):
+            print(f"[kernel] fused_sdf {mode} mode, {n} pts: kernel "
+                  f"{kernel_ms[n]:.4f} ms (median of 20), {tflops[n]:.1f} "
+                  f"TFLOP/s, bound {bound_ms[n]:.4f} ms ({products} bf16 "
+                  f"product{'s' if products > 1 else ''} at "
+                  f"{BF16_TFLOPS:.0f} TFLOP/s): "
+                  f"{100 * bound_ms[n] / kernel_ms[n]:.1f}% of bound"
+                  + (f"; plain {plain_ms:.3f} ms" if n == KERNEL_SWEEP
+                     else "") + f" [{card}]", flush=True)
+        print(f"[kernel] pack_sdf {mode} mode (weight norm, layout) "
+              f"{pack_ms:.2f} ms [{card}]", flush=True)
+        out[mode] = {"errs": errs, "kernel_ms": kernel_ms,
+                     "bound_ms": bound_ms, "plain_ms": plain_ms,
+                     "tflops": tflops}
+        del pack
+    return out
 
-    # 4. Training at bench.py's shapes.
+
+def cost_mapping_samples(scene, view: int, device) -> torch.Tensor:
+    """xyz (COST_RAYS, COST_SAMPLES, 3) along rays of `view` through
+    pixels a little past the image, at sorted depths in [0.3, 5.5]:
+    inside and outside the hypothesis slab, in front of and behind some
+    of the cameras."""
+    rng = np.random.default_rng(11 + view)
+    H, W = scene.img_res
+    K, c2w = scene.intrinsics[view], scene.poses[view]
+    px = np.stack([rng.uniform(-4, W + 4, COST_RAYS),
+                   rng.uniform(-4, H + 4, COST_RAYS)], -1)
+    d_cam = np.stack([(px[:, 0] - K[0, 2]) / K[0, 0],
+                      (px[:, 1] - K[1, 2]) / K[1, 1], np.ones(COST_RAYS)], -1)
+    d = d_cam @ c2w[:3, :3].T
+    z = np.sort(rng.uniform(0.3, 5.5, (COST_RAYS, COST_SAMPLES)), axis=1)
+    xyz = c2w[:3, 3] + z[..., None] * d[:, None, :]
+    return torch.as_tensor(xyz.astype(np.float32), device=device)
+
+
+def check_cost_mapping(dev, card: str) -> Dict:
+    """Phase 3, the cost-mapping kernel (see the module docstring);
+    returns its numbers for the bf16 volumes (the default), with the
+    float32 volumes' beside them."""
+    scene = make_sphere_scene(3, CASCADE_RES)
+    f32 = make_volumes(scene, BENCH_VOLUMES, dev)
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        err, masks, valid = 0.0, 0, []
+        for view in (0, 2):
+            xyz = cost_mapping_samples(scene, view, dev)
+            onehot = torch.zeros(3, device=dev)
+            onehot[view] = 1.0
+            for inverse in (False, True):
+                mvs = dataclasses.replace(f32, prob=f32.prob.to(dtype),
+                                          inverse_depth=inverse)
+                got = cost_mapping.cost_mapping(None, xyz, onehot, mvs)
+                ref = cost_mapping.cost_mapping_plain(xyz, onehot, mvs)
+                torch.cuda.synchronize()
+                masks += int((got[2] != ref[2]).sum())
+                err = max(err, (got[0] - ref[0]).abs().max().item(),
+                          (got[1] - ref[1]).abs().max().item())
+                valid.append(ref[2].float().mean().item())
+        _check(masks == 0 and err <= COST_TOL,
+               f"cost_mapping vs plain ({dtype}): {masks} mask samples "
+               f"differ, pj/pi {err} > {COST_TOL}")
+        mvs = dataclasses.replace(f32, prob=f32.prob.to(dtype))
+        xyz = cost_mapping_samples(scene, 0, dev)
+        onehot = torch.tensor([1.0, 0.0, 0.0], device=dev)
+        kernel_ms = _median_ms(lambda: cost_mapping.cost_mapping(
+            None, xyz, onehot, mvs), backlog=True)
+        wrapper_ms = _median_ms(lambda: cost_mapping.cost_mapping(
+            None, xyz, onehot, mvs))
+        plain_ms = _median_ms(lambda: cost_mapping.cost_mapping_plain(
+            xyz, onehot, mvs), backlog=True)
+        nbytes = cost_mapping.touched_bytes(xyz, mvs)
+        bound_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
+        name = str(dtype).replace("torch.", "")
+        print(f"[kernel] cost_mapping {name} volumes vs plain, {COST_RAYS}x"
+              f"{COST_SAMPLES} samples x 3 views of {BENCH_VOLUMES}, linear "
+              f"and inverse depth, views 0 and 2: mask samples differing "
+              f"{masks}, pj/pi max|diff| {err:.3e} (tol {COST_TOL}); "
+              f"valid {min(valid):.3f}-{max(valid):.3f} of the samples",
+              flush=True)
+        print(f"[kernel] cost_mapping {name} volumes: kernel {kernel_ms:.4f} "
+              f"ms (device, median of 20), wrapper {wrapper_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({nbytes} bytes: distinct 32-byte sectors "
+              f"read and the samples' I/O, at {HBM_TBPS} TB/s): "
+              f"{100 * bound_ms / kernel_ms:.1f}% of bound; plain "
+              f"{plain_ms:.3f} ms [{card}]", flush=True)
+        out[name] = {"max_abs_err": err, "ms": kernel_ms,
+                     "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms}
+    return out
+
+
+def run_training(dev, card: str):
+    """Phases 4 and 5 (see the module docstring), the main path: the
+    launch counts are set to 0 before the first step and read after the
+    last render. Returns the trainers ({"defaults", "float32"}) and the
+    launches."""
+    trainers = {}
     t0 = time.perf_counter()
-    trainer = make_trainer(cfg, (cfg.max_h, cfg.max_w), (192, 288, 384), dev)
+    for what, cfg in (("defaults", dtu_config()),
+                      ("float32", float32_dtu_config())):
+        trainers[what] = make_trainer(cfg, (cfg.max_h, cfg.max_w),
+                                      BENCH_VOLUMES, dev)
     torch.cuda.synchronize()
-    print(f"[train] scene + volumes set up in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    fused_sdf.fused_sdf_values.launches = 0     # the main path starts here
-    trainer.run(TRAIN_STEPS)
-    torch.cuda.synchronize()
-    train_launches = fused_sdf.fused_sdf_values.launches
-    losses = [lo.loss for lo in trainer.losses]
-    finite = [lo.grad_finite for lo in trainer.losses]
-    _check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
-           f"finite losses: {losses}")
-    _check(all(f == 1.0 for f in finite), f"grad_finite every step: {finite}")
-    _check(train_launches >= TRAIN_STEPS,
-           f"kernel launches in training {train_launches} < {TRAIN_STEPS}")
-    step_ms = 1e3 * float(np.median(trainer.chunk_seconds))
-    print(f"[train] {TRAIN_STEPS} steps: loss {losses[0]:.5f} -> "
-          f"{losses[-1]:.5f}, median {step_ms:.2f} ms/step, "
-          f"{cfg.train.num_pixels / (step_ms / 1e3):.1f} rays/s, kernel "
-          f"launches {train_launches} [{card}]", flush=True)
+    print(f"[train] two scenes + volumes set up in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    fused_sdf.reset_launches()                  # the main path starts here
+    cost_mapping.cost_mapping.launches = 0
+    for what, trainer in trainers.items():
+        before = dict(fused_sdf.fused_sdf_values.mode_launches)
+        cost_before = cost_mapping.cost_mapping.launches
+        trainer.run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        modes = {m: n - before[m]
+                 for m, n in fused_sdf.fused_sdf_values.mode_launches.items()}
+        costs = cost_mapping.cost_mapping.launches - cost_before
+        losses = [lo.loss for lo in trainer.losses]
+        finite = [lo.grad_finite for lo in trainer.losses]
+        _check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+               f"{what}: finite losses: {losses}")
+        _check(all(f == 1.0 for f in finite),
+               f"{what}: grad_finite every step: {finite}")
+        mode = "bfloat16" if what == "defaults" else "float32"
+        _check(modes[mode] == TRAIN_STEPS and sum(modes.values()) == TRAIN_STEPS
+               and costs == TRAIN_STEPS,
+               f"{what}: launches in training: fused SDF {modes}, "
+               f"cost_mapping {costs}")
+        step_ms = 1e3 * float(np.median(trainer.chunk_seconds))
+        print(f"[train] {what}: {TRAIN_STEPS} steps: loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}, median {step_ms:.2f} ms/step, "
+              f"{trainer.cfg.train.num_pixels / (step_ms / 1e3):.1f} rays/s, "
+              f"fused SDF launches {modes}, cost_mapping launches {costs} "
+              f"[{card}]", flush=True)
 
-    # 5. Feedback render of view 0 at quarter resolution.
-    t0 = time.perf_counter()
-    builds = fused_sdf.pack_sdf.builds
-    depth = trainer.render_mvs(0, res_scale=0.25)
-    torch.cuda.synchronize()
-    render_s = time.perf_counter() - t0
-    launches = fused_sdf.fused_sdf_values.launches   # the main path ends here
-    _check(fused_sdf.pack_sdf.builds == builds + 1,
-           f"packs built in one render: {fused_sdf.pack_sdf.builds - builds}")
-    _check(depth.shape == (144, 192), f"render shape {depth.shape}")
-    _check(bool(np.isfinite(depth).all()), "finite depth")
-    _check(launches > train_launches,
-           f"kernel launches in the render: {launches - train_launches}")
-    print(f"[render] render_mvs 144x192 fast=-1 in {render_s:.3f} s, depth "
-          f"{depth.min():.4f}..{depth.max():.4f}, kernel launches "
-          f"{launches - train_launches} [{card}]", flush=True)
+    # 5. Feedback renders of view 0 at full resolution, both precisions.
+    trainer = trainers["defaults"]
+    H, W = trainer.scene.img_res
+    for dtype in ("float32", "bfloat16"):
+        trainer.cfg.train.feedback_render_dtype = dtype
+        builds = fused_sdf.pack_sdf.builds
+        before = dict(fused_sdf.fused_sdf_values.mode_launches)
+        t0 = time.perf_counter()
+        depth = trainer.render_mvs(0)
+        torch.cuda.synchronize()
+        render_s = time.perf_counter() - t0
+        modes = {m: n - before[m]
+                 for m, n in fused_sdf.fused_sdf_values.mode_launches.items()}
+        _check(fused_sdf.pack_sdf.builds == builds + 1,
+               f"packs built in one render: {fused_sdf.pack_sdf.builds - builds}")
+        _check(depth.shape == (H, W) and bool(np.isfinite(depth).all()),
+               f"render {dtype}: shape {depth.shape}, finite "
+               f"{np.isfinite(depth).all()}")
+        _check(modes[dtype] > 0 and sum(modes.values()) == modes[dtype],
+               f"render {dtype}: kernel launches {modes}")
+        print(f"[render] render_mvs {H}x{W} fast=-1, feedback_render_dtype "
+              f"{dtype}: {render_s:.3f} s, depth {depth.min():.4f}.."
+              f"{depth.max():.4f}, kernel launches {modes[dtype]} [{card}]",
+              flush=True)
+    trainer.cfg.train.feedback_render_dtype = "float32"
+    launches = {"fused_sdf": dict(fused_sdf.fused_sdf_values.mode_launches),
+                "cost_mapping": cost_mapping.cost_mapping.launches}
+    print(f"[train] launches on the training and render path: {launches}",
+          flush=True)                           # the main path ends here
+    return trainers, launches
 
-    # The trained field rendered on the card (kernel) and on the CPU
-    # (plain path) agree on a small view.
-    scene = trainer.scene
+
+def check_render_on_cpu(trainer) -> None:
+    """Phase 5: the trained field rendered on the card (kernel) and on the
+    CPU (plain path) agree on a small view."""
+    scene, cfg = trainer.scene, trainer.cfg
     intr = np.array(scene.intrinsics[0], np.float32)
     intr[:2] *= 8 / scene.img_res[1]
     args = (cfg.model, scene.poses[0], intr, (6, 8))
@@ -807,65 +1001,136 @@ def main() -> None:
     print(f"[render] 6x8 render card vs CPU plain path: max|diff| "
           f"{ref_err:.3e} (tol {RENDER_TOL})", flush=True)
 
-    # 3, continued: the kernel on the trained field's own rays, nearest
-    # its surface, where the sampler's choices are most sensitive.
+
+def check_near_surface(trainer) -> Dict[str, float]:
+    """Phase 3, continued: the fused kernel on the trained field's own
+    rays nearest its surface, where the sampler's choices are most
+    sensitive, in both modes; returns each mode's max |diff|."""
     near, near_sdf = near_surface_points(trainer)
-    bs = cfg.model.scene_bounding_sphere
-    got = fused_sdf.fused_sdf_values(trainer.state.params.sdf, cfg.model,
-                                     near, bs)
-    ref = fused_sdf.sdf_values_plain(trainer.state.params.sdf, cfg.model,
-                                     near, bs)
-    torch.cuda.synchronize()
-    errs["near_surface"] = torch.max(torch.abs(got - ref)).item()
-    _check(errs["near_surface"] <= KERNEL_TOL,
-           f"kernel vs plain near the trained surface: "
-           f"{errs['near_surface']} > {KERNEL_TOL}")
+    bs = trainer.cfg.model.scene_bounding_sphere
+    sdf = trainer.state.params.sdf
+    errs = {}
+    bf16 = dataclasses.replace(trainer.cfg.model, compute_dtype="bfloat16",
+                               activation_dtype="bfloat16")
+    for mode, mcfg in (("float32", trainer.cfg.model), ("bfloat16", bf16)):
+        got = fused_sdf.fused_sdf_values(sdf, mcfg, near, bs)
+        ref = fused_sdf.sdf_values_plain(sdf, mcfg, near, bs)
+        torch.cuda.synchronize()
+        if mode == "float32":
+            errs[mode] = torch.max(torch.abs(got - ref)).item()
+            _check(errs[mode] <= KERNEL_TOL,
+                   f"kernel vs plain near the trained surface: "
+                   f"{errs[mode]} > {KERNEL_TOL}")
+        else:
+            errs[mode] = _bf16_within(got, ref)
     print(f"[kernel] trained field, {near.shape[0]} sampler points of view 0 "
           f"with |sdf| <= {near_sdf:.3e}: kernel vs plain max|diff| "
-          f"{errs['near_surface']:.3e} (tol {KERNEL_TOL})", flush=True)
-    del trainer, near, got, ref
+          f"{errs['float32']:.3e} float32 mode (tol {KERNEL_TOL}), "
+          f"{errs['bfloat16']:.3e} bfloat16 mode (tol {BF16_KERNEL_UNITS} "
+          f"(|sdf| + 1))", flush=True)
+    return errs
+
+
+def main() -> None:
+    # 1. Environment.
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; this script runs on a GPU only",
+              file=sys.stderr)
+        sys.exit(1)
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
+          f"device {torch.cuda.get_device_name(0)} "
+          f"count {torch.cuda.device_count()}; TF32 flags (left as they "
+          f"are): cuDNN {torch.backends.cudnn.allow_tf32}, matmul "
+          f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
+    print(f"[env] card: {card}", flush=True)
+
+    # 2. Build, every source at once.
+    def timed(build):
+        t0 = time.perf_counter()
+        build(force=True)
+        return time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    sources = {"csrc/fused_sdf.cu": fused_sdf.build,
+               "csrc/cost_mapping.cu": cost_mapping.build,
+               "csrc/fusion.cu": geo_consistency.build,
+               "csrc/downsample.cpp": eval_geo.build_downsample}
+    with ThreadPoolExecutor(len(sources)) as pool:
+        build_s = dict(zip(sources, pool.map(timed, sources.values())))
+    print("[build] " + ", ".join(f"{k} {v:.2f} s" for k, v in build_s.items())
+          + f"; all in {time.perf_counter() - t0:.2f} s", flush=True)
+
+    # 3. The kernels against their plain versions, full width.
+    sdf = check_fused_sdf(dev, card)
+    cost = check_cost_mapping(dev, card)
+
+    # 4, 5. Training at bench.py's shapes, then the feedback renders.
+    trainers, launches = run_training(dev, card)
+    check_render_on_cpu(trainers["float32"])
+    near = check_near_surface(trainers["float32"])
+    for mode, err in near.items():
+        sdf[mode]["errs"]["near_surface"] = err
+    del trainers
 
     # 6. The cascade and the scene runner; 7. fusion and evaluation on
     # its outputs.
     with tempfile.TemporaryDirectory() as tmp:
-        cascade_launches, res, data_root = run_cascade(dev, card, tmp)
-        print(f"[cascade] fused SDF launches: {launches} on the training "
-              f"and render path, {cascade_launches} on the cascade path",
-              flush=True)
+        scene_launches, res, data_root = run_cascade(dev, card, tmp)
         fusion = run_fusion(dev, card, tmp, res, data_root)
         del res
 
-    # 8. Results.
-    print(json.dumps({"kernels": [{
-        "name": "fused_sdf",
-        "route": "cuda",
-        "source": "s_volsdf_tpu_torch/csrc/fused_sdf.cu",
-        "replaces": "s_volsdf_tpu/ops/pallas/fused_sdf.py:116",
-        "launches": launches + cascade_launches + fusion["sdf_launches"],
-        "max_abs_err": max(errs.values()),
-        "ms": kernel_ms[KERNEL_SWEEP],
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms[KERNEL_SWEEP],
-        "bound_by": "operations",
-        "library_ms": None,
-        "tflops": tflops[KERNEL_SWEEP],
-        f"ms_at_{KERNEL_RENDER}": kernel_ms[KERNEL_RENDER],
-        f"bound_ms_at_{KERNEL_RENDER}": bound_ms[KERNEL_RENDER],
-    }, {
-        "name": "geo_consistency",
-        "route": "cuda",
+    # 8. Results. Launches are summed over the paths, each counted from 0.
+    paths = [launches, scene_launches["float32"], scene_launches["defaults"],
+             {"fused_sdf": fusion["sdf_launches"],
+              "cost_mapping": fusion["cost_launches"]}]
+    sdf_launches = {m: sum(p["fused_sdf"][m] for p in paths)
+                    for m in fused_sdf.MODES}
+    cost_launches = sum(p["cost_mapping"] for p in paths)
+    print(f"[kernels] launches on the paths driven: fused SDF {sdf_launches}, "
+          f"cost_mapping {cost_launches}, geo_consistency "
+          f"{fusion['launches']}", flush=True)
+    kernels = []
+    for mode, name in (("float32", "fused_sdf"), ("bfloat16", "fused_sdf_bf16")):
+        m = sdf[mode]
+        kernels.append({
+            "name": name, "mode": mode, "route": "cuda",
+            "source": "s_volsdf_tpu_torch/csrc/fused_sdf.cu",
+            "replaces": "s_volsdf_tpu/ops/pallas/fused_sdf.py:116",
+            "launches": sdf_launches[mode],
+            "max_abs_err": max(m["errs"].values()),
+            "ms": m["kernel_ms"][KERNEL_SWEEP], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"][KERNEL_SWEEP],
+            "bound_by": "operations", "library_ms": None,
+            "tflops": m["tflops"][KERNEL_SWEEP],
+            f"ms_at_{KERNEL_RENDER}": m["kernel_ms"][KERNEL_RENDER],
+            f"bound_ms_at_{KERNEL_RENDER}": m["bound_ms"][KERNEL_RENDER]})
+    kernels.append({
+        "name": "cost_mapping", "route": "cuda",
+        "source": "s_volsdf_tpu_torch/csrc/cost_mapping.cu",
+        "replaces": "s_volsdf_tpu/ops/cost_mapping.py:152",
+        "launches": cost_launches,
+        "max_abs_err": max(c["max_abs_err"] for c in cost.values()),
+        "ms": cost["bfloat16"]["ms"], "plain_ms": cost["bfloat16"]["plain_ms"],
+        "bound_ms": cost["bfloat16"]["bound_ms"], "bound_by": "bytes",
+        "library_ms": None, "wrapper_ms": cost["bfloat16"]["wrapper_ms"],
+        "ms_float32_volumes": cost["float32"]["ms"],
+        "bound_ms_float32_volumes": cost["float32"]["bound_ms"],
+        "shape": [COST_RAYS, COST_SAMPLES, 3, *BENCH_VOLUMES]})
+    kernels.append({
+        "name": "geo_consistency", "route": "cuda",
         "source": "s_volsdf_tpu_torch/csrc/fusion.cu",
         "replaces": "s_volsdf_tpu/native/fusion.cpp:59",
         "launches": fusion["launches"],
-        "max_abs_err": fusion["max_abs_err"],
-        "ms": fusion["ms"],
-        "plain_ms": fusion["plain_ms"],
-        "bound_ms": fusion["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": None,
-        "wrapper_ms": fusion["wrapper_ms"],
-        "shape": list(CASCADE_MVS_RES),
-    }]}))
+        "max_abs_err": fusion["max_abs_err"], "ms": fusion["ms"],
+        "plain_ms": fusion["plain_ms"], "bound_ms": fusion["bound_ms"],
+        "bound_by": "bytes", "library_ms": None,
+        "wrapper_ms": fusion["wrapper_ms"], "shape": list(CASCADE_MVS_RES)})
+    print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,9 +1,7 @@
 """The pipeline's command line (counterpart of s_volsdf_tpu/cli/run.py:
 15-71): hydra-style dotted `key=value` overrides, run on "cuda".
 
-    python -m s_volsdf_tpu_torch.cli.run testlist=scan106 \
-        train.train_compute_dtype=float32 train.train_activation_dtype=float32 \
-        train.mvs_pack_dtype=float32 mvs.compute_dtype=float32
+    python -m s_volsdf_tpu_torch.cli.run testlist=scan106
     python -m s_volsdf_tpu_torch.cli.run testlist=scan106 filter_only=true
 
 Each scene of `testlist` (a comma list, or a .txt file of scan names) runs
@@ -12,8 +10,9 @@ the cascade with VolSDF feedback and writes its depth maps
 <outdir>/mvsnet{id:03d}_l3.ply (`pcd_filter`). `+key=value` works like
 `key=value`; `preset=` (or the hydra group `vol=`) picks the dtu, bmvs
 or default preset; `mvs_weights=` names a converted cascade checkpoint.
-The port runs float32 only, so the four precision knobs above are
-needed for a run that trains.
+Precision follows the JAX package's knobs and defaults (bf16 training
+products and activations, bf16 MVS volumes and cascade convs, float32
+renders); `train.train_compute_dtype=float32` and the like pick float32.
 """
 
 from __future__ import annotations

@@ -6,9 +6,12 @@ its own copy because importing `s_volsdf_tpu` runs that package's
 `__init__`, which imports JAX wherever JAX is installed, and the port
 must run without it.
 
-The port runs float32 only: `check_float32` raises on the bf16 knobs
-instead of ignoring them (their JAX defaults are bf16, so callers set
-the three `train.*_dtype` knobs and `mvs.compute_dtype` to "float32").
+The seven precision knobs (`train.train_compute_dtype`,
+`train.train_activation_dtype`, `train.mvs_pack_dtype`,
+`train.feedback_render_dtype`, `model.compute_dtype`,
+`model.activation_dtype`, `mvs.compute_dtype`) take "float32" or
+"bfloat16" with the JAX package's defaults and meanings; `check_ported`
+validates them and refuses what the port does not implement yet.
 """
 
 from __future__ import annotations
@@ -170,7 +173,7 @@ def dtu_config() -> Config:
 
 def bmvs_config() -> Config:
     """Counterpart of `s_volsdf_tpu.config.bmvs_config`, for the fields
-    the port has. It builds; `check_float32` refuses its background
+    the port has. It builds; `check_ported` refuses its background
     model (`with_background`) when a run starts."""
     cfg = dtu_config()
     cfg.dataset.data_dir = "BlendedMVS"
@@ -303,38 +306,41 @@ def save_config(cfg: Config, path: str) -> None:
         json.dump(dataclasses.asdict(cfg), f, indent=1)
 
 
-def _require_float32(section, prefix: str, names) -> None:
-    for name in names:
-        value = getattr(section, name)
-        if value != "float32":
-            raise NotImplementedError(
-                f"{prefix}.{name}={value!r}: the PyTorch port runs float32 "
-                f"only; set it to 'float32'")
+PRECISION_KNOBS = (
+    ("train", "train_compute_dtype"), ("train", "train_activation_dtype"),
+    ("train", "mvs_pack_dtype"), ("train", "feedback_render_dtype"),
+    ("model", "compute_dtype"), ("model", "activation_dtype"),
+    ("mvs", "compute_dtype"))
+DTYPES = ("float32", "bfloat16")
 
 
-def check_model_float32(mcfg: ModelConfig) -> ModelConfig:
-    """Raise on a bf16 model knob or the BMVS background model."""
-    _require_float32(mcfg, "model", ("compute_dtype", "activation_dtype"))
+def check_model_ported(mcfg: ModelConfig) -> ModelConfig:
+    """Validate the model's two precision knobs; raise on the BMVS
+    background model, which is not ported."""
+    for name in ("compute_dtype", "activation_dtype"):
+        _require(getattr(mcfg, name) in DTYPES,
+                 f"model.{name}={getattr(mcfg, name)!r}: want one of {DTYPES}")
     if mcfg.with_background:
         raise NotImplementedError("model.with_background (BMVS) is not ported")
     return mcfg
 
 
-def check_mvs_float32(mcfg: MVSConfig) -> MVSConfig:
-    """Raise on bf16 cascade convs (the JAX default)."""
-    _require_float32(mcfg, "mvs", ("compute_dtype",))
+def check_mvs_ported(mcfg: MVSConfig) -> MVSConfig:
+    """Validate the cascade's precision knob."""
+    _require(mcfg.compute_dtype in DTYPES,
+             f"mvs.compute_dtype={mcfg.compute_dtype!r}: want one of {DTYPES}")
     return mcfg
 
 
-def check_float32(cfg: Config) -> Config:
-    """Raise on what the port does not implement: any precision knob
-    other than "float32" (the cascade's included), the BMVS background
-    model and gate rescue."""
-    _require_float32(cfg.train, "train", (
-        "train_compute_dtype", "train_activation_dtype", "mvs_pack_dtype",
-        "feedback_render_dtype"))
-    check_mvs_float32(cfg.mvs)
-    check_model_float32(cfg.model)
+def check_ported(cfg: Config) -> Config:
+    """Validate the seven precision knobs (as s_volsdf_tpu/config.py:
+    416-427 does; ValueError) and raise NotImplementedError on what the
+    port does not implement: the BMVS background model and gate rescue."""
+    for section, name in PRECISION_KNOBS:
+        value = getattr(getattr(cfg, section), name)
+        _require(value in DTYPES,
+                 f"{section}.{name}={value!r}: want one of {DTYPES}")
+    check_model_ported(cfg.model)
     if cfg.loss.gate_rescue:
         raise NotImplementedError("loss.gate_rescue is not ported")
     return cfg

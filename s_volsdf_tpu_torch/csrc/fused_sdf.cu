@@ -58,6 +58,36 @@
 // 3-stage ring hides it. Shared memory (two 64 KB A operands and the
 // 96 KB ring) allows one block per SM.
 //
+// The bfloat16 mode (mode 1, SdfMeta): what s_volsdf_tpu/models/
+// network.py:sdf_values computes under compute_dtype="bfloat16", the
+// JAX training step's default. The same kernel, instantiated with
+// kSplit = false:
+//   * every layer input is rounded to nearest bf16 and each layer is
+//     the one product A_hi W_hi (W_hi = bf16(W), rounded to nearest),
+//     accumulated in f32 on top of the f32 bias. The pack holds only
+//     W_hi, so the ring streams half the bytes, and the epilogue writes
+//     only a_hi (a_lo is not read);
+//   * with activation_dtype="bfloat16" the pre-activation is rounded to
+//     bf16 before the softplus and the softplus after it, as JAX's
+//     h.astype(bf16) and its bf16 softplus round (JAX rounds inside the
+//     softplus too: the CPU tests hold the two within bf16 units). The
+//     roundings inside the epilogue are integer round-to-nearest-even
+//     on the bits, off the conversion unit that the softplus's MUFU
+//     operations share: with cvt.rn they doubled the epilogue (PERF.md);
+//   * the 1/sqrt(2) of the skip junction is NOT folded into the
+//     weights: the epilogue multiplies the junction's activations and
+//     encoding by it (bf16(1/sqrt(2)) with bf16 activations) and rounds
+//     the product, where JAX's bf16 multiply rounds. A fold would round
+//     W/sqrt(2) instead, one more rounding against JAX;
+//   * the SDF column is bf16-rounded in the pack and its dot product
+//     with the rounded activations is exact per term and summed in f32,
+//     plus the f32 bias; the sphere clamp is f32.
+// Its bound at the dtu width: 60.2 GFLOP per 65,536 points at 989
+// TFLOP/s, 0.061 ms (1.95 ms per 2,097,152 points), a third of the
+// x3 mode's. With a third of the products, the epilogue, which the
+// x3 mode already does not overlap (32.5% of a block's cycles there),
+// likely sets its pace.
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (see s_volsdf_tpu_torch/ops/fused_sdf.py); plain C entry points, bound
 // with ctypes.
@@ -89,8 +119,11 @@ struct SdfMeta {
   int skip;         // layer whose input is [h, pe] (-1: none; n_hidden: the SDF layer)
   int pe_col;       // first column of pe in that input
   int d_pe;         // 3 * (1 + 2 * multires)
+  int mode;         // 0: float32 (bf16 x 3 split); 1: bfloat16 (one bf16 product)
+  int act_bf16;     // bfloat16 mode: activations rounded to bf16
   float bounding_sphere;
   float sphere_scale;
+  float skip_scale; // bfloat16 mode: the junction's 1/sqrt(2) (float32 mode: folded)
   int chunks[MAX_LAYERS];   // K chunks of each hidden layer
 };
 
@@ -261,24 +294,93 @@ __device__ __forceinline__ void store_split1(char* a_hi, char* a_lo, int row,
   *reinterpret_cast<__nv_bfloat16*>(a_lo + off) = lo;
 }
 
+// The bfloat16 mode's stores: v0, v1 (columns col, col + 1; col even)
+// or v, rounded to nearest bf16, into A_hi alone.
+__device__ __forceinline__ void store_hi(char* a_hi, int row, int col,
+                                         float v0, float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(a_hi + a_offset(row, col)) =
+      __floats2bfloat162_rn(v0, v1);
+}
+
+__device__ __forceinline__ void store_hi1(char* a_hi, int row, int col,
+                                          float v) {
+  *reinterpret_cast<__nv_bfloat16*>(a_hi + a_offset(row, col)) =
+      __float2bfloat16_rn(v);
+}
+
+// x rounded to nearest (even) bf16, for finite x, as cvt.rn.bf16.f32
+// rounds it, but on the integer units: the conversion unit is the
+// MUFU's, which the softplus already keeps busy.
+__device__ __forceinline__ float bf16r(float x) {
+  const uint32_t u = __float_as_uint(x);
+  return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
+}
+
+// The bfloat16 mode's activation of a hidden unit: with bf16 activations
+// (kAct) the pre-activation z rounded to bf16 and the softplus too, as
+// JAX's h.astype(bf16) and its bf16 softplus round.
+template <bool kAct>
+__device__ __forceinline__ float act(float z) {
+  if constexpr (kAct) return bf16r(softplus100(bf16r(z)));
+  return softplus100(z);
+}
+
+// The next layer's operand in A_hi is act(z) * scale (scale: 1, or the
+// skip junction's 1/sqrt(2)) rounded to bf16: store_hi rounds it. Where
+// scale is 1, act's own rounding of the softplus is the store's, and is
+// left to it.
+template <bool kAct>
+__device__ __forceinline__ float act_unrounded(float z) {
+  if constexpr (kAct) return softplus100(bf16r(z));
+  return softplus100(z);
+}
+
+// act(z) * scale rounded to bf16, as a float: the SDF layer's operand.
+template <bool kAct>
+__device__ __forceinline__ float hand_on(float z, float scale) {
+  return bf16r(act<kAct>(z) * scale);
+}
+
+// The same for an encoding value p.
+template <bool kAct>
+__device__ __forceinline__ float pe_hand_on(float p, float scale) {
+  if constexpr (kAct) p = bf16r(p);
+  return bf16r(p * scale);
+}
+
+// Writes v at (row, col) as the mode's operand: hi and lo, or the
+// bfloat16 mode's pe_hand_on(v) in A_hi.
+template <bool kSplit, bool kAct>
+__device__ __forceinline__ void store_pe(char* a_hi, char* a_lo, int row,
+                                         int col, float v, float scale) {
+  if constexpr (kSplit)
+    store_split1(a_hi, a_lo, row, col, v);
+  else
+    store_hi1(a_hi, row, col, pe_hand_on<kAct>(v, scale));
+}
+
 // Writes the positional encoding of rows row0 .. row0 + 63 at columns
 // col0 .. col0 + 3 (1 + 2 multires) - 1, thread t of 128: x, then one
 // sincosf for each octave and coordinate.
+template <bool kSplit, bool kAct>
 __device__ __forceinline__ void write_pe(char* a_hi, char* a_lo,
                                          const float* xyz, int row0, int t,
-                                         int col0, int multires) {
+                                         int col0, int multires,
+                                         float scale) {
   const int items = 3 + 3 * multires;
   for (int i = t; i < 64 * items; i += 128) {
     const int r = i / items, q = i - r * items;
     const float* x = xyz + (row0 + r) * 3;
     if (q < 3) {
-      store_split1(a_hi, a_lo, row0 + r, col0 + q, x[q]);
+      store_pe<kSplit, kAct>(a_hi, a_lo, row0 + r, col0 + q, x[q], scale);
     } else {
       const int k = (q - 3) / 3, d = q - 3 - 3 * k;
       float sv, cv;
       sincosf(x[d] * (float)(1 << k), &sv, &cv);
-      store_split1(a_hi, a_lo, row0 + r, col0 + 3 + 6 * k + d, sv);
-      store_split1(a_hi, a_lo, row0 + r, col0 + 6 + 6 * k + d, cv);
+      store_pe<kSplit, kAct>(a_hi, a_lo, row0 + r, col0 + 3 + 6 * k + d, sv,
+                             scale);
+      store_pe<kSplit, kAct>(a_hi, a_lo, row0 + r, col0 + 6 + 6 * k + d, cv,
+                             scale);
     }
   }
 }
@@ -307,6 +409,9 @@ __device__ long long fused_sdf_trace_buf[2][2 * MAX_LAYERS + 1];
 #define TRACE(i)
 #endif
 
+// kSplit: the float32 mode's bf16 x 3 split; else the bfloat16 mode,
+// with bf16 activations when kAct.
+template <bool kSplit, bool kAct>
 __global__ void __launch_bounds__(N_THREADS, 1)
 fused_sdf_kernel(const float* __restrict__ pts, const char* __restrict__ wts,
                  const float* __restrict__ vec, float* __restrict__ out,
@@ -371,9 +476,11 @@ fused_sdf_kernel(const float* __restrict__ pts, const char* __restrict__ wts,
     const int pad = KCHUNK - meta.d_pe;
     for (int i = tid & 127; i < 64 * pad; i += 128) {
       const int r = i / pad;
-      store_split1(a_hi, a_lo, wg * 64 + r, meta.d_pe + i - r * pad, 0.0f);
+      store_pe<kSplit, kAct>(a_hi, a_lo, wg * 64 + r, meta.d_pe + i - r * pad,
+                             0.0f, 1.0f);
     }
-    write_pe(a_hi, a_lo, xyz, wg * 64, tid & 127, 0, multires);
+    write_pe<kSplit, kAct>(a_hi, a_lo, xyz, wg * 64, tid & 127, 0, multires,
+                           1.0f);
     fence_async_smem();
     wg_sync(wg);
     TRACE(0);
@@ -395,9 +502,25 @@ fused_sdf_kernel(const float* __restrict__ pts, const char* __restrict__ wts,
       }
       fence_acc(acc);
       for (int c = 0; c < meta.chunks[l]; ++c) {
-        // One K chunk is two stages; advancing a descriptor by 2 moves
-        // 32 bytes (16 bf16) along K inside the swizzled rows.
+        // One K chunk is two stages (one in the bfloat16 mode); advancing
+        // a descriptor by 2 moves 32 bytes (16 bf16) along K inside the
+        // swizzled rows.
         const uint64_t ah = desc_a_hi + (uint64_t)(c * (A_CHUNK_BYTES >> 4));
+        if constexpr (!kSplit) {
+          // acc += A_hi W_hi.
+          const int slot = s % STAGES;
+          mbar_wait(smem_u32(&full[slot]), (s / STAGES) & 1);
+          wgmma_fence();
+          const uint64_t b = desc_ring + (uint64_t)(slot * (STAGE_BYTES >> 4));
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            wgmma_m64n256k16(acc, ah + 2 * kk, b + 2 * kk);
+          wgmma_commit();
+          wgmma_wait<1>();   // the previous chunk's stage is done
+          if (c > 0) mbar_arrive(smem_u32(&empty[(s - 1) % STAGES]));
+          ++s;
+          continue;
+        }
         const uint64_t al = desc_a_lo + (uint64_t)(c * (A_CHUNK_BYTES >> 4));
         // W_hi: acc += A_hi W_hi + A_lo W_hi.
         int slot = s % STAGES;
@@ -436,20 +559,33 @@ fused_sdf_kernel(const float* __restrict__ pts, const char* __restrict__ wts,
       if (l + 1 < meta.n_hidden) {
         // Softplus and split: the next layer's A operand.
         wg_sync(wg);   // every warp of the group has read this layer's A
+        const float scale = skip_next ? meta.skip_scale : 1.0f;
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
           const int col = j * 8 + cq;
-          store_split(a_hi, a_lo, r0, col, softplus100(acc[4 * j]),
-                      softplus100(acc[4 * j + 1]));
-          store_split(a_hi, a_lo, r0 + 8, col, softplus100(acc[4 * j + 2]),
-                      softplus100(acc[4 * j + 3]));
+          if constexpr (kSplit) {
+            store_split(a_hi, a_lo, r0, col, softplus100(acc[4 * j]),
+                        softplus100(acc[4 * j + 1]));
+            store_split(a_hi, a_lo, r0 + 8, col, softplus100(acc[4 * j + 2]),
+                        softplus100(acc[4 * j + 3]));
+          } else if (skip_next) {
+            store_hi(a_hi, r0, col, act<kAct>(acc[4 * j]) * scale,
+                     act<kAct>(acc[4 * j + 1]) * scale);
+            store_hi(a_hi, r0 + 8, col, act<kAct>(acc[4 * j + 2]) * scale,
+                     act<kAct>(acc[4 * j + 3]) * scale);
+          } else {
+            store_hi(a_hi, r0, col, act_unrounded<kAct>(acc[4 * j]),
+                     act_unrounded<kAct>(acc[4 * j + 1]));
+            store_hi(a_hi, r0 + 8, col, act_unrounded<kAct>(acc[4 * j + 2]),
+                     act_unrounded<kAct>(acc[4 * j + 3]));
+          }
         }
         if (skip_next) {
           // The skip junction: the encoding over columns pe_col onwards
           // (the previous layer's product is zero-padded there).
           wg_sync(wg);
-          write_pe(a_hi, a_lo, xyz, wg * 64, tid & 127, meta.pe_col,
-                   multires);
+          write_pe<kSplit, kAct>(a_hi, a_lo, xyz, wg * 64, tid & 127,
+                                 meta.pe_col, multires, scale);
         }
         fence_async_smem();
         wg_sync(wg);
@@ -457,15 +593,24 @@ fused_sdf_kernel(const float* __restrict__ pts, const char* __restrict__ wts,
         // The SDF layer: each row's dot product with the SDF column,
         // over the four threads that hold the row.
         const float* w_sdf = vec + meta.n_hidden * WIDTH;
+        const float scale = skip_next ? meta.skip_scale : 1.0f;
         float s0 = 0.0f, s1 = 0.0f;
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
           const float2 w =
               __ldg(reinterpret_cast<const float2*>(w_sdf + j * 8 + cq));
-          s0 = fmaf(softplus100(acc[4 * j]), w.x,
-                    fmaf(softplus100(acc[4 * j + 1]), w.y, s0));
-          s1 = fmaf(softplus100(acc[4 * j + 2]), w.x,
-                    fmaf(softplus100(acc[4 * j + 3]), w.y, s1));
+          if constexpr (kSplit) {
+            s0 = fmaf(softplus100(acc[4 * j]), w.x,
+                      fmaf(softplus100(acc[4 * j + 1]), w.y, s0));
+            s1 = fmaf(softplus100(acc[4 * j + 2]), w.x,
+                      fmaf(softplus100(acc[4 * j + 3]), w.y, s1));
+          } else {
+            // bf16 operands: every product is exact in f32.
+            s0 = fmaf(hand_on<kAct>(acc[4 * j], scale), w.x,
+                      fmaf(hand_on<kAct>(acc[4 * j + 1], scale), w.y, s0));
+            s1 = fmaf(hand_on<kAct>(acc[4 * j + 2], scale), w.x,
+                      fmaf(hand_on<kAct>(acc[4 * j + 3], scale), w.y, s1));
+          }
         }
         s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
         s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
@@ -479,8 +624,13 @@ fused_sdf_kernel(const float* __restrict__ pts, const char* __restrict__ wts,
             // weights for it follow the SDF column.
             const float* w_pe = w_sdf + WIDTH;
             for (int e = 0; e < meta.d_pe; ++e) {
-              s0 = fmaf(pe_value(x0, e), w_pe[e], s0);
-              s1 = fmaf(pe_value(x1, e), w_pe[e], s1);
+              float p0 = pe_value(x0, e), p1 = pe_value(x1, e);
+              if constexpr (!kSplit) {
+                p0 = pe_hand_on<kAct>(p0, scale);
+                p1 = pe_hand_on<kAct>(p1, scale);
+              }
+              s0 = fmaf(p0, w_pe[e], s0);
+              s1 = fmaf(p1, w_pe[e], s1);
             }
           }
           const float b_sdf = w_sdf[WIDTH + KCHUNK];
@@ -510,17 +660,22 @@ extern "C" {
 
 size_t fused_sdf_smem_bytes(void) { return SMEM_BYTES; }
 
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
+// Launches the instantiation of meta.mode and meta.act_bf16 on
+// `stream`; returns cudaGetLastError() (0 on success).
 int fused_sdf_forward(const float* pts, const void* wts, const float* vec,
                       float* out, int n_pts, SdfMeta meta,
                       cudaStream_t stream) {
+  void (*kernel)(const float*, const char*, const float*, float*, int,
+                 SdfMeta) =
+      !meta.mode ? fused_sdf_kernel<true, false>
+      : meta.act_bf16 ? fused_sdf_kernel<false, true>
+                      : fused_sdf_kernel<false, false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_sdf_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
   if (n_pts > 0) {
     const int blocks = (n_pts + TILE_P - 1) / TILE_P;
-    fused_sdf_kernel<<<blocks, N_THREADS, SMEM_BYTES, stream>>>(
+    kernel<<<blocks, N_THREADS, SMEM_BYTES, stream>>>(
         pts, static_cast<const char*>(wts), vec, out, n_pts, meta);
   }
   return (int)cudaGetLastError();

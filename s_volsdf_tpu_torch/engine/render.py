@@ -3,7 +3,9 @@ s_volsdf_tpu/engine/render.py:66-139).
 
 Every SDF evaluation here — the sampler's sweeps and the final one over
 the chosen samples — goes through `ops.fused_sdf.fused_sdf_values`, the
-CUDA kernel on a CUDA device.
+CUDA kernel on a CUDA device, in the mode the model config's precision
+names. The render's float32 arithmetic runs in full float32 on the card
+(`utils.device.full_float32`).
 """
 
 from __future__ import annotations
@@ -13,13 +15,14 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from s_volsdf_tpu_torch.config import ModelConfig, check_model_float32
+from s_volsdf_tpu_torch.config import ModelConfig, check_model_ported
 from s_volsdf_tpu_torch.models.density import get_beta, laplace_density
 from s_volsdf_tpu_torch.models.network import (VolSDFParams, sampler_sdf_fn,
                                                volume_rendering)
 from s_volsdf_tpu_torch.models.sampler import error_bound_sample
 from s_volsdf_tpu_torch.utils.cameras import (depth_scale_factor,
                                               get_camera_params)
+from s_volsdf_tpu_torch.utils.device import full_float32
 
 
 def _depth_chunk(params: VolSDFParams, uv, pose, intrinsics, gen, sdf_fn, *,
@@ -57,7 +60,7 @@ def render_depth(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
     """Depth-only full-image render in fixed chunks of `chunk` pixels
     (the last one zero-padded). pose/intrinsics: (4, 4) numpy. Returns
     host maps depth (H, W) and acc (H, W)."""
-    check_model_float32(cfg)
+    check_model_ported(cfg)
     device = torch.device(device) if device is not None \
         else next(params.parameters()).device
     gen = gen if gen is not None \
@@ -75,7 +78,7 @@ def render_depth(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
         else cfg.scene_bounding_sphere
     sdf_fn = sampler_sdf_fn(params, cfg, bounding)   # one pack per render
     depth, acc = [], []
-    with torch.no_grad():
+    with torch.no_grad(), full_float32():
         for i in range(0, uv.shape[0], chunk):
             o = _depth_chunk(params, uv[i:i + chunk][None], pose_b, intr_b,
                              gen, sdf_fn, cfg=cfg, fast=fast)

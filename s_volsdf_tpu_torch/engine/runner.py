@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from s_volsdf_tpu_torch.bridge import load_mvs_checkpoint
-from s_volsdf_tpu_torch.config import (Config, check_mvs_float32,
+from s_volsdf_tpu_torch.config import (Config, check_mvs_ported,
                                        per_scene_overrides, save_config,
                                        validate_config)
 from s_volsdf_tpu_torch.data.io import save_pfm, write_cam, write_png
@@ -44,7 +44,7 @@ from s_volsdf_tpu_torch.models.mvs.casmvsnet import (casmvsnet_features,
                                                      casmvsnet_stage,
                                                      init_casmvsnet)
 from s_volsdf_tpu_torch.ops.fused_sdf import fused_sdf_values
-from s_volsdf_tpu_torch.utils.device import resolve_device
+from s_volsdf_tpu_torch.utils.device import full_float32, resolve_device
 from s_volsdf_tpu_torch.utils.viz import visualize_depth
 
 logger = logging.getLogger("s_volsdf_tpu_torch")
@@ -53,7 +53,13 @@ logger = logging.getLogger("s_volsdf_tpu_torch")
 class MVSEngine:
     """The frozen cascade on one device. Weights come from a converted
     checkpoint (tools/convert_ckpt.py) or are random from `rng_seed`.
-    Only casmvsnet is ported; other models raise."""
+    Only casmvsnet is ported; other models raise.
+
+    With mvs.compute_dtype="bfloat16" (the JAX default) the conv kernels
+    are cast to bf16 once, after loading (`blocks.cast_conv_weights`).
+    Its float32 work runs in full float32 on the card whatever the
+    global TF32 flags say (`utils.device.full_float32`, around every
+    call into the net)."""
 
     def __init__(self, cfg: Config, weights_path: Optional[str] = None,
                  rng_seed: int = 0, *, device):
@@ -62,7 +68,7 @@ class MVSEngine:
         if self.name != "casmvsnet":
             raise NotImplementedError(
                 f"mvs.model_name={self.name!r}: the port runs casmvsnet only")
-        check_mvs_float32(cfg.mvs)
+        check_mvs_ported(cfg.mvs)
         self.device = torch.device(device)
         self.net = init_casmvsnet(torch.Generator().manual_seed(rng_seed),
                                   ndepths=cfg.mvs.ndepths,
@@ -76,6 +82,8 @@ class MVSEngine:
                 f"MVS model '{self.name}' running with RANDOM weights "
                 f"(no checkpoint at {weights_path}); convert a torch "
                 f"ckpt with tools/convert_ckpt.py for real runs")
+        if cfg.mvs.compute_dtype == "bfloat16":
+            B.cast_conv_weights(self.net)
 
     def _put(self, a) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
@@ -84,7 +92,7 @@ class MVSEngine:
         """Feature pyramids of a scene's training views (V, H, W, 3),
         computed once per scene and reused by every stage and sample."""
         imgs = self._put(imgs_all).permute(0, 3, 1, 2).contiguous()
-        with torch.no_grad():
+        with torch.no_grad(), full_float32():
             return {"feats": casmvsnet_features(self.net, imgs)}
 
     def stage(self, stage_idx: int, features, proj, depth_values,
@@ -92,7 +100,7 @@ class MVSEngine:
         """One cascade stage of one sample; `features` are its views'
         pyramids, reference first."""
         prev = None if prev_depth is None else self._put(prev_depth)
-        with torch.no_grad():
+        with torch.no_grad(), full_float32():
             return casmvsnet_stage(
                 self.net, stage_idx, features, self._put(proj),
                 self._put(depth_values), prev, img_hw,

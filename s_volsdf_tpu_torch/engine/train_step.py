@@ -7,6 +7,13 @@ Adam.
 The JAX package fuses the step into one XLA program; here it runs
 eagerly, and the state is updated in place (parameters and Adam moments).
 The guard reads one flag on the host per step.
+
+Precision as in the JAX step: the render runs with
+`train.train_compute_dtype` / `train_activation_dtype` in place of the
+model's own (`training_model_config`), the MVS probability volumes are
+read in `train.mvs_pack_dtype` (`pack_for_chunk`), and the loss, the
+guard, the clip and Adam stay float32. Float32 products run in full
+float32 on the card (`utils.device.full_float32`).
 """
 
 from __future__ import annotations
@@ -17,10 +24,35 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from s_volsdf_tpu_torch.config import Config, check_float32
+from s_volsdf_tpu_torch.config import Config, ModelConfig, check_ported
 from s_volsdf_tpu_torch.models.loss import LossOutput, compute_loss
 from s_volsdf_tpu_torch.models.network import VolSDFParams, render_rays
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes, cost_mapping
+from s_volsdf_tpu_torch.utils.device import full_float32
+
+
+def training_model_config(cfg: Config) -> ModelConfig:
+    """The model config the training render runs with: the training
+    precision knobs in place of the model's own (eval and render paths
+    keep model.compute_dtype / activation_dtype)."""
+    return dataclasses.replace(
+        cfg.model, compute_dtype=cfg.train.train_compute_dtype,
+        activation_dtype=cfg.train.train_activation_dtype)
+
+
+def pack_for_chunk(cfg: Config, mvs: Optional[MVSVolumes]
+                   ) -> Optional[MVSVolumes]:
+    """The volumes with their probabilities stored in
+    `train.mvs_pack_dtype` (the near/far planes stay float32): the
+    counterpart of the JAX package's pack, done once per chunked loop.
+    Returns `mvs` itself when it already has that dtype (or is None)."""
+    if mvs is None:
+        return None
+    dtype = torch.bfloat16 if cfg.train.mvs_pack_dtype == "bfloat16" \
+        else torch.float32
+    if mvs.prob.dtype == dtype:
+        return mvs
+    return dataclasses.replace(mvs, prob=mvs.prob.to(dtype))
 
 
 class Optimizer:
@@ -68,7 +100,7 @@ class TrainState:
 
 
 def init_train_state(cfg: Config, params: VolSDFParams, tx: Optimizer) -> TrainState:
-    check_float32(cfg)
+    check_ported(cfg)
     return TrainState(params, tx, 0)
 
 
@@ -77,7 +109,8 @@ def _loss_fn(params: VolSDFParams, cfg: Config, batch: Dict, gen,
              ) -> Tuple[torch.Tensor, LossOutput]:
     # batch["jitter"]: the optional common-random-numbers feed of the
     # sampler and the eikonal points (models/sampler.py).
-    out = render_rays(params, cfg.model, batch["uv"], batch["pose"],
+    out = render_rays(params, training_model_config(cfg), batch["uv"],
+                      batch["pose"],
                       batch["intrinsics"], gen, training=True, fast=1,
                       jitter=batch.get("jitter"))
     outputs = {
@@ -101,9 +134,10 @@ def loss_and_grads(params: VolSDFParams, cfg: Config, batch: Dict, gen,
                    mvs: Optional[MVSVolumes], iter_step: int
                    ) -> Tuple[List[torch.Tensor], LossOutput]:
     """Gradients of `_loss_fn` for every parameter, in
-    `params.parameters()` order."""
-    loss, loss_out = _loss_fn(params, cfg, batch, gen, mvs, iter_step)
-    grads = torch.autograd.grad(loss, list(params.parameters()))
+    `params.parameters()` order (float32 products in full float32)."""
+    with full_float32():
+        loss, loss_out = _loss_fn(params, cfg, batch, gen, mvs, iter_step)
+        grads = torch.autograd.grad(loss, list(params.parameters()))
     return list(grads), loss_out
 
 
@@ -156,7 +190,7 @@ def make_one_step(cfg: Config, tx: Optimizer, *, use_mvs: bool, n_views: int,
                   img_res: Tuple[int, int], n_rays: Optional[int] = None):
     """The trainer's step: sample pixels on the device, grad, guard,
     update."""
-    check_float32(cfg)
+    check_ported(cfg)
     n_rays = n_rays if n_rays is not None else cfg.train.num_pixels
 
     def one_step(scene: Dict, mvs: Optional[MVSVolumes], state: TrainState,
@@ -176,8 +210,10 @@ def train_step(state: TrainState, batch: Dict, gen, mvs: Optional[MVSVolumes],
                ) -> Tuple[TrainState, LossOutput]:
     """One step on a given batch: uv (B,N,2), pose (B,4,4),
     intrinsics (B,4,4), rgb (B,N,3), rgb_smooth (B,N,3), view_onehot (V,)
-    and optionally "jitter"."""
-    check_float32(cfg)
+    and optionally "jitter". `mvs` is read in the dtype it has, as the
+    JAX step reads what it is given (the trainer stores it with
+    `pack_for_chunk`)."""
+    check_ported(cfg)
     grads, loss_out = loss_and_grads(
         state.params, cfg, batch, gen, mvs if use_mvs else None,
         state.iter_step)

@@ -2,12 +2,15 @@
 s_volsdf_tpu/engine/trainer.py:41-77, 124-224, 290-375, 422-443).
 
 The JAX package runs a chunk of steps as one `lax.scan` program; here a
-chunk is a Python loop over eager steps (`make_scan_train_fn`). Not
+chunk is a Python loop over eager steps (`make_scan_train_fn`). A run
+reads the MVS volumes in `train.mvs_pack_dtype` (stored so once per
+run); the feedback render runs in `train.feedback_render_dtype`. Not
 ported yet: TensorBoard scalars, plot renders and checkpoints.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
 from typing import Dict, List, Optional, Tuple
@@ -15,13 +18,14 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from s_volsdf_tpu_torch.config import Config, check_float32
+from s_volsdf_tpu_torch.config import Config, check_ported
 from s_volsdf_tpu_torch.data.scene_dataset import SceneData
 from s_volsdf_tpu_torch.engine.render import render_depth
 from s_volsdf_tpu_torch.engine.train_step import (Optimizer, TrainState,
                                                   init_train_state,
                                                   make_one_step,
-                                                  make_optimizer)
+                                                  make_optimizer,
+                                                  pack_for_chunk)
 from s_volsdf_tpu_torch.models.loss import LossOutput
 from s_volsdf_tpu_torch.models.network import init_volsdf_params
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
@@ -65,7 +69,7 @@ class VolTrainer:
 
     def __init__(self, cfg: Config, scene: SceneData, *, device,
                  chunk_steps: int = 200):
-        self.cfg = check_float32(cfg)
+        self.cfg = check_ported(cfg)
         self.scene = scene
         self.device = torch.device(device)
         self.chunk_steps = chunk_steps
@@ -88,7 +92,8 @@ class VolTrainer:
         (outs[i]["prob_volume"], ["depth_values"], (D, Hc, Wc) tensors)
         into MVSVolumes, on the device they are on: depths in the
         trainer's units (/ scale_factor), the near plane clamped to the
-        bounding sphere's radius."""
+        bounding sphere's radius. `run` stores the probabilities in
+        train.mvs_pack_dtype."""
         r = self.cfg.model.scene_bounding_sphere
         probs, slabs = [], []
         for out in outs:
@@ -109,6 +114,8 @@ class VolTrainer:
         """Optimise for opt_stepN steps; returns the epoch counter (an
         epoch is one pass over the training views)."""
         use_mvs = bool(self.cfg.use_mvs and self.mvs is not None)
+        if use_mvs:   # the volumes in mvs_pack_dtype, once per run
+            self.mvs = pack_for_chunk(self.cfg, self.mvs)
         ti = self.trains_i
         run_chunk = make_scan_train_fn(self.cfg, self.tx, use_mvs=use_mvs,
                                        n_views=len(ti),
@@ -146,13 +153,19 @@ class VolTrainer:
                    chunk: int = 16384) -> np.ndarray:
         """Depth of a training view for cascade feedback: depth *
         scale_factor, pixels with accumulated weight < 0.2 pushed to the
-        far (largest) depth. res_scale < 1 renders a reduced grid."""
+        far (largest) depth. res_scale < 1 renders a reduced grid. The
+        MLP runs in bf16 when train.feedback_render_dtype is bfloat16
+        (products and activations), else in the model's precision."""
         H, W = self.scene.img_res
         out_res = (int(H * res_scale), int(W * res_scale))
         intr = np.array(self.scene.intrinsics[view_idx], np.float32)
         intr[0, :] *= res_scale
         intr[1, :] *= res_scale
-        maps = render_depth(self.state.params, self.cfg.model,
+        mcfg = self.cfg.model
+        if self.cfg.train.feedback_render_dtype == "bfloat16":
+            mcfg = dataclasses.replace(mcfg, compute_dtype="bfloat16",
+                                       activation_dtype="bfloat16")
+        maps = render_depth(self.state.params, mcfg,
                             self.scene.poses[view_idx], intr, out_res,
                             fast=-1, chunk=chunk, device=self.device)
         depth = maps["depth"] * self.scale_factor

@@ -2,16 +2,22 @@
 s_volsdf_tpu/models/layers.py:25-132).
 
 The JAX layout and leaf names are kept: `v` is (d_in, d_out), so a layer
-applies as `x @ W + b`, and `g` (d_out,) rescales each output COLUMN of
+applies as `x @ W + b` (`apply_linear`), and `g` (d_out,) rescales each
+output COLUMN of
 `v`. That is why `torch.nn.utils.weight_norm` is not used: its `dim`
 convention is for torch's (out, in) weights. The norm is epsilon-free,
 like the JAX layer's.
+
+`apply_linear(p, x, compute_dtype)` is the JAX `apply_linear`: with
+bfloat16, both operands are rounded to bf16 and the product is
+accumulated and returned in float32 (JAX's `preferred_element_type`),
+then the float32 bias is added.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -29,9 +35,6 @@ class WeightNormLinear(nn.Module):
     def weight(self) -> torch.Tensor:
         return self.g * self.v / torch.linalg.norm(self.v, dim=0, keepdim=True)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.weight() + self.b
-
 
 class Linear(nn.Module):
     """Plain layer with JAX leaves `w` (in, out) and `b` (out,)."""
@@ -44,8 +47,26 @@ class Linear(nn.Module):
     def weight(self) -> torch.Tensor:
         return self.w
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w + self.b
+
+def apply_linear(p: nn.Module, x: torch.Tensor,
+                 compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """x @ W + b (W with its weight norm applied in float32). With
+    compute_dtype=torch.bfloat16: x and W rounded to bf16, their product
+    accumulated and returned in float32, plus the float32 bias.
+
+    The product is the float32 product of the rounded operands: every
+    product of two bf16 values is exact in float32, so this is the value
+    of a bf16 product with float32 accumulation, in the order the
+    float32 matmul sums. It runs so on the card too, because torch's
+    bf16 product with a float32 result (`torch.mm(a, b,
+    out_dtype=torch.float32)`) has no derivative, and the eikonal term
+    differentiates through these layers twice. The callers keep TF32 off
+    (`utils.device.full_float32`), so the sums are float32."""
+    w = p.weight()
+    if compute_dtype is None:
+        return x @ w + p.b
+    xq = x.to(compute_dtype).float()
+    return xq @ w.to(compute_dtype).float() + p.b
 
 
 def softplus_b(x: torch.Tensor, beta: float = 100.0) -> torch.Tensor:

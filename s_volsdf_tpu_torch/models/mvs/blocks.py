@@ -9,6 +9,14 @@ uses its stored statistics (eps 1e-5), whatever the module's mode.
 The JAX package writes the transposed conv as an input-dilated conv on
 pre-flipped DHWIO weights; here it is `nn.ConvTranspose3d` and the
 bridge flips the weights back (bridge.py).
+
+The conv's precision follows its weight's dtype, as in the JAX package
+(`_conv_operands`): `cast_conv_weights` rounds every conv kernel (not BN,
+biases or linear layers) to bf16 once; a bf16 conv takes its input in
+bf16 and hands a float32 output (bias added in float32) to BN and ReLU.
+Its product is cuDNN's bf16 conv on the card (the CPU's on the CPU),
+which rounds its output to bf16 where JAX's preferred_element_type=f32
+does not: one more rounding of 2^-9 relative per conv (ROADMAP queue 3).
 """
 
 from __future__ import annotations
@@ -20,6 +28,54 @@ import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+
+
+def _in_weight_dtype(conv: nn.Module, x: torch.Tensor, apply) -> torch.Tensor:
+    """apply(x) in the conv weight's dtype: a bf16 weight takes x in bf16
+    and returns float32 with the float32 bias added; a float32 weight
+    runs as it is."""
+    if conv.weight.dtype != torch.bfloat16:
+        return apply(x, conv.bias)
+    y = apply(x.to(torch.bfloat16), None).float()
+    if conv.bias is not None:
+        y = y + conv.bias.view((1, -1) + (1,) * (y.dim() - 2))
+    return y
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d in its weight's dtype (`_in_weight_dtype`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _in_weight_dtype(
+            self, x, lambda x, b: self._conv_forward(x, self.weight, b))
+
+
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d in its weight's dtype (`_in_weight_dtype`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _in_weight_dtype(
+            self, x, lambda x, b: self._conv_forward(x, self.weight, b))
+
+
+class ConvTranspose3d(nn.ConvTranspose3d):
+    """nn.ConvTranspose3d (fixed output_padding) in its weight's dtype
+    (`_in_weight_dtype`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _in_weight_dtype(self, x, lambda x, b: F.conv_transpose3d(
+            x, self.weight, b, self.stride, self.padding, self.output_padding,
+            self.groups, self.dilation))
+
+
+def cast_conv_weights(net: nn.Module, dtype=torch.bfloat16) -> nn.Module:
+    """Every conv kernel of `net` in `dtype`, in place (biases, BN and
+    any linear layer stay float32): the counterpart of the JAX
+    `cast_conv_weights`."""
+    for m in net.modules():
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+            m.weight.data = m.weight.data.to(dtype)
+    return net
 
 
 class ConvBnReLU(nn.Module):
@@ -39,20 +95,20 @@ class ConvBnReLU(nn.Module):
 
 def conv2d(cin: int, cout: int, k: int, stride: int = 1,
            padding: int = 0) -> ConvBnReLU:
-    return ConvBnReLU(nn.Conv2d(cin, cout, k, stride, padding, bias=False),
+    return ConvBnReLU(Conv2d(cin, cout, k, stride, padding, bias=False),
                       nn.BatchNorm2d(cout, eps=BN_EPS))
 
 
 def conv3d(cin: int, cout: int, k: int = 3, stride: int = 1,
            padding: int = 1) -> ConvBnReLU:
-    return ConvBnReLU(nn.Conv3d(cin, cout, k, stride, padding, bias=False),
+    return ConvBnReLU(Conv3d(cin, cout, k, stride, padding, bias=False),
                       nn.BatchNorm3d(cout, eps=BN_EPS))
 
 
 def deconv3d(cin: int, cout: int, k: int = 3, stride: int = 2,
              padding: int = 1, output_padding: int = 1) -> ConvBnReLU:
-    return ConvBnReLU(nn.ConvTranspose3d(cin, cout, k, stride, padding,
-                                         output_padding, bias=False),
+    return ConvBnReLU(ConvTranspose3d(cin, cout, k, stride, padding,
+                                      output_padding, bias=False),
                       nn.BatchNorm3d(cout, eps=BN_EPS))
 
 

@@ -44,11 +44,11 @@ class FeatureNet(nn.Module):
         self.conv2 = nn.Sequential(B.conv2d(2 * b, 4 * b, 5, 2, 2),
                                    B.conv2d(4 * b, 4 * b, 3, 1, 1),
                                    B.conv2d(4 * b, 4 * b, 3, 1, 1))
-        self.out1 = nn.Conv2d(4 * b, 4 * b, 1, bias=False)
-        self.inner1 = nn.Conv2d(2 * b, 4 * b, 1, bias=True)
-        self.inner2 = nn.Conv2d(b, 4 * b, 1, bias=True)
-        self.out2 = nn.Conv2d(4 * b, 2 * b, 3, padding=1, bias=False)
-        self.out3 = nn.Conv2d(4 * b, b, 3, padding=1, bias=False)
+        self.out1 = B.Conv2d(4 * b, 4 * b, 1, bias=False)
+        self.inner1 = B.Conv2d(2 * b, 4 * b, 1, bias=True)
+        self.inner2 = B.Conv2d(b, 4 * b, 1, bias=True)
+        self.out2 = B.Conv2d(4 * b, 2 * b, 3, padding=1, bias=False)
+        self.out3 = B.Conv2d(4 * b, b, 3, padding=1, bias=False)
 
     def forward(self, img: torch.Tensor) -> Dict[str, torch.Tensor]:
         c0 = self.conv0(img)
@@ -79,7 +79,7 @@ class CostRegNet(nn.Module):
         self.conv7 = B.deconv3d(8 * b, 4 * b)
         self.conv9 = B.deconv3d(4 * b, 2 * b)
         self.conv11 = B.deconv3d(2 * b, b)
-        self.prob = nn.Conv3d(b, 1, 3, 1, 1, bias=False)
+        self.prob = B.Conv3d(b, 1, 3, 1, 1, bias=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         c0 = self.conv0(x)

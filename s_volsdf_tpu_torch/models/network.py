@@ -21,7 +21,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch import nn
 
-from s_volsdf_tpu_torch.config import ModelConfig, check_model_float32
+from s_volsdf_tpu_torch.config import ModelConfig, check_model_ported
 from s_volsdf_tpu_torch.models import layers
 from s_volsdf_tpu_torch.models.density import (get_beta, init_laplace_density,
                                                laplace_density)
@@ -62,24 +62,42 @@ def init_volsdf_params(gen: torch.Generator, cfg: ModelConfig,
     return VolSDFParams(sdf, rgb, density)
 
 
+def compute_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
+    """torch.bfloat16 for bf16 products, else None (float32)."""
+    return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
+
+
+def activation_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
+    """The dtype of hidden activations between MLP layers: bf16 only
+    alongside bf16 products (bf16 activations feeding float32 products
+    would round inputs for nothing), else None (float32)."""
+    if cfg.activation_dtype == "bfloat16" and cfg.compute_dtype == "bfloat16":
+        return torch.bfloat16
+    return None
+
+
 # --------------------------------------------------------------------------
 # SDF network
 # --------------------------------------------------------------------------
 
 def sdf_mlp_raw(params: nn.ModuleList, cfg: ModelConfig,
                 x: torch.Tensor) -> torch.Tensor:
-    """Raw MLP output (N, 1 + feature_size). The skip junction is
-    [h, pe] * 1/sqrt(2), in that order."""
+    """Raw MLP output (N, 1 + feature_size), float32. The skip junction
+    is [h, pe] * 1/sqrt(2), in that order, in the activations' dtype."""
     imp = cfg.implicit
+    dt, act_dt = compute_dtype(cfg), activation_dtype(cfg)
     inp = positional_encoding(x, imp.multires)
     h = inp
     n_layers = len(params)
     inv_sqrt2 = 0.7071067811865475
     for l, p in enumerate(params):
         if l in imp.skip_in:
-            h = torch.cat([h, inp], dim=-1) * inv_sqrt2
-        h = p(h)
+            h = torch.cat([h, inp.to(h.dtype)], dim=-1) * torch.tensor(
+                inv_sqrt2, dtype=h.dtype)
+        h = layers.apply_linear(p, h, dt)
         if l < n_layers - 1:
+            if act_dt is not None:
+                h = h.to(act_dt)
             h = layers.softplus_b(h, beta=100.0)
     return h
 
@@ -138,10 +156,13 @@ def rgb_mlp(params: nn.ModuleList, cfg: ModelConfig, points, normals,
         h = torch.cat([view_pe, feats], dim=-1)
     else:
         raise ValueError(ren.mode)
+    dt, act_dt = compute_dtype(cfg), activation_dtype(cfg)
     n_layers = len(params)
     for l, p in enumerate(params):
-        h = p(h)
+        h = layers.apply_linear(p, h, dt)
         if l < n_layers - 1:
+            if act_dt is not None:
+                h = h.to(act_dt)
             h = torch.relu(h)
     return torch.sigmoid(h)
 
@@ -172,8 +193,9 @@ class RenderOutput(NamedTuple):
 def sampler_sdf_fn(params: VolSDFParams, cfg: ModelConfig,
                    bounding_sphere: float):
     """The sampler's no-grad SDF sweep: the fused kernel on detached
-    parameters, packed once here (`pack_sdf`) for every sweep the
-    returned function serves (a training step's, or a whole render's)."""
+    parameters, packed once here (`pack_sdf`, in the mode `cfg`'s
+    precision names) for every sweep the returned function serves (a
+    training step's, or a whole render's)."""
     pack = pack_sdf(params.sdf, cfg)
 
     def sdf_fn(pts):
@@ -190,7 +212,7 @@ def render_rays(params: VolSDFParams, cfg: ModelConfig, uv, pose, intrinsics,
     are flattened to R = B*N. fast: sampler iterations, -1 for
     cfg.sampler.max_total_iters. jitter: the sampler feed plus "eik_pts"
     (R, 3) U[0,1) for the uniform eikonal points."""
-    check_model_float32(cfg)
+    check_model_ported(cfg)
     bounding_sphere = 0.0 if cfg.white_bkgd else cfg.scene_bounding_sphere
     ray_dirs, cam_loc = get_camera_params(uv, pose, intrinsics)
     depth_scale = depth_scale_factor(uv, intrinsics)

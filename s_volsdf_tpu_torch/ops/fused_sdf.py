@@ -13,11 +13,17 @@ Dispatch is by the device of `pts` alone. A CPU tensor goes through
 config outside `supported`, a failed build, a refused launch). There is
 no fallback from the kernel to the plain version.
 
-The kernel runs its products on the tensor cores as three bf16 products
-(hi/lo split, f32 accumulation). `pack_sdf` lays the weights out for it
-once per weight version: the callers pack once per training step and
-once per render (`models/network.sampler_sdf_fn`) and hand the pack to
-every launch; `fused_sdf_values` without a pack packs for itself.
+The kernel has two modes, named by the model config's precision (`mode`):
+"float32" (compute_dtype float32) reproduces the float32 MLP with three
+bf16 products per layer on the tensor cores (hi/lo split, f32
+accumulation); "bfloat16" (compute_dtype bfloat16, the JAX training
+step's default) is one bf16 product per layer, rounding where the JAX
+bf16 MLP rounds (csrc/fused_sdf.cu's header). `pack_sdf` lays the
+weights out for one mode once per weight version, and the pack carries
+its mode: the callers pack once per training step and once per render
+(`models/network.sampler_sdf_fn`) and hand the pack to every launch;
+`fused_sdf_values` without a pack packs for itself, and refuses a pack
+of another mode than its config's.
 
 The kernel library is built with nvcc at first use into `_build/`
 (rebuilt when the source is newer) and bound with ctypes.
@@ -46,6 +52,7 @@ WIDTH = 256          # csrc/fused_sdf.cu WIDTH: N of every hidden product
 KCHUNK = 64          # csrc/fused_sdf.cu KCHUNK: K per stage
 MAX_MULTIRES = 10    # d_pe <= 63: layer 0's input is one K chunk
 INV_SQRT2 = 0.7071067811865475
+MODES = ("float32", "bfloat16")
 # |w - (hi + lo)| <= 2^-16 |w|: each half rounded to nearest bf16 (8
 # significant bits) is within 2^-8 of what it rounds.
 SPLIT_REL_ERR = 2.0 ** -16
@@ -59,8 +66,11 @@ class SdfMeta(ctypes.Structure):
         ("skip", ctypes.c_int),
         ("pe_col", ctypes.c_int),
         ("d_pe", ctypes.c_int),
+        ("mode", ctypes.c_int),
+        ("act_bf16", ctypes.c_int),
         ("bounding_sphere", ctypes.c_float),
         ("sphere_scale", ctypes.c_float),
+        ("skip_scale", ctypes.c_float),
         ("chunks", ctypes.c_int * MAX_LAYERS),
     ]
 
@@ -77,6 +87,23 @@ def supported(cfg: ModelConfig) -> bool:
             and len(imp.dims) + 1 <= MAX_LAYERS)
 
 
+def mode(cfg: ModelConfig) -> str:
+    """The kernel mode of a model config: "bfloat16" for bf16 products,
+    else "float32"."""
+    return "bfloat16" if cfg.compute_dtype == "bfloat16" else "float32"
+
+
+def act_bf16(cfg: ModelConfig) -> bool:
+    """bf16 activations (only alongside bf16 products, as in
+    models/network.activation_dtype)."""
+    return cfg.activation_dtype == "bfloat16" and mode(cfg) == "bfloat16"
+
+
+def bf16r(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to nearest bf16, as float32."""
+    return x.to(torch.bfloat16).float()
+
+
 def normalized_weights(sdf_params) -> List[Tuple[torch.Tensor, torch.Tensor]]:
     """Materialise every layer to a plain detached (W (in, out), b) pair."""
     return [(p.weight().detach(), p.b.detach()) for p in sdf_params]
@@ -84,21 +111,43 @@ def normalized_weights(sdf_params) -> List[Tuple[torch.Tensor, torch.Tensor]]:
 
 def sdf_values_plain(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
                      bounding_sphere: float) -> torch.Tensor:
-    """What the kernel computes, as one torch.matmul per layer: the
-    clamped SDF (N,) of pts (N, 3). The last layer is applied to its SDF
-    column only. Softplus is `layers.softplus_b`'s jax.nn form."""
+    """What the kernel computes in `cfg`'s mode, as one torch.matmul per
+    layer: the clamped SDF (N,) of pts (N, 3). The last layer is applied
+    to its SDF column only. Softplus is `layers.softplus_b`'s jax.nn
+    form.
+
+    The bfloat16 mode rounds where the kernel rounds: every layer's
+    input and weights to bf16 (the float32 product of bf16 values is
+    their exact products summed in float32); with bf16 activations also
+    the pre-activation and the softplus; the skip junction's
+    [h, pe] * 1/sqrt(2) (bf16(1/sqrt(2)) with bf16 activations) before
+    its rounding."""
     imp = cfg.implicit
+    bf16 = mode(cfg) == "bfloat16"
+    act = act_bf16(cfg)
     with torch.no_grad():
         wb = normalized_weights(sdf_params)
         inp = positional_encoding(pts, imp.multires)
         h = inp
         for l, (w, b) in enumerate(wb):
             if l in imp.skip_in:
-                h = torch.cat([h, inp], dim=-1) * INV_SQRT2
+                if bf16 and act:
+                    h = torch.cat([h, bf16r(inp)], dim=-1) * bf16r(
+                        torch.tensor(INV_SQRT2))
+                else:
+                    h = torch.cat([h, inp], dim=-1) * INV_SQRT2
             if l == len(wb) - 1:
-                h = h @ w[:, :1] + b[:1]
+                w = w[:, :1]
+            if bf16:
+                h, w = bf16r(h), bf16r(w)
+            if l == len(wb) - 1:
+                h = h @ w + b[:1]
             else:
-                h = softplus_b(h @ w + b, beta=100.0)
+                z = h @ w + b
+                if act:
+                    h = bf16r(softplus_b(bf16r(z), beta=100.0))
+                else:
+                    h = softplus_b(z, beta=100.0)
         sdf = h[:, 0]
         if bounding_sphere > 0.0:
             r = torch.linalg.norm(pts, dim=-1)
@@ -129,27 +178,34 @@ def swizzle128(t: torch.Tensor) -> torch.Tensor:
 class SdfPack:
     """The kernel's operands for one version of the SDF weights.
 
+    mode: "float32" or "bfloat16" (`mode`), also in meta.mode.
     weights: (n_stages, 256, 64) bf16, the stream the kernel's producer
       copies stage by stage: for each hidden layer, for each K chunk of
-      64, W_hi then W_lo of that chunk, as (out, in) (K-major), zero-
-      padded to N = 256 and K = 64 * chunks, in the 128-byte swizzle.
-      The skip layer's 1/sqrt(2) is folded in.
+      64, W_hi then (float32 mode only) W_lo of that chunk, as
+      (out, in) (K-major), zero-padded to N = 256 and K = 64 * chunks,
+      in the 128-byte swizzle. In the float32 mode the skip layer's
+      1/sqrt(2) is folded in; the bfloat16 mode applies it in the
+      kernel's epilogue, where JAX's bf16 multiply rounds.
     vec: f32, the hidden layers' biases (n_hidden x 256, zero-padded),
       then the SDF column of the last layer (256, zero-padded), its
       rows that multiply the encoding when the skip junction feeds the
-      last layer (64, else zeros), and its bias.
+      last layer (64, else zeros), and its bias. The bfloat16 mode's
+      SDF column and encoding rows are bf16-rounded.
     meta: the layer table (bounding_sphere and sphere_scale are set per
       launch)."""
+    mode: str
     weights: torch.Tensor
     vec: torch.Tensor
     meta: SdfMeta
 
 
 def pack_sdf(sdf_params, cfg: ModelConfig, device=None) -> SdfPack:
-    """Weight norm, the 1/sqrt(2) fold, the hi/lo split and the padded,
-    swizzled K-major layout, on `device` (default: the weights')."""
+    """Weight norm and the padded, swizzled K-major layout of `cfg`'s
+    mode, on `device` (default: the weights'): the 1/sqrt(2) fold and the
+    hi/lo split (float32), or W rounded to nearest bf16 (bfloat16)."""
     pack_sdf.builds += 1
     imp = cfg.implicit
+    bf16 = mode(cfg) == "bfloat16"
     with torch.no_grad():
         wb = normalized_weights(sdf_params)
         device = torch.device(device) if device is not None \
@@ -161,16 +217,20 @@ def pack_sdf(sdf_params, cfg: ModelConfig, device=None) -> SdfPack:
         meta.skip = skip
         meta.pe_col = wb[skip - 1][0].shape[1] if skip > 0 else 0
         meta.d_pe = embed_dim(imp.multires, imp.d_in)
+        meta.mode = MODES.index(mode(cfg))
+        meta.act_bf16 = int(act_bf16(cfg))
+        meta.skip_scale = (float(bf16r(torch.tensor(INV_SQRT2)))
+                           if act_bf16(cfg) else INV_SQRT2) if bf16 else 1.0
         wt = torch.zeros((n_hidden, WIDTH, WIDTH), device=device)
         vec = torch.zeros((n_hidden + 1) * WIDTH + KCHUNK + 1, device=device)
         take = []
         for l, (w, b) in enumerate(wb):
             w = w.to(device=device, dtype=torch.float32)
             b = b.to(device=device, dtype=torch.float32)
-            if l == skip:
+            if l == skip and not bf16:
                 w = w * INV_SQRT2
             if l == n_hidden:
-                col = w[:, 0]
+                col = bf16r(w[:, 0]) if bf16 else w[:, 0]
                 if l == skip:   # [h, pe]: the pe part goes after the column
                     vec[(l + 1) * WIDTH:(l + 1) * WIDTH + meta.d_pe] = \
                         col[meta.pe_col:]
@@ -183,14 +243,16 @@ def pack_sdf(sdf_params, cfg: ModelConfig, device=None) -> SdfPack:
             vec[l * WIDTH:l * WIDTH + n] = b
             meta.chunks[l] = -(-k // KCHUNK)
             take += [l * (WIDTH // KCHUNK) + c for c in range(meta.chunks[l])]
-        # (layer, chunk, hi/lo, N, K chunk), then the chunks each layer has.
-        hi, lo = split_bf16(wt)
-        stages = torch.stack([hi, lo], dim=1).reshape(
-            n_hidden, 2, WIDTH, WIDTH // KCHUNK, KCHUNK).permute(0, 3, 1, 2, 4)
-        stages = stages.reshape(-1, 2, WIDTH, KCHUNK)[
+        # (layer, chunk, hi[/lo], N, K chunk), then the chunks each layer
+        # has.
+        parts = [wt.to(torch.bfloat16)] if bf16 else list(split_bf16(wt))
+        stages = torch.stack(parts, dim=1).reshape(
+            n_hidden, len(parts), WIDTH, WIDTH // KCHUNK, KCHUNK).permute(
+                0, 3, 1, 2, 4)
+        stages = stages.reshape(-1, len(parts), WIDTH, KCHUNK)[
             torch.tensor(take, device=device)].reshape(-1, WIDTH, KCHUNK)
         meta.n_stages = stages.shape[0]
-        return SdfPack(swizzle128(stages).contiguous(), vec, meta)
+        return SdfPack(mode(cfg), swizzle128(stages).contiguous(), vec, meta)
 
 
 pack_sdf.builds = 0
@@ -233,10 +295,18 @@ def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
                      pack: Optional[SdfPack] = None) -> torch.Tensor:
     """Clamped SDF values (N,) of pts (N, 3) f32, without gradient.
 
-    CPU tensor: `sdf_values_plain` (`pack` unused). CUDA tensor: one
-    launch of the fused kernel on the current stream (counted in
-    `fused_sdf_values.launches`) with `pack` (`pack_sdf` of the same
-    weights; packed here when None), or an exception."""
+    A pack of another mode than `cfg`'s raises. CPU tensor:
+    `sdf_values_plain` (`pack` otherwise unused). CUDA tensor: one
+    launch of the fused kernel in `cfg`'s mode on the current stream
+    (counted in `fused_sdf_values.launches` and, by mode, in
+    `fused_sdf_values.mode_launches`) with `pack` (`pack_sdf` of the
+    same weights and mode; packed here when None), or an exception."""
+    if pack is not None and (pack.mode, bool(pack.meta.act_bf16)) != (
+            mode(cfg), act_bf16(cfg)):
+        raise ValueError(f"fused_sdf_values: a {pack.mode} pack (bf16 "
+                         f"activations {bool(pack.meta.act_bf16)}) for a "
+                         f"config of mode {mode(cfg)} (bf16 activations "
+                         f"{act_bf16(cfg)})")
     if pts.device.type == "cpu":
         return sdf_values_plain(sdf_params, cfg, pts, bounding_sphere)
     if pts.device.type != "cuda":
@@ -272,7 +342,14 @@ def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
         raise RuntimeError("fused_sdf kernel launch failed: "
                            + lib.fused_sdf_error_string(rc).decode())
     fused_sdf_values.launches += 1
+    fused_sdf_values.mode_launches[pack.mode] += 1
     return out
 
 
-fused_sdf_values.launches = 0
+def reset_launches() -> None:
+    """Set the launch counts, the total and each mode's, to 0."""
+    fused_sdf_values.launches = 0
+    fused_sdf_values.mode_launches = dict.fromkeys(MODES, 0)
+
+
+reset_launches()

@@ -15,12 +15,17 @@ kernel alone (weights packed beforehand: `pack_sdf`, or `_pack_params`
 in a tree that predates it) and the wrapper called without a pack; and
 the plain version at 65,536 points, with the kernel's max |diff| to it.
 
+A tree whose kernel has the bfloat16 mode is timed in both modes (the
+dtu model with compute_dtype and activation_dtype "bfloat16"), the
+bfloat16 mode's error against its own plain version.
+
 `--trace`: builds this checkout's kernel with -DFUSED_SDF_TRACE=100 (a
 separate library, `_build/libfused_sdf_trace.so`) and prints, for block
-100 of a 2,097,152-point launch, each consumer warpgroup's cycles per
-layer in its products (wgmma, waiting on the weight ring included) and
-in its epilogue (softplus, split, stores; the skip junction's encoding;
-the SDF dot product), from `clock64()` stamps.
+100 of a 2,097,152-point launch in each mode, each consumer warpgroup's
+cycles per layer in its products (wgmma, waiting on the weight ring
+included) and in its epilogue (softplus, split or rounding, stores; the
+skip junction's encoding; the SDF dot product), from `clock64()`
+stamps.
 
 Prints the card's name and power limit first, one JSON line per turn,
 then a summary.
@@ -59,12 +64,13 @@ def _median_ms(fn, reps: int = 20) -> float:
     return float(np.median(times))
 
 
-def _setup(device):
+def _setup(device, mode: str = "float32"):
     import numpy as np
     import torch
     from s_volsdf_tpu_torch.config import dtu_config
     from s_volsdf_tpu_torch.models.network import init_volsdf_params
     cfg = dtu_config()
+    cfg.model.compute_dtype = cfg.model.activation_dtype = mode
     params = init_volsdf_params(torch.Generator().manual_seed(0), cfg.model,
                                 device)
     pts = {n: torch.as_tensor(np.random.default_rng(1).normal(size=(n, 3))
@@ -73,15 +79,11 @@ def _setup(device):
     return cfg, params, pts
 
 
-def child(tree: str) -> None:
-    """One turn: times the kernel of the package under `tree`."""
-    sys.path.insert(0, tree)
+def _time_mode(fs, dev, mode: str) -> dict:
+    """One mode's kernel and wrapper times and its error to its plain
+    version, in the package `fs`."""
     import torch
-    from s_volsdf_tpu_torch.ops import fused_sdf as fs
-    torch.backends.cuda.matmul.allow_tf32 = False
-    dev = torch.device("cuda")
-    fs.build(force=True)
-    cfg, params, pts = _setup(dev)
+    cfg, params, pts = _setup(dev, mode)
     stream = torch.cuda.current_stream(dev).cuda_stream
     kernel_ms, wrapper_ms = {}, {}
     for n, p in pts.items():
@@ -105,16 +107,29 @@ def child(tree: str) -> None:
     n = POINTS[0]
     got = fs.fused_sdf_values(params.sdf, cfg.model, pts[n], 3.0)
     ref = fs.sdf_values_plain(params.sdf, cfg.model, pts[n], 3.0)
-    print(json.dumps({
-        "tree": tree, "kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
-        "plain_ms": _median_ms(lambda: fs.sdf_values_plain(
-            params.sdf, cfg.model, pts[n], 3.0)),
-        "max_abs_err": (got - ref).abs().max().item()}))
+    return {"kernel_ms": kernel_ms, "wrapper_ms": wrapper_ms,
+            "plain_ms": _median_ms(lambda: fs.sdf_values_plain(
+                params.sdf, cfg.model, pts[n], 3.0)),
+            "max_abs_err": (got - ref).abs().max().item()}
 
 
-def trace(block: int = 100) -> None:
-    """Per-layer cycles of one block, from the kernel's FUSED_SDF_TRACE
-    stamps (see csrc/fused_sdf.cu)."""
+def child(tree: str) -> None:
+    """One turn: times the kernel of the package under `tree`, in each
+    mode it has."""
+    sys.path.insert(0, tree)
+    import torch
+    from s_volsdf_tpu_torch.ops import fused_sdf as fs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    fs.build(force=True)
+    modes = getattr(fs, "MODES", ("float32",))
+    print(json.dumps({"tree": tree, **{m: _time_mode(fs, dev, m)
+                                       for m in modes}}))
+
+
+def trace(mode: str, block: int = 100) -> None:
+    """Per-layer cycles of one block in `mode`, from the kernel's
+    FUSED_SDF_TRACE stamps (see csrc/fused_sdf.cu)."""
     import torch
     sys.path.insert(0, REPO)
     from s_volsdf_tpu_torch.ops import fused_sdf as fs
@@ -124,7 +139,7 @@ def trace(block: int = 100) -> None:
     lib = fs.bind(so)
     lib.fused_sdf_trace.argtypes = [ctypes.c_void_p]
     dev = torch.device("cuda")
-    cfg, params, pts = _setup(dev)
+    cfg, params, pts = _setup(dev, mode)
     pack = fs.pack_sdf(params.sdf, cfg.model)
     saved, fs._LIB = fs._LIB, lib
     try:
@@ -144,7 +159,8 @@ def trace(block: int = 100) -> None:
         mma = [t[1 + 2 * l] - t[2 * l] for l in range(n)]
         epi = [t[2 + 2 * l] - t[1 + 2 * l] for l in range(n)]
         total = t[2 * n] - t[0]
-        print(f"[trace] block {block}, warpgroup {wg}: {total} cycles; "
+        print(f"[trace] {mode}, block {block}, warpgroup {wg}: {total} "
+              f"cycles; "
               f"products {sum(mma)} ({100 * sum(mma) / total:.1f}%), "
               f"epilogues {sum(epi)} ({100 * sum(epi) / total:.1f}%); "
               f"per layer products {mma}, epilogues {epi}", flush=True)
@@ -183,17 +199,22 @@ def main() -> None:
         print(json.dumps(runs[-1]), flush=True)
     for tree in dict.fromkeys(trees):
         mine = [r for r in runs if r["tree"] == tree]
-        for n in POINTS:
-            ms = [r["kernel_ms"][str(n)] for r in mine]
-            wr = [r["wrapper_ms"][str(n)] for r in mine]
-            print(f"[time] {tree}: {n} points, kernel "
-                  + " / ".join(f"{m:.4f}" for m in ms) + " ms ("
-                  + " / ".join(f"{n * FLOP_PER_POINT / m / 1e9:.1f}"
-                               for m in ms)
-                  + " TFLOP/s), wrapper " + " / ".join(f"{m:.4f}" for m in wr)
-                  + f" ms [{card}]", flush=True)
+        for mode in [m for m in mine[0] if m != "tree"]:
+            for n in POINTS:
+                ms = [r[mode]["kernel_ms"][str(n)] for r in mine]
+                wr = [r[mode]["wrapper_ms"][str(n)] for r in mine]
+                print(f"[time] {tree}: {mode} mode, {n} points, kernel "
+                      + " / ".join(f"{m:.4f}" for m in ms) + " ms ("
+                      + " / ".join(f"{n * FLOP_PER_POINT / m / 1e9:.1f}"
+                                   for m in ms)
+                      + " TFLOP/s), wrapper "
+                      + " / ".join(f"{m:.4f}" for m in wr)
+                      + f" ms [{card}]", flush=True)
     if args.trace:
-        trace()
+        sys.path.insert(0, REPO)
+        from s_volsdf_tpu_torch.ops.fused_sdf import MODES
+        for mode in MODES:
+            trace(mode)
 
 
 if __name__ == "__main__":

@@ -2,14 +2,21 @@
 checkout's, in turns, to tell a change to the step from the host's noise.
 
     python3 -m s_volsdf_tpu_torch.tools.time_step --other DIR [--pairs N]
+        [--precision float32 defaults] [--profile]
 
 DIR is another checkout of the repository (for the parent commit:
 `git archive HEAD | tar -x -C DIR`). Each turn is a process started in
 one checkout's root, which imports that checkout's `chip_smoke.py` (so
 its imports are the smoke script's) and runs its phase 4: `make_trainer`
 at bench.py's shapes (576x768 scene, 512 rays a step, three 192x288x384
-MVS volumes, float32) and 20 steps, one step per chunk; it prints the
-median step time. The turns go other, this, this, other, ... for N
+MVS volumes) and 20 steps, one step per chunk, at each `--precision`:
+"float32" (`chip_smoke.float32_dtu_config`) and "defaults" (the dtu
+preset as it is: the JAX package's bf16 training precision; a checkout
+whose port refuses it skips it). It prints the median step time. With
+`--profile`, 5 more steps run under torch.profiler: the device time per
+step (the union of the kernels' intervals), the device-busy share (that
+time over the median unprofiled step) and the kernels (and copies)
+launched per step. The turns go other, this, this, other, ... for N
 pairs. Prints the card's name and power limit first, one JSON line per
 turn, then each checkout's medians.
 """
@@ -21,27 +28,62 @@ import json
 import os
 import subprocess
 import sys
+import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 STEPS = 20
+PROFILE_STEPS = 5
 
 
-def child(tree: str) -> None:
+def _device_time(prof) -> tuple:
+    """(seconds the device was busy, kernels and copies launched) in a
+    torch.profiler run: the union of its device events' intervals."""
+    from torch.autograd import DeviceType
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy * 1e-6, len(spans)
+
+
+def child(tree: str, precision: str, profile: bool) -> None:
     sys.path.insert(0, tree)
     import numpy as np
     import torch
     import chip_smoke
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    from s_volsdf_tpu_torch import config
+    if precision == "defaults" and not hasattr(config, "check_ported"):
+        print(json.dumps({"tree": tree, "precision": precision,
+                          "skipped": "this port refuses the bf16 defaults"}))
+        return
     dev = torch.device("cuda")
-    cfg = chip_smoke.float32_dtu_config()
+    cfg = (chip_smoke.float32_dtu_config() if precision == "float32"
+           else config.dtu_config())
     trainer = chip_smoke.make_trainer(cfg, (cfg.max_h, cfg.max_w),
                                       (192, 288, 384), dev)
     trainer.run(STEPS)
     torch.cuda.synchronize()
-    print(json.dumps({"tree": tree, "median_ms": 1e3 * float(
-        np.median(trainer.chunk_seconds))}))
+    out = {"tree": tree, "precision": precision,
+           "median_ms": 1e3 * float(np.median(trainer.chunk_seconds))}
+    if profile:
+        from torch.profiler import ProfilerActivity
+        with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                                ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.run(PROFILE_STEPS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        busy, launches = _device_time(prof)
+        out.update({
+            "device_ms_per_step": 1e3 * busy / PROFILE_STEPS,
+            "busy_share": busy / PROFILE_STEPS / (out["median_ms"] * 1e-3),
+            "launches_per_step": launches / PROFILE_STEPS,
+            "profiled_ms_per_step": 1e3 * wall / PROFILE_STEPS})
+    print(json.dumps(out))
 
 
 def main() -> None:
@@ -49,10 +91,14 @@ def main() -> None:
     ap.add_argument("--other", required=True,
                     help="another checkout of the repository")
     ap.add_argument("--pairs", type=int, default=4)
+    ap.add_argument("--precision", nargs="+", default=["float32"],
+                    choices=["float32", "defaults"])
+    ap.add_argument("--profile", action="store_true")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child)
+        for precision in args.precision:
+            child(args.child, precision, args.profile)
         return
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -63,17 +109,24 @@ def main() -> None:
         + [other, REPO] * (args.pairs % 2)
     runs = []
     for tree in trees:
-        res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--other", other, "--child", tree], cwd=tree,
-                             capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"turn {tree} failed:\n{res.stderr[-4000:]}")
-        runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
-        print(json.dumps(runs[-1]), flush=True)
+        for precision in args.precision:
+            cmd = [sys.executable, os.path.abspath(__file__), "--other",
+                   other, "--child", tree, "--precision", precision]
+            res = subprocess.run(cmd + (["--profile"] if args.profile else []),
+                                 cwd=tree, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(f"turn {tree} {precision} failed:\n"
+                                   f"{res.stderr[-4000:]}")
+            runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+            print(json.dumps(runs[-1]), flush=True)
     for tree in (other, REPO):
-        ms = [r["median_ms"] for r in runs if r["tree"] == tree]
-        print(f"[step] {tree}: median ms/step " + " / ".join(
-            f"{m:.2f}" for m in ms) + f" [{card}]", flush=True)
+        for precision in args.precision:
+            mine = [r for r in runs if r["tree"] == tree
+                    and r["precision"] == precision and "median_ms" in r]
+            if mine:
+                print(f"[step] {tree} {precision}: median ms/step " + " / ".join(
+                    f"{r['median_ms']:.2f}" for r in mine) + f" [{card}]",
+                    flush=True)
 
 
 if __name__ == "__main__":

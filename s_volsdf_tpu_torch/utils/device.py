@@ -1,7 +1,10 @@
 """The port's entry points run on "cuda" unless the caller names a
-device; without a card that is an error, never a silent CPU run."""
+device; without a card that is an error, never a silent CPU run. Its
+float32 work runs in full float32 there (`full_float32`)."""
 
 from __future__ import annotations
+
+import contextlib
 
 import torch
 
@@ -16,3 +19,20 @@ def resolve_device(device, caller: str) -> torch.device:
                 f"(pass device='cpu' to run it on the CPU)")
         device = "cuda"
     return torch.device(device)
+
+
+@contextlib.contextmanager
+def full_float32():
+    """Float32 matrix products and convolutions in full float32 on the
+    card while the block runs: TF32 off for cuBLAS
+    (`torch.backends.cuda.matmul.allow_tf32`) and for cuDNN
+    (`torch.backends.cudnn.allow_tf32`, True by default), both set back
+    on exit. The JAX package's float32 paths are float32; TF32 keeps
+    about three decimal digits. bfloat16 products are untouched."""
+    matmul, cudnn = torch.backends.cuda.matmul, torch.backends.cudnn
+    saved = matmul.allow_tf32, cudnn.allow_tf32
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved

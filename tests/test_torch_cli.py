@@ -50,14 +50,14 @@ OVERRIDES = ["opt_stepNs=[20,0,0]", "use_nerf_d=[1,0,0]", "filter_only=true",
              "train.train_compute_dtype=float32", "mvs.x2_mvsres=false",
              "inverse_depth=true", "+seed=3", "model.bg_color=[0,0,0]"]
 
-# The small size of tests/test_torch_config.shrink, as command-line overrides.
+# The small size of tests/test_torch_config.shrink, as command-line
+# overrides, at the JAX package's default precision (no precision
+# override: the command line runs the bf16 defaults).
 SMALL = ["model.implicit.dims=[32,32,32,32]", "model.implicit.skip_in=[2]",
          "model.implicit.multires=4", "model.rendering.dims=[32,32]",
          "model.feature_vector_size=32", "model.sampler.N_samples_eval=24",
          "model.sampler.N_samples=16", "model.sampler.N_samples_extra=4",
-         "train.num_pixels=16", "train.train_compute_dtype=float32",
-         "train.train_activation_dtype=float32",
-         "train.mvs_pack_dtype=float32", "mvs.compute_dtype=float32"]
+         "train.num_pixels=16"]
 
 
 @pytest.mark.parametrize("preset", ["dtu", "bmvs", "default"])
@@ -76,7 +76,7 @@ def test_bmvs_preset_refused_when_run():
     cfg = tconfig.load_config("bmvs", overrides=SMALL)
     assert cfg.model.with_background
     with pytest.raises(NotImplementedError, match="with_background"):
-        tconfig.check_float32(cfg)
+        tconfig.check_ported(cfg)
 
 
 @pytest.mark.parametrize("key", ["plot.plot_nimgs=2", "parallel.shard_rays=false",

@@ -38,7 +38,8 @@ def shrink(cfg):
     """The small size of the port's CPU tests, applied to either config
     tree (the two share field names): SDF (32,)*4 with skip at 2 and
     multires 4, radiance (32, 32), feature 32, sampler 24/16/4, 16 rays,
-    and the four float32 knobs (three training ones, the cascade's)."""
+    and the four knobs whose JAX default is bf16 (three training ones,
+    the cascade's) at float32, for the float32 comparisons."""
     imp = cfg.model.implicit
     imp.dims, imp.skip_in, imp.multires = (32,) * 4, (2,), 4
     cfg.model.rendering.dims = (32, 32)
@@ -136,18 +137,18 @@ def test_config_defaults_match_jax():
     assert not diff, diff
 
 
-@pytest.mark.parametrize("knob", ["train_compute_dtype",
-                                  "train_activation_dtype", "mvs_pack_dtype",
-                                  "mvs.compute_dtype"])
-def test_bf16_knobs_raise(knob):
-    """The bf16 knobs are refused, not ignored. A knob without a section
-    is under `train`."""
+@pytest.mark.parametrize("section,name", tconfig.PRECISION_KNOBS)
+def test_precision_knobs_validated(section, name):
+    """Each precision knob takes the JAX package's values ("float32",
+    "bfloat16"), and `check_ported` raises on any other, as the JAX
+    validate_config asserts."""
     _, cfg = small_configs()
-    tconfig.check_float32(cfg)
-    section, _, name = knob.rpartition(".")
-    setattr(getattr(cfg, section or "train"), name, "bfloat16")
-    with pytest.raises(NotImplementedError, match=knob):
-        tconfig.check_float32(cfg)
+    for value in ("float32", "bfloat16"):
+        setattr(getattr(cfg, section), name, value)
+        tconfig.check_ported(cfg)
+    setattr(getattr(cfg, section), name, "float16")
+    with pytest.raises(ValueError, match=f"{section}.{name}"):
+        tconfig.check_ported(cfg)
 
 
 @pytest.mark.parametrize("section", ["mvs", "dataset", "filter"])

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, the
 CasMVSNet cascade on the card against the same cascade on the CPU, and
-fusion on the card against fusion on the CPU.
+fusion on the card against fusion on the CPU. No TF32 flag is set here:
+the port's entry points keep their float32 work out of TF32 themselves.
 
 Every test here needs an NVIDIA GPU (and nvcc for the kernel); without
 one it skips with the reason. On a machine with a card:
@@ -10,6 +11,7 @@ one it skips with the reason. On a machine with a card:
 This file imports no JAX (the card's machine need not have it).
 """
 
+import dataclasses
 import os
 import sys
 
@@ -23,7 +25,9 @@ import chip_smoke  # noqa: E402
 from s_volsdf_tpu_torch import config as tconfig  # noqa: E402
 from s_volsdf_tpu_torch.models.network import init_volsdf_params  # noqa: E402
 from s_volsdf_tpu_torch.engine import fusion  # noqa: E402
-from s_volsdf_tpu_torch.ops import fused_sdf, geo_consistency  # noqa: E402
+from s_volsdf_tpu_torch.data.synthetic import make_sphere_scene  # noqa: E402
+from s_volsdf_tpu_torch.ops import (cost_mapping, fused_sdf,  # noqa: E402
+                                    geo_consistency)
 
 pytestmark = pytest.mark.cuda
 
@@ -33,8 +37,6 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the port's CUDA kernels have no "
                     "CPU mode)")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -82,6 +84,66 @@ def test_kernel_family_matches_plain(cuda, dims, skip_in, multires,
     ref = fused_sdf.sdf_values_plain(params.sdf, cfg.model, pts,
                                      bounding_sphere)
     assert torch.max(torch.abs(got - ref)).item() <= 1e-4
+
+
+@pytest.mark.parametrize("activation", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims,skip_in,multires,bounding_sphere,n", [
+    ((256,) * 8, (4,), 6, 3.0, 700),
+    ((256,) * 8, (4,), 6, 3.0, 65537),
+    ((256,) * 8, (4,), 6, 3.0, 2097152),
+    ((32,) * 4, (2,), 4, 3.0, 1000),
+    ((64,) * 3, (), 2, 0.0, 1000),
+    ((102,) * 5, (3,), 10, 3.0, 1000),
+    ((64,) * 3, (3,), 4, 3.0, 1000),
+])
+def test_bf16_kernel_matches_plain(cuda, dims, skip_in, multires,
+                                   bounding_sphere, n, activation):
+    """The bfloat16 mode against its plain bf16 version, in the working
+    type: within 2^-6 (|sdf| + 1) (chip_smoke.BF16_KERNEL_UNITS: wgmma's
+    order of summation moves a bf16 rounding of an activation now and
+    then). One launch, counted in its mode."""
+    cfg = tconfig.dtu_config()
+    imp = cfg.model.implicit
+    imp.dims, imp.skip_in, imp.multires = dims, skip_in, multires
+    if dims[0] != 256:
+        cfg.model.feature_vector_size = 16
+    mcfg = dataclasses.replace(cfg.model, compute_dtype="bfloat16",
+                               activation_dtype=activation)
+    params = init_volsdf_params(torch.Generator().manual_seed(0), cfg.model,
+                                cuda)
+    pts = torch.tensor(np.random.default_rng(1).normal(size=(n, 3)),
+                       dtype=torch.float32, device=cuda)
+    before = dict(fused_sdf.fused_sdf_values.mode_launches)
+    got = fused_sdf.fused_sdf_values(params.sdf, mcfg, pts, bounding_sphere)
+    torch.cuda.synchronize()
+    assert fused_sdf.fused_sdf_values.mode_launches["bfloat16"] \
+        == before["bfloat16"] + 1
+    ref = fused_sdf.sdf_values_plain(params.sdf, mcfg, pts, bounding_sphere)
+    err = (got - ref).abs() / (ref.abs() + 1)
+    assert err.max().item() <= chip_smoke.BF16_KERNEL_UNITS
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("inverse_depth", [False, True])
+def test_cost_mapping_kernel_matches_plain(cuda, dtype, inverse_depth):
+    """The cost-mapping kernel against its plain version on the card at
+    bench.py's shapes (512 x 96 samples, three 192x288x384 volumes):
+    masks equal, pj and pi within 1e-6 (measured equal: the same
+    operations in the same order, --fmad=false). One launch."""
+    scene = make_sphere_scene(3, chip_smoke.CASCADE_RES)
+    mvs = chip_smoke.make_volumes(scene, chip_smoke.BENCH_VOLUMES, cuda)
+    mvs.prob = mvs.prob.to(dtype)
+    mvs.inverse_depth = inverse_depth
+    xyz = chip_smoke.cost_mapping_samples(scene, 1, cuda)
+    onehot = torch.tensor([0.0, 1.0, 0.0], device=cuda)
+    before = cost_mapping.cost_mapping.launches
+    got = cost_mapping.cost_mapping(None, xyz, onehot, mvs)
+    torch.cuda.synchronize()
+    assert cost_mapping.cost_mapping.launches == before + 1
+    ref = cost_mapping.cost_mapping_plain(xyz, onehot, mvs)
+    assert torch.equal(got[2], ref[2]) and 0 < int(ref[2].sum()) < ref[2].numel()
+    for g, r in zip(got[:2], ref[:2]):
+        assert (g - r).abs().max().item() <= chip_smoke.COST_TOL
 
 
 def test_unsupported_config_raises(cuda):

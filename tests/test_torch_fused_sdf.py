@@ -8,7 +8,21 @@ the Pallas kernel to: float32 sums in another order across 9 layers.
 The kernel itself runs only on a card (tests/test_torch_cuda.py and
 chip_smoke.py); here its pack is checked, and its split arithmetic is
 emulated from the pack and held to the plain version.
+
+The bfloat16 mode (compute_dtype "bfloat16"): its plain version against
+JAX `sdf_values` under the same precision, within 4 bf16 units of the
+value (4 * 2^-8 (|want| + 1)): the two round the softplus and the weight
+norm at other places (tests/test_torch_precision.py). Its pack holds
+W_hi alone, and its arithmetic emulated from the pack, with the
+kernel's accumulation (bias first, then K chunk by K chunk), is held to
+the plain version within 2^-8 (|want| + 1): one accumulation order
+against another moves a bf16 rounding of an activation now and then,
+and with it the SDF by about 1e-3 at the dtu width (8e-4 (|want| + 1)
+measured here). The card's bar is 2^-6 (|want| + 1): wgmma's order,
+over up to 2,097,152 points, moved it by up to 3.2e-3 (|want| + 1).
 """
+
+import dataclasses
 
 import os
 import sys
@@ -61,6 +75,32 @@ def test_fused_sdf_plain_matches_jax():
     # The bounding-sphere clamp is live on the far points.
     far = np.linalg.norm(pts, axis=-1) > 3.2
     assert far.sum() > 10 and np.all(got[far] < 0)
+
+
+@pytest.mark.parametrize("activation", ["float32", "bfloat16"])
+def test_fused_sdf_plain_bf16_matches_jax(activation):
+    """The bfloat16 mode's plain version against JAX `sdf_values` under
+    compute_dtype bfloat16 (the XLA path the JAX step runs; the Pallas
+    kernel is float32 only), dtu width, 700 points."""
+    jcfg = load_config("dtu")
+    tcfg = tconfig.dtu_config()
+    jm = dataclasses.replace(jcfg.model, compute_dtype="bfloat16",
+                             activation_dtype=activation)
+    tm = dataclasses.replace(tcfg.model, compute_dtype="bfloat16",
+                             activation_dtype=activation)
+    jp = init_volsdf_params(jax.random.PRNGKey(0), jcfg.model)
+    tp = from_jax_params(jax.tree.map(np.asarray, jp))
+    pts = np.random.default_rng(1).normal(size=(700, 3)).astype(np.float32)
+    pts[::7] *= 2.5
+    want = np.asarray(sdf_values(jp["sdf"], jm, pts, 3.0))
+    got = fused_sdf.fused_sdf_values(tp.sdf, tm, torch.tensor(pts),
+                                     3.0).numpy()
+    err = np.abs(got - want)
+    assert np.all(err <= 4 * 2.0 ** -8 * (np.abs(want) + 1)), err.max()
+    # bf16, not float32: the float32 plain version is further from it.
+    f32 = fused_sdf.sdf_values_plain(tp.sdf, tcfg.model, torch.tensor(pts),
+                                     3.0).numpy()
+    assert np.abs(f32 - want).max() > err.max()
 
 
 def test_supported_family():
@@ -207,6 +247,129 @@ def test_kernel_emulation_matches_plain(dims, skip_in, multires,
           f"{err:.3e}")   # the card's predicted error (pytest -s)
     assert err <= 1e-4, err
     assert err > 0.0   # the split is not exact: the emulation is live
+
+
+def _bf16_cfg(dims, skip_in, multires, activation):
+    cfg = tconfig.dtu_config()
+    imp = cfg.model.implicit
+    imp.dims, imp.skip_in, imp.multires = dims, skip_in, multires
+    if dims[0] != 256:
+        cfg.model.feature_vector_size = 16
+    cfg.model.compute_dtype = "bfloat16"
+    cfg.model.activation_dtype = activation
+    return cfg
+
+
+def _bf16_pack_layers(pack):
+    """The bfloat16 pack's hidden layers back as W_hi (256 out, 64 *
+    chunks in), one stage per K chunk."""
+    w = fused_sdf.swizzle128(pack.weights)
+    starts = np.cumsum([0] + list(pack.meta.chunks)[:pack.meta.n_hidden])
+    assert starts[-1] == pack.meta.n_stages == pack.weights.shape[0]
+    return [torch.cat([w[starts[l] + c]
+                       for c in range(pack.meta.chunks[l])], dim=1)
+            for l in range(pack.meta.n_hidden)]
+
+
+def emulate_bf16_kernel(pack, cfg, pts, bounding_sphere):
+    """csrc/fused_sdf.cu's bfloat16 mode in torch on the CPU, read from
+    its pack: each layer's bf16 input times W_hi accumulated onto the
+    bias K chunk by K chunk; the pre-activation and the softplus rounded
+    to bf16 with bf16 activations; the junction's scale applied before
+    the rounding to the next operand (hand_on, pe_hand_on); the SDF
+    column as a dot product; the clamp."""
+    meta, vec, W = pack.meta, pack.vec, fused_sdf.WIDTH
+    r = fused_sdf.bf16r
+
+    def hand_on(z, scale):
+        if meta.act_bf16:
+            z = r(z)
+        v = softplus_b(z, beta=100.0)
+        return r((r(v) if meta.act_bf16 else v) * scale)
+
+    def pe_hand_on(p, scale):
+        return r((r(p) if meta.act_bf16 else p) * scale)
+
+    pe = positional_encoding(pts, cfg.implicit.multires)
+    h = torch.nn.functional.pad(pe_hand_on(pe, 1.0),
+                                (0, fused_sdf.KCHUNK - pe.shape[1]))
+    for l, w_hi in enumerate(_bf16_pack_layers(pack)):
+        w = w_hi.float().T
+        acc = vec[l * W:(l + 1) * W].expand(h.shape[0], W)
+        for c in range(0, w.shape[0], fused_sdf.KCHUNK):
+            acc = acc + h[:, c:c + fused_sdf.KCHUNK] @ w[c:c + fused_sdf.KCHUNK]
+        scale = meta.skip_scale if l + 1 == meta.skip else 1.0
+        h = hand_on(acc, scale)
+        if l + 1 == meta.skip < meta.n_hidden:
+            h[:, meta.pe_col:meta.pe_col + meta.d_pe] = pe_hand_on(pe, scale)
+    n = meta.n_hidden
+    sdf = h @ vec[n * W:(n + 1) * W] + vec[-1]
+    if meta.skip == n:
+        sdf = sdf + pe_hand_on(pe, meta.skip_scale) \
+            @ vec[(n + 1) * W:(n + 1) * W + meta.d_pe]
+    if bounding_sphere > 0.0:
+        r_ = torch.linalg.norm(pts, dim=-1)
+        sdf = torch.minimum(sdf, cfg.implicit.sphere_scale
+                            * (bounding_sphere - r_))
+    return sdf
+
+
+@pytest.mark.parametrize("activation", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dims,skip_in,multires,bounding_sphere", FAMILY)
+def test_bf16_kernel_emulation_matches_plain(dims, skip_in, multires,
+                                             bounding_sphere, activation):
+    """The bfloat16 mode read from its pack agrees with its plain version
+    within 2^-8 (|want| + 1) on the 700 points."""
+    cfg = _bf16_cfg(dims, skip_in, multires, activation)
+    params = tinit(torch.Generator().manual_seed(0), cfg.model)
+    pts = torch.tensor(np.random.default_rng(1).normal(size=(700, 3)),
+                       dtype=torch.float32)
+    pts[::7] *= 2.5
+    pack = fused_sdf.pack_sdf(params.sdf, cfg.model)
+    want = fused_sdf.sdf_values_plain(params.sdf, cfg.model, pts,
+                                      bounding_sphere)
+    with torch.no_grad():
+        got = emulate_bf16_kernel(pack, cfg.model, pts, bounding_sphere)
+    err = (got - want).abs()
+    print(f"emulated bf16 kernel vs plain, dims {dims}, activations "
+          f"{activation}: max|diff| {err.max().item():.3e}")
+    assert torch.all(err <= 2.0 ** -8 * (want.abs() + 1)), err.max()
+    assert err.max() > 0.0   # another accumulation order: live
+
+
+@pytest.mark.parametrize("activation", ["float32", "bfloat16"])
+def test_bf16_pack_layout(activation):
+    """The bfloat16 pack: its mode recorded; one stage per K chunk
+    holding W_hi = bf16(W) (rounded to nearest, no 1/sqrt(2) fold);
+    the SDF column rounded to bf16; the junction's scale in the meta
+    (bf16(1/sqrt(2)) with bf16 activations); a pack of the other mode is
+    refused."""
+    cfg = _bf16_cfg((256,) * 8, (4,), 6, activation)
+    params = tinit(torch.Generator().manual_seed(0), cfg.model)
+    pack = fused_sdf.pack_sdf(params.sdf, cfg.model)
+    meta = pack.meta
+    assert pack.mode == "bfloat16" and meta.mode == 1
+    assert meta.act_bf16 == (activation == "bfloat16")
+    assert meta.n_stages == 29 and tuple(pack.weights.shape) == (29, 256, 64)
+    wb = fused_sdf.normalized_weights(params.sdf)
+    for l, (w_hi, (w, _)) in enumerate(zip(_bf16_pack_layers(pack), wb)):
+        k, n = w.shape
+        torch.testing.assert_close(w_hi[:n, :k], w.T.to(torch.bfloat16),
+                                   rtol=0, atol=0)
+        assert torch.all(w_hi[n:] == 0) and torch.all(w_hi[:, k:] == 0)
+    torch.testing.assert_close(pack.vec[8 * 256:9 * 256],
+                               fused_sdf.bf16r(wb[8][0][:, 0]), rtol=0,
+                               atol=0)
+    scale = 0.70703125 if activation == "bfloat16" else fused_sdf.INV_SQRT2
+    assert meta.skip_scale == pytest.approx(scale, rel=1e-7)
+    f32 = fused_sdf.pack_sdf(params.sdf, tconfig.dtu_config().model)
+    assert f32.mode == "float32" and f32.meta.n_stages == 58
+    pts = torch.zeros((4, 3))
+    with pytest.raises(ValueError, match="pack"):
+        fused_sdf.fused_sdf_values(params.sdf, cfg.model, pts, 3.0, pack=f32)
+    with pytest.raises(ValueError, match="pack"):
+        fused_sdf.fused_sdf_values(params.sdf, tconfig.dtu_config().model,
+                                   pts, 3.0, pack=pack)
 
 
 def test_pack_once_per_weight_version():

@@ -162,13 +162,6 @@ def test_engine_refuses_other_cascades(name):
         trunner.MVSEngine(cfg, device="cpu")
 
 
-def test_engine_refuses_bf16_convs():
-    cfg = shrink(tconfig.dtu_config())
-    cfg.mvs.compute_dtype = "bfloat16"
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        trunner.MVSEngine(cfg, device="cpu")
-
-
 def test_save_scene_depth_takes_one_device():
     """The trainer runs on the engine's device: an engine and a device
     together are refused rather than left to disagree."""

@@ -9,6 +9,15 @@ Tolerances and why:
   * five steps: each loss within rtol 1e-2 — Adam's first steps turn
     sign flips of near-zero gradients into whole learning-rate steps, so
     the trajectories are compared loosely and the gradients tightly.
+  * at the JAX defaults (bf16 products and activations in the training
+    render, the volumes read as bf16): the loss within rtol 1e-2
+    (measured 1.4e-3: the eikonal term's spatial gradients run through
+    bf16 activations, whose cotangents both sides round after every
+    backward op, at other places, moving them by a bf16 unit or two);
+    the whole gradient within 2e-2 relative in L2 (measured 7.5e-3) and
+    each leaf within 1e-1 (measured up to 3.4%, the radiance MLP's first
+    layer, fed those normals); five steps within rtol 2e-2 (measured up
+    to 9.8e-3).
 """
 
 import jax
@@ -67,6 +76,23 @@ def _batches(n, seed, nan=False):
 def _mvs():
     scene, prob, z_slab = scene_and_volumes()
     return mvs_pair(scene, prob, z_slab)
+
+
+def _defaults(cfg):
+    """The JAX defaults of the three training precision knobs."""
+    cfg.train.train_compute_dtype = "bfloat16"
+    cfg.train.train_activation_dtype = "bfloat16"
+    cfg.train.mvs_pack_dtype = "bfloat16"
+    return cfg
+
+
+def _default_configs_and_volumes():
+    """(JAX config, port config, JAX volumes packed bf16, port volumes
+    stored bf16) at the small size with the default precision."""
+    jcfg, tcfg = (_defaults(c) for c in small_configs())
+    jm, tm = _mvs()
+    return (jcfg, tcfg, jts.pack_for_chunk(jcfg, jm),
+            tts.pack_for_chunk(tcfg, tm))
 
 
 @pytest.mark.parametrize("iter_step", [3, 250])
@@ -175,6 +201,57 @@ def test_five_steps_track_jax():
         assert tlo.grad_finite == 1.0 and float(jlo.grad_finite) == 1.0
         np.testing.assert_allclose(float(tlo.loss), float(jlo.loss),
                                    rtol=1e-2, err_msg=f"step {i}")
+    assert tstate.iter_step == int(jstate.iter_step) == 5
+
+
+def test_step_gradients_match_jax_at_defaults():
+    """One step's loss and gradients at the JAX defaults (bf16 products
+    and activations in the training render, bf16 volumes)."""
+    jcfg, tcfg, jm, tm = _default_configs_and_volumes()
+    assert tm.prob.dtype == torch.bfloat16 and tm.z_slab.dtype == torch.float32
+    jp, tp = params_pair(jcfg, seed=1)
+    (jb, tb), = _batches(1, seed=21)
+    grad_fn = jax.jit(jax.grad(jts._loss_fn, has_aux=True),
+                      static_argnums=(1,))
+    jgrads, jlo = grad_fn(jp, jcfg, jb, jax.random.PRNGKey(0), jm,
+                          jnp.asarray(5, jnp.int32))
+    tgrads, tlo = tts.loss_and_grads(tp, tcfg, tb,
+                                     torch.Generator().manual_seed(0), tm, 5)
+    np.testing.assert_allclose(float(tlo.loss.detach()), float(jlo.loss),
+                               rtol=1e-2)
+    assert float(jlo.mvs_loss) != 0.0
+    names = [n for n, _ in tp.named_parameters()]
+    num = den = 0.0
+    for name, g in zip(names, tgrads):
+        want = np.asarray(_leaf(jgrads, name))
+        assert g.dtype == torch.float32, name
+        err = np.linalg.norm(g.numpy() - want)
+        assert err <= 1e-1 * np.linalg.norm(want), (name, err)
+        num, den = num + err ** 2, den + np.linalg.norm(want) ** 2
+    assert num ** 0.5 <= 2e-2 * den ** 0.5, (num / den) ** 0.5
+    # The defaults are not float32: the float32 step's loss differs.
+    _, tlo32 = tts.loss_and_grads(tp, small_configs()[1], tb,
+                                  torch.Generator().manual_seed(0), _mvs()[1],
+                                  5)
+    assert float(tlo32.loss.detach()) != float(tlo.loss.detach())
+
+
+def test_five_steps_track_jax_at_defaults():
+    jcfg, tcfg, jm, tm = _default_configs_and_volumes()
+    jp, tp = params_pair(jcfg, seed=3)
+    tx = jts.make_optimizer(jcfg)
+    jstate = jts.init_train_state(jcfg, jp, tx)
+    topt = tts.make_optimizer(tcfg, tp)
+    tstate = tts.init_train_state(tcfg, tp, topt)
+    gen = torch.Generator().manual_seed(0)
+    for i, (jb, tb) in enumerate(_batches(5, seed=31)):
+        jstate, jlo = jts.train_step(jstate, jb, jax.random.PRNGKey(i), jm,
+                                     cfg=jcfg, tx=tx, use_mvs=True)
+        tstate, tlo = tts.train_step(tstate, tb, gen, tm, cfg=tcfg, tx=topt,
+                                     use_mvs=True)
+        assert tlo.grad_finite == 1.0 and float(jlo.grad_finite) == 1.0
+        np.testing.assert_allclose(float(tlo.loss), float(jlo.loss),
+                                   rtol=2e-2, err_msg=f"step {i}")
     assert tstate.iter_step == int(jstate.iter_step) == 5
 
 
