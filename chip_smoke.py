@@ -13,23 +13,31 @@ checks it, in phases that print in order:
      65,536, 700 and 2,097,152 points (one training sweep, a ragged
      tail, one render launch) in both modes: float32 (bf16 x 3 split,
      max |diff| <= 1e-4) and bfloat16 (the training default: one bf16
-     product per layer, bf16 activations; within 2^-6 (|sdf| + 1) of
+     product per layer, bf16 activations; within 2^-7 (|sdf| + 1) of
      its plain bf16 version); each mode timed at 65,536 and 2,097,152
      points with its TFLOP/s and its share of the bound (three bf16
      products, or one, per multiply-add at 989 TFLOP/s), the plain
      versions at 65,536; the cost-mapping kernel against its plain
      version at bench.py's shapes (512 rays x 96 samples, three
      192x288x384 volumes, float32 and bf16, linear and inverse depth;
-     masks equal, pi/pj within 1e-6), timed behind a queued device sleep
+     masks equal, pi/pj bit-equal), the making of its corner-block
+     copy of the volumes (`check_volumes`), timed cold (20 sample sets,
+     each behind a queued device sleep and a 256 MB scratch write, so
+     that its sectors come from device memory, as in a training step)
+     and warm (one set 20 times, in L2), its wrapper (host and device),
      against its bytes bound (the distinct 32-byte sectors its samples
-     read) and the plain version; after phase 5, the fused kernel again
-     on 65,536 points of the trained field's own rays nearest its
-     surface, in both modes;
+     read in the corner-block layout it reads, with the unpacked
+     volumes' beside it) and the plain version; after phase 5, the
+     fused kernel again on 65,536 points of the trained field's own
+     rays nearest its surface, in both modes;
   4. training: 20 steps of VolTrainer at bench.py's shapes (576x768
      scene, 512 rays/step, three 192x288x384 MVS volumes) at the JAX
      defaults (bf16 products and activations in the training render,
      bf16 volumes), then 20 in float32; both medians, the launches of
-     each fused-SDF mode and of the cost-mapping kernel;
+     each fused-SDF mode and of the cost-mapping kernel; then, on the
+     same scene and volumes, 3 steps and a 6x8 render with each SDF MLP
+     outside the fused kernel's family (skips at 2 and 4; width 320),
+     whose sweeps take the plain route: no fused-SDF launch, no pack;
   5. feedback render: render_mvs of view 0 at 576x768 (fast=-1, chunk
      16,384; the weights packed once per render) with
      feedback_render_dtype float32 and bfloat16, and a 6x8-pixel render
@@ -53,9 +61,11 @@ checks it, in phases that print in order:
   7. fusion and evaluation, on phase 6's float32 1152x1536 outputs: (a)
      the geometric-consistency kernel against its plain version on the
      card on all 6 ordered view pairs (masks equal, depth <= 1e-12, x/y
-     <= 1e-9), timed (median of 20) against its bytes bound and the plain
-     version; (b) the command line `cli.run.main([... filter_only=true])`
-     on that directory, with eval masks for the training views, its PLY
+     <= 1e-9), timed (median of 20) against its bound, the larger of its
+     bytes' time and its FP64 instructions' (counted in its SASS,
+     `tools/fp64_count.py`, at 64 a clock per SM at the SM clock's
+     maximum), and the plain version; (b) the command line
+     `cli.run.main([... filter_only=true])` on that directory, with eval masks for the training views, its PLY
      held to a CPU `fuse_views` of the same files (equal count, xyz
      within one float32 ulp, rgb equal); fusion seconds, the kernel's
      share, the point count; (c) the Chamfer distance to points on the
@@ -114,23 +124,27 @@ from s_volsdf_tpu_torch.engine.trainer import VolTrainer
 from s_volsdf_tpu_torch.models.network import init_volsdf_params, render_rays
 from s_volsdf_tpu_torch.ops import cost_mapping, fused_sdf, geo_consistency
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
+from s_volsdf_tpu_torch.tools.fp64_count import fp64_instructions
+from s_volsdf_tpu_torch.tools.time_cost_mapping import (cold_ms, sample_sets,
+                                                        samples)
 
 # The kernel's bf16 x 3 split (about 2^-16 of each product) and f32 sums
 # in another order across 9 layers.
 KERNEL_TOL = 1e-4
-# The bfloat16 mode against its plain bf16 version: |d| <= 2^-6 (|sdf| +
-# 1), four bf16 units. wgmma sums each layer in another order than the
-# plain matmul, which moves a bf16 rounding of an activation now and then
-# and the SDF with it: measured up to 3.2e-3 (|sdf| + 1) at 2,097,152
-# points.
-BF16_KERNEL_UNITS = 2.0 ** -6
+# The bfloat16 mode against its plain bf16 version: |d| <= 2^-7 (|sdf| +
+# 1), 7.8e-3, two bf16 units. wgmma sums each layer in another order than
+# the plain matmul, which moves a bf16 rounding of an activation now and
+# then and the SDF with it: measured up to 3.2e-3 (|sdf| + 1) at
+# 2,097,152 points on an H100, within 2.5x of the bar.
+BF16_KERNEL_UNITS = 2.0 ** -7
 KERNEL_SWEEP, KERNEL_RENDER = 65536, 2097152   # one step's sweep, one render launch
 BF16_TFLOPS = 989.0   # the H100's dense bf16 tensor-core peak
 RENDER_TOL = 2e-4     # the VolSDF render bar (README "Verified parity")
 TRAIN_STEPS = 20
 # cost_mapping against its plain version: the same float32 operations in
-# the same order (--fmad=false), measured bit-equal; masks equal.
-COST_TOL = 1e-6
+# the same order (--fmad=false), the views summed in the same order:
+# bit-equal; masks equal.
+COST_TOL = 0.0
 COST_RAYS, COST_SAMPLES = 512, 96   # one step: 512 rays x (64 + 32) samples
 BENCH_VOLUMES = (192, 288, 384)     # bench.py's three stage-0 volumes
 CASCADE_RES = (576, 768)            # the dtu images
@@ -147,6 +161,10 @@ SCAN = "scan106"
 # (--fmad=false), so it is held to its plain version at these bars.
 FUSION_DEPTH_TOL, FUSION_XY_TOL = 1e-12, 1e-9
 HBM_TBPS = 3.35       # the H100's device-memory rate
+# FP64 instructions an H100 SM issues per clock outside the tensor cores:
+# 34 TFLOP/s (NVIDIA's H100 SXM data sheet) = 132 SMs x 64 x 2 (an FMA is
+# two flops) x 1.98 GHz.
+FP64_PER_SM_CLOCK = 64
 SPHERE_RADIUS = 0.8 * 200.0   # the fixture's sphere in its DTU-like frame
 GT_POINTS = 1_000_000
 # The fused cloud of the sphere's own depths against points on it: the
@@ -157,6 +175,12 @@ GT_POINTS = 1_000_000
 # count up to max_dist each.)
 TRUTH_ACC_TOL = 1.0
 SMALL_CLI_STEPS = 3
+# SDF MLPs outside the fused kernel's family (`fused_sdf.supported`), run
+# through the sampler's plain route: two skip junctions, and a hidden
+# width past the kernel's 256.
+OUTSIDE_FAMILY = {"skip_in (2, 4)": {"skip_in": (2, 4)},
+                  "width 320": {"dims": (320,) * 8}}
+OUTSIDE_STEPS = 3
 # A queued device sleep (cycles) that hides a wrapper's host time when a
 # kernel alone is timed.
 BACKLOG_CYCLES = 5_000_000
@@ -591,19 +615,39 @@ def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
     wrapper_ms = _median_ms(kernel)
     plain_ms = _median_ms(lambda: geo_consistency.geo_consistency_plain(
         depths[0], depths[1], mats, fdist, fdiff), backlog=True)
+    # The bound: the larger of the bytes' time and the FP64 instructions'
+    # (the kernel's straight-line count in its SASS, one thread a pixel)
+    # at the SM clock's maximum, read now.
     nbytes = geo_consistency.io_bytes(H, W)
-    bound_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
+    bytes_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
+    fp64 = fp64_instructions(geo_consistency.build())
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    ops_ms = fp64["main"] * H * W / (sms * FP64_PER_SM_CLOCK
+                                     * clock_mhz * 1e6) * 1e3
+    bound_ms = max(bytes_ms, ops_ms)
+    bound_by = "bytes" if bytes_ms >= ops_ms else "operations"
     print(f"[fusion] geo_consistency vs plain on the card, {len(kept)} "
           f"ordered pairs of {H}x{W} depth maps: mask pixels differing "
           f"{mask_diff}, depth max|diff| {depth_err:.3e} (tol "
           f"{FUSION_DEPTH_TOL}), x/y max|diff| {xy_err:.3e} (tol "
           f"{FUSION_XY_TOL}); consistent pixels "
           + ", ".join(f"{k:.3f}" for k in kept), flush=True)
+    print(f"[fusion] geo_consistency FP64-pipe instructions per pixel "
+          f"(cuobjdump -sass, straight line): {fp64['main']} "
+          f"{fp64['by_opcode']}; {fp64['subroutines']} more in the "
+          f"division and square-root slow paths; SM clock max "
+          f"{clock_mhz:.0f} MHz, {sms} SMs", flush=True)
     print(f"[fusion] one pair: kernel {kernel_ms:.4f} ms (device, median of "
           f"20), wrapper {wrapper_ms:.4f} ms (host and device), bound "
-          f"{bound_ms:.4f} ms ({nbytes} bytes at {HBM_TBPS} TB/s): "
-          f"{100 * bound_ms / kernel_ms:.1f}% of bound; plain {plain_ms:.3f} "
-          f"ms [{card}]", flush=True)
+          f"{bound_ms:.4f} ms by {bound_by} (bytes {bytes_ms:.4f} ms: "
+          f"{nbytes} at {HBM_TBPS} TB/s; operations {ops_ms:.4f} ms: "
+          f"{fp64['main']} x {H * W} FP64 instructions at {sms} x "
+          f"{FP64_PER_SM_CLOCK} a clock): {100 * bound_ms / kernel_ms:.1f}% "
+          f"of bound; plain {plain_ms:.3f} ms [{card}]", flush=True)
     # The reference cloud for (c), fused before this slice's path is
     # counted: the same cameras and confidences with the sphere's own
     # depths.
@@ -694,7 +738,9 @@ def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
     return {"launches": geo_launches, "sdf_launches": sdf_launches,
             "cost_launches": cost_launches,
             "max_abs_err": max(depth_err, xy_err), "ms": kernel_ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "bytes_ms": bytes_ms, "ops_ms": ops_ms,
+            "fp64_instructions": fp64["main"], "sm_clock_mhz": clock_mhz,
             "wrapper_ms": wrapper_ms}
 
 
@@ -838,18 +884,8 @@ def cost_mapping_samples(scene, view: int, device) -> torch.Tensor:
     """xyz (COST_RAYS, COST_SAMPLES, 3) along rays of `view` through
     pixels a little past the image, at sorted depths in [0.3, 5.5]:
     inside and outside the hypothesis slab, in front of and behind some
-    of the cameras."""
-    rng = np.random.default_rng(11 + view)
-    H, W = scene.img_res
-    K, c2w = scene.intrinsics[view], scene.poses[view]
-    px = np.stack([rng.uniform(-4, W + 4, COST_RAYS),
-                   rng.uniform(-4, H + 4, COST_RAYS)], -1)
-    d_cam = np.stack([(px[:, 0] - K[0, 2]) / K[0, 0],
-                      (px[:, 1] - K[1, 2]) / K[1, 1], np.ones(COST_RAYS)], -1)
-    d = d_cam @ c2w[:3, :3].T
-    z = np.sort(rng.uniform(0.3, 5.5, (COST_RAYS, COST_SAMPLES)), axis=1)
-    xyz = c2w[:3, 3] + z[..., None] * d[:, None, :]
-    return torch.as_tensor(xyz.astype(np.float32), device=device)
+    of the cameras (`tools.time_cost_mapping.samples`, seed 11 + view)."""
+    return samples(scene, view, device, 11 + view)
 
 
 def check_cost_mapping(dev, card: str) -> Dict:
@@ -858,6 +894,10 @@ def check_cost_mapping(dev, card: str) -> Dict:
     float32 volumes' beside them."""
     scene = make_sphere_scene(3, CASCADE_RES)
     f32 = make_volumes(scene, BENCH_VOLUMES, dev)
+    sets = sample_sets(scene, dev)
+    # The cold timing's own floor: an empty kernel timed the same way.
+    floor_ms = float(np.median(cold_ms([lambda: torch.cuda._sleep(0)]
+                                       * len(sets))))
     out = {}
     for dtype in (torch.bfloat16, torch.float32):
         err, masks, valid = 0.0, 0, []
@@ -866,8 +906,8 @@ def check_cost_mapping(dev, card: str) -> Dict:
             onehot = torch.zeros(3, device=dev)
             onehot[view] = 1.0
             for inverse in (False, True):
-                mvs = dataclasses.replace(f32, prob=f32.prob.to(dtype),
-                                          inverse_depth=inverse)
+                mvs = cost_mapping.check_volumes(dataclasses.replace(
+                    f32, prob=f32.prob.to(dtype), inverse_depth=inverse))
                 got = cost_mapping.cost_mapping(None, xyz, onehot, mvs)
                 ref = cost_mapping.cost_mapping_plain(xyz, onehot, mvs)
                 torch.cuda.synchronize()
@@ -879,32 +919,57 @@ def check_cost_mapping(dev, card: str) -> Dict:
                f"cost_mapping vs plain ({dtype}): {masks} mask samples "
                f"differ, pj/pi {err} > {COST_TOL}")
         mvs = dataclasses.replace(f32, prob=f32.prob.to(dtype))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mvs = cost_mapping.check_volumes(mvs)
+        torch.cuda.synchronize()
+        pack_ms = (time.perf_counter() - t0) * 1e3
         xyz = cost_mapping_samples(scene, 0, dev)
         onehot = torch.tensor([1.0, 0.0, 0.0], device=dev)
-        kernel_ms = _median_ms(lambda: cost_mapping.cost_mapping(
+        warm_ms = _median_ms(lambda: cost_mapping.cost_mapping(
             None, xyz, onehot, mvs), backlog=True)
+        cold = cold_ms([lambda x=x, o=o: cost_mapping.cost_mapping(
+            None, x, o, mvs) for x, o in sets])
+        kernel_ms = float(np.median(cold))
         wrapper_ms = _median_ms(lambda: cost_mapping.cost_mapping(
             None, xyz, onehot, mvs))
         plain_ms = _median_ms(lambda: cost_mapping.cost_mapping_plain(
             xyz, onehot, mvs), backlog=True)
-        nbytes = cost_mapping.touched_bytes(xyz, mvs)
-        bound_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
+        # The bound counts the layout the kernel reads (the smaller of
+        # the corner-block copies' sectors and the unpacked volumes').
+        unpacked = [cost_mapping.touched_bytes(x, mvs) for x, _ in sets]
+        nbytes = [min(cost_mapping.packed_bytes(x, mvs), u)
+                  for (x, _), u in zip(sets, unpacked)]
+        bound_ms = float(np.median(nbytes)) / (HBM_TBPS * 1e12) * 1e3
+        unpacked_ms = float(np.median(unpacked)) / (HBM_TBPS * 1e12) * 1e3
         name = str(dtype).replace("torch.", "")
         print(f"[kernel] cost_mapping {name} volumes vs plain, {COST_RAYS}x"
               f"{COST_SAMPLES} samples x 3 views of {BENCH_VOLUMES}, linear "
               f"and inverse depth, views 0 and 2: mask samples differing "
-              f"{masks}, pj/pi max|diff| {err:.3e} (tol {COST_TOL}); "
+              f"{masks}, pj/pi max|diff| {err:.3e} (bit-equal required); "
               f"valid {min(valid):.3f}-{max(valid):.3f} of the samples",
               flush=True)
-        print(f"[kernel] cost_mapping {name} volumes: kernel {kernel_ms:.4f} "
-              f"ms (device, median of 20), wrapper {wrapper_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({nbytes} bytes: distinct 32-byte sectors "
-              f"read and the samples' I/O, at {HBM_TBPS} TB/s): "
-              f"{100 * bound_ms / kernel_ms:.1f}% of bound; plain "
-              f"{plain_ms:.3f} ms [{card}]", flush=True)
-        out[name] = {"max_abs_err": err, "ms": kernel_ms,
-                     "wrapper_ms": wrapper_ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms}
+        print(f"[kernel] cost_mapping {name} volumes: kernel cold "
+              f"{kernel_ms:.4f} ms (device, median over {len(sets)} sample "
+              f"sets, each behind a queued sleep and a 256 MB scratch write; "
+              f"{min(cold):.4f}-{max(cold):.4f}), "
+              f"warm {warm_ms:.4f} ms (one set 20 times, in L2), wrapper "
+              f"{wrapper_ms:.4f} ms (host and device); bound "
+              f"{bound_ms:.4f} ms (median of the sets' "
+              f"{int(np.median(nbytes))} bytes: distinct 32-byte sectors "
+              f"of the corner-block copies read and the samples' I/O, at "
+              f"{HBM_TBPS} TB/s; the unpacked volumes' {unpacked_ms:.4f} ms): "
+              f"{100 * bound_ms / kernel_ms:.1f}% of bound cold, "
+              f"{100 * bound_ms / warm_ms:.1f}% warm; the cold timing's "
+              f"floor (an empty kernel) {floor_ms:.4f} ms, the kernel's "
+              f"cold time past it {kernel_ms - floor_ms:.4f} ms; plain "
+              f"{plain_ms:.3f} ms; the corner-block copy made in "
+              f"{pack_ms:.2f} ms (host clock) [{card}]", flush=True)
+        out[name] = {"max_abs_err": err, "ms_cold": kernel_ms,
+                     "ms_warm": warm_ms, "wrapper_ms": wrapper_ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms,
+                     "bytes_unpacked_ms": unpacked_ms, "pack_ms": pack_ms,
+                     "floor_ms": floor_ms}
     return out
 
 
@@ -980,6 +1045,72 @@ def run_training(dev, card: str):
     print(f"[train] launches on the training and render path: {launches}",
           flush=True)                           # the main path ends here
     return trainers, launches
+
+
+def outside_family_config(**implicit) -> Config:
+    """The dtu preset at the JAX defaults with an SDF MLP outside the
+    fused kernel's family (fields of model.implicit replaced)."""
+    cfg = dtu_config()
+    for name, value in implicit.items():
+        setattr(cfg.model.implicit, name, value)
+    return cfg
+
+
+def run_outside_family(dev, card: str, base: VolTrainer) -> Dict:
+    """Phase 4, continued: OUTSIDE_STEPS steps and a 6x8 render of view 0
+    with each SDF MLP of OUTSIDE_FAMILY, on `base`'s scene and volumes.
+    The sampler takes the plain route (`network.sampler_sdf_fn`): the
+    launch counts, set to 0 before and read after, show no fused-SDF
+    launch and no pack, the plain sweeps rising, and one cost-mapping
+    launch a step. Returns the launches."""
+    fused_sdf.reset_launches()                  # this path starts
+    cost_mapping.cost_mapping.launches = 0
+    builds = fused_sdf.pack_sdf.builds
+    scene = base.scene
+    intr = np.array(scene.intrinsics[0], np.float32)
+    intr[:2] *= 8 / scene.img_res[1]
+    for what, implicit in OUTSIDE_FAMILY.items():
+        cfg = outside_family_config(**implicit)
+        _check(not fused_sdf.supported(cfg.model),
+               f"{what}: inside the kernel's family")
+        trainer = VolTrainer(cfg, scene, device=dev, chunk_steps=1)
+        trainer.mvs = base.mvs
+        sweeps = fused_sdf.plain_sweeps
+        trainer.run(OUTSIDE_STEPS)
+        torch.cuda.synchronize()
+        step_sweeps = fused_sdf.plain_sweeps - sweeps
+        losses = [lo.loss for lo in trainer.losses]
+        _check(len(losses) == OUTSIDE_STEPS and all(np.isfinite(losses))
+               and all(lo.grad_finite == 1.0 for lo in trainer.losses),
+               f"{what}: finite losses and gradients: {trainer.losses}")
+        sweeps = fused_sdf.plain_sweeps
+        t0 = time.perf_counter()
+        maps = render_depth(trainer.state.params, cfg.model, scene.poses[0],
+                            intr, (6, 8), chunk=48)
+        render_s = time.perf_counter() - t0
+        render_sweeps = fused_sdf.plain_sweeps - sweeps
+        _check(all(np.isfinite(m).all() for m in maps.values())
+               and step_sweeps > 0 and render_sweeps > 0,
+               f"{what}: render finite, plain sweeps {step_sweeps} in "
+               f"training, {render_sweeps} in the render")
+        print(f"[train] outside the fused kernel's family, {what}: "
+              f"{OUTSIDE_STEPS} steps, loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}, median "
+              f"{1e3 * float(np.median(trainer.chunk_seconds)):.2f} ms/step, "
+              f"plain sweeps {step_sweeps}; 6x8 render {render_s:.3f} s, "
+              f"plain sweeps {render_sweeps}, depth "
+              f"{maps['depth'].min():.4f}..{maps['depth'].max():.4f} "
+              f"[{card}]", flush=True)
+        del trainer
+    launches = {"fused_sdf": dict(fused_sdf.fused_sdf_values.mode_launches),
+                "cost_mapping": cost_mapping.cost_mapping.launches}
+    packs = fused_sdf.pack_sdf.builds - builds   # ... and ends here
+    _check(sum(launches["fused_sdf"].values()) == 0 and packs == 0
+           and launches["cost_mapping"] == OUTSIDE_STEPS * len(OUTSIDE_FAMILY),
+           f"launches outside the family: {launches}, packs {packs}")
+    print(f"[train] launches on the out-of-family path: {launches}, weight "
+          f"packs {packs}", flush=True)
+    return launches
 
 
 def check_render_on_cpu(trainer) -> None:
@@ -1071,6 +1202,7 @@ def main() -> None:
 
     # 4, 5. Training at bench.py's shapes, then the feedback renders.
     trainers, launches = run_training(dev, card)
+    outside = run_outside_family(dev, card, trainers["defaults"])
     check_render_on_cpu(trainers["float32"])
     near = check_near_surface(trainers["float32"])
     for mode, err in near.items():
@@ -1085,7 +1217,8 @@ def main() -> None:
         del res
 
     # 8. Results. Launches are summed over the paths, each counted from 0.
-    paths = [launches, scene_launches["float32"], scene_launches["defaults"],
+    paths = [launches, outside, scene_launches["float32"],
+             scene_launches["defaults"],
              {"fused_sdf": fusion["sdf_launches"],
               "cost_mapping": fusion["cost_launches"]}]
     sdf_launches = {m: sum(p["fused_sdf"][m] for p in paths)
@@ -1109,16 +1242,21 @@ def main() -> None:
             "tflops": m["tflops"][KERNEL_SWEEP],
             f"ms_at_{KERNEL_RENDER}": m["kernel_ms"][KERNEL_RENDER],
             f"bound_ms_at_{KERNEL_RENDER}": m["bound_ms"][KERNEL_RENDER]})
+    bf16 = cost["bfloat16"]
     kernels.append({
         "name": "cost_mapping", "route": "cuda",
         "source": "s_volsdf_tpu_torch/csrc/cost_mapping.cu",
         "replaces": "s_volsdf_tpu/ops/cost_mapping.py:152",
         "launches": cost_launches,
         "max_abs_err": max(c["max_abs_err"] for c in cost.values()),
-        "ms": cost["bfloat16"]["ms"], "plain_ms": cost["bfloat16"]["plain_ms"],
-        "bound_ms": cost["bfloat16"]["bound_ms"], "bound_by": "bytes",
-        "library_ms": None, "wrapper_ms": cost["bfloat16"]["wrapper_ms"],
-        "ms_float32_volumes": cost["float32"]["ms"],
+        "ms": bf16["ms_cold"], "ms_cold": bf16["ms_cold"],
+        "ms_warm": bf16["ms_warm"], "plain_ms": bf16["plain_ms"],
+        "bound_ms": bf16["bound_ms"], "bound_by": "bytes",
+        "bytes_unpacked_ms": bf16["bytes_unpacked_ms"],
+        "library_ms": None, "wrapper_ms": bf16["wrapper_ms"],
+        "cold_floor_ms": bf16["floor_ms"], "pack_ms": bf16["pack_ms"],
+        "ms_cold_float32_volumes": cost["float32"]["ms_cold"],
+        "ms_warm_float32_volumes": cost["float32"]["ms_warm"],
         "bound_ms_float32_volumes": cost["float32"]["bound_ms"],
         "shape": [COST_RAYS, COST_SAMPLES, 3, *BENCH_VOLUMES]})
     kernels.append({
@@ -1128,7 +1266,10 @@ def main() -> None:
         "launches": fusion["launches"],
         "max_abs_err": fusion["max_abs_err"], "ms": fusion["ms"],
         "plain_ms": fusion["plain_ms"], "bound_ms": fusion["bound_ms"],
-        "bound_by": "bytes", "library_ms": None,
+        "bound_by": fusion["bound_by"], "library_ms": None,
+        "bytes_ms": fusion["bytes_ms"], "ops_ms": fusion["ops_ms"],
+        "fp64_instructions": fusion["fp64_instructions"],
+        "sm_clock_mhz": fusion["sm_clock_mhz"],
         "wrapper_ms": fusion["wrapper_ms"], "shape": list(CASCADE_MVS_RES)})
     print(json.dumps({"kernels": kernels}))
     print(card)

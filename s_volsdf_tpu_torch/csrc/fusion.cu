@@ -21,14 +21,22 @@
 // C++'s order, so the masks equal the plain version's and the host's
 // exactly, not merely closely.
 //
-// Bound: bytes. A pixel reads 4 + 4 bytes (its reference depth, and the
-// source depth around its projection, each map read once) and writes 1
-// (mask) + 8 (depth) bytes, + 16 when the caller asks for the source
-// coordinates. About 100 float64 operations a pixel stay under the
-// memory time. The design keeps it one pass: the camera matrices ride
-// in the kernel's parameters (broadcast from the constant bank),
-// neighbouring threads read neighbouring reference pixels, and the
-// four source reads of a pixel are neighbours of its neighbours'.
+// Bound: FP64 operations, not bytes. A pixel reads 4 + 4 bytes (its
+// reference depth, and the source depth around its projection, each map
+// read once) and writes 1 (mask) + 8 (depth) bytes, + 16 when the
+// caller asks for the source coordinates: 9.0 us for a 1152 x 1536 pair
+// at 3.35 TB/s. Its float64 arithmetic is more: `cuobjdump -sass` of
+// the sm_90a build counts 246 FP64-pipe instructions in the kernel's
+// straight line, one thread's (DADD 58, DFMA 57, DMUL 84, DSETP 19, the
+// F64 conversions 18, FRND 2, MUFU.RCP64H 6, MUFU.RSQ64H 2;
+// tools/fp64_count.py), and the H100 issues 64 of them a clock per SM
+// (34 TFLOP/s FP64 outside the tensor cores): 246 x 1,769,472 / (132 x
+// 64 x 1.98 GHz) = 26.0 us. Measured 34-35 us (PERF.md), three quarters
+// of that bound, so the kernel is left as it is. The design keeps it one
+// pass: the camera matrices ride in the kernel's parameters (broadcast
+// from the constant bank), neighbouring threads read neighbouring
+// reference pixels, and the four source reads of a pixel are neighbours
+// of its neighbours'.
 
 #include <cstdint>
 #include <cuda_runtime.h>

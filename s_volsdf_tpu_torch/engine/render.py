@@ -2,10 +2,11 @@
 s_volsdf_tpu/engine/render.py:66-139).
 
 Every SDF evaluation here — the sampler's sweeps and the final one over
-the chosen samples — goes through `ops.fused_sdf.fused_sdf_values`, the
-CUDA kernel on a CUDA device, in the mode the model config's precision
-names. The render's float32 arithmetic runs in full float32 on the card
-(`utils.device.full_float32`).
+the chosen samples — goes through `models.network.sampler_sdf_fn`: the
+CUDA kernel `ops.fused_sdf.fused_sdf_values` on a CUDA device, in the
+mode the model config's precision names, for a config in the kernel's
+family; the plain MLP otherwise. The render's float32 arithmetic runs
+in full float32 on the card (`utils.device.full_float32`).
 """
 
 from __future__ import annotations
@@ -76,7 +77,7 @@ def render_depth(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
                              device=device)[None]
     bounding = 0.0 if (cfg.white_bkgd or cfg.with_background) \
         else cfg.scene_bounding_sphere
-    sdf_fn = sampler_sdf_fn(params, cfg, bounding)   # one pack per render
+    sdf_fn = sampler_sdf_fn(params, cfg, bounding)   # route, pack: per render
     depth, acc = [], []
     with torch.no_grad(), full_float32():
         for i in range(0, uv.shape[0], chunk):

@@ -27,7 +27,8 @@ import torch.nn.functional as F
 from s_volsdf_tpu_torch.config import Config, ModelConfig, check_ported
 from s_volsdf_tpu_torch.models.loss import LossOutput, compute_loss
 from s_volsdf_tpu_torch.models.network import VolSDFParams, render_rays
-from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes, cost_mapping
+from s_volsdf_tpu_torch.ops.cost_mapping import (MVSVolumes, check_volumes,
+                                                 cost_mapping)
 from s_volsdf_tpu_torch.utils.device import full_float32
 
 
@@ -45,14 +46,17 @@ def pack_for_chunk(cfg: Config, mvs: Optional[MVSVolumes]
     """The volumes with their probabilities stored in
     `train.mvs_pack_dtype` (the near/far planes stay float32): the
     counterpart of the JAX package's pack, done once per chunked loop.
-    Returns `mvs` itself when it already has that dtype (or is None)."""
+    They are validated for the cost-mapping kernel here, once, and carry
+    its corner-block copy (`ops.cost_mapping.check_volumes`: 8x their
+    bytes; the trainer drops it when its run ends). Returns `mvs` itself
+    when it already has that dtype and that copy (or is None)."""
     if mvs is None:
         return None
     dtype = torch.bfloat16 if cfg.train.mvs_pack_dtype == "bfloat16" \
         else torch.float32
-    if mvs.prob.dtype == dtype:
-        return mvs
-    return dataclasses.replace(mvs, prob=mvs.prob.to(dtype))
+    if mvs.prob.dtype != dtype:
+        mvs = dataclasses.replace(mvs, prob=mvs.prob.to(dtype))
+    return check_volumes(mvs)
 
 
 class Optimizer:

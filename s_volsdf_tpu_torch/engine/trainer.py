@@ -4,8 +4,10 @@ s_volsdf_tpu/engine/trainer.py:41-77, 124-224, 290-375, 422-443).
 The JAX package runs a chunk of steps as one `lax.scan` program; here a
 chunk is a Python loop over eager steps (`make_scan_train_fn`). A run
 reads the MVS volumes in `train.mvs_pack_dtype` (stored so once per
-run); the feedback render runs in `train.feedback_render_dtype`. Not
-ported yet: TensorBoard scalars, plot renders and checkpoints.
+run), through the cost-mapping kernel's copy of them, which lives for
+that run only; the feedback render runs in
+`train.feedback_render_dtype`. Not ported yet: TensorBoard scalars,
+plot renders and checkpoints.
 """
 
 from __future__ import annotations
@@ -114,8 +116,11 @@ class VolTrainer:
         """Optimise for opt_stepN steps; returns the epoch counter (an
         epoch is one pass over the training views)."""
         use_mvs = bool(self.cfg.use_mvs and self.mvs is not None)
-        if use_mvs:   # the volumes in mvs_pack_dtype, once per run
-            self.mvs = pack_for_chunk(self.cfg, self.mvs)
+        mvs = None
+        if use_mvs:   # the volumes in mvs_pack_dtype, once per run; the
+            # kernel's copy of them (8x their bytes) is this run's alone
+            mvs = pack_for_chunk(self.cfg, self.mvs)
+            self.mvs = dataclasses.replace(mvs, kernel=None)
         ti = self.trains_i
         run_chunk = make_scan_train_fn(self.cfg, self.tx, use_mvs=use_mvs,
                                        n_views=len(ti),
@@ -132,8 +137,7 @@ class VolTrainer:
             n = min(self.chunk_steps, opt_stepN - done)
             t0 = time.perf_counter()
             self.state, losses, seconds = run_chunk(
-                self.state, n, scene_dev, self.mvs if use_mvs else None,
-                self.gen)
+                self.state, n, scene_dev, mvs, self.gen)
             # Host time of the chunk; every step ends in the guard's
             # host sync, so this is the device time plus host overhead.
             self.chunk_seconds.append(time.perf_counter() - t0)

@@ -6,10 +6,11 @@ JAX pytree's names and layouts: sdf.<l>.{v,g,b}, rgb.<l>.{v,g,b},
 density.beta (bridge.py converts between the two).
 
 The sampler's SDF sweep goes through `ops.fused_sdf.fused_sdf_values`
-(the CUDA kernel on a CUDA tensor) under no_grad on detached
-parameters, packed once per step. The gradient-carrying SDF
-evaluations (`sdf_feat_grad`, `sdf_gradient`) run the plain MLP and
-take the spatial gradient with
+(the CUDA kernel) under no_grad on detached parameters, packed once per
+step, when the parameters are on the card and the config is in the
+kernel's family; otherwise through the plain MLP (`sampler_sdf_fn`).
+The gradient-carrying SDF evaluations (`sdf_feat_grad`,
+`sdf_gradient`) run the plain MLP and take the spatial gradient with
 `torch.autograd.grad(..., create_graph=True)`, so the eikonal term and
 the normals fed to the radiance MLP train the SDF (double backprop).
 """
@@ -27,7 +28,9 @@ from s_volsdf_tpu_torch.models.density import (get_beta, init_laplace_density,
                                                laplace_density)
 from s_volsdf_tpu_torch.models.embedder import embed_dim, positional_encoding
 from s_volsdf_tpu_torch.models.sampler import error_bound_sample
-from s_volsdf_tpu_torch.ops.fused_sdf import fused_sdf_values, pack_sdf
+from s_volsdf_tpu_torch.ops import fused_sdf
+from s_volsdf_tpu_torch.ops.fused_sdf import (fused_sdf_values, pack_sdf,
+                                              supported)
 from s_volsdf_tpu_torch.utils.cameras import (depth_scale_factor,
                                               get_camera_params)
 
@@ -190,12 +193,31 @@ class RenderOutput(NamedTuple):
     acc: torch.Tensor               # (R,)
 
 
+def uses_kernel(params: VolSDFParams, cfg: ModelConfig) -> bool:
+    """Whether the sampler's sweeps launch the fused kernel: parameters
+    on a CUDA device and a config in the kernel's family."""
+    return params.sdf[0].b.device.type == "cuda" and supported(cfg)
+
+
 def sampler_sdf_fn(params: VolSDFParams, cfg: ModelConfig,
                    bounding_sphere: float):
-    """The sampler's no-grad SDF sweep: the fused kernel on detached
-    parameters, packed once here (`pack_sdf`, in the mode `cfg`'s
-    precision names) for every sweep the returned function serves (a
-    training step's, or a whole render's)."""
+    """The sampler's no-grad SDF sweep, for every sweep the returned
+    function serves (a training step's, or a whole render's). The route
+    is chosen here, once, from the parameters' device and the config:
+    on a CUDA device with a config in the fused kernel's family
+    (`fused_sdf.supported`), the weights are packed once (`pack_sdf`, in
+    the mode `cfg`'s precision names) and every sweep launches the
+    kernel; in any other case (the CPU, or a config outside the family,
+    which the JAX package also runs through its plain `sdf_values`)
+    every sweep is `sdf_values_plain`, counted in
+    `fused_sdf.plain_sweeps`, and nothing is packed."""
+    if not uses_kernel(params, cfg):
+        def plain_fn(pts):
+            fused_sdf.plain_sweeps += 1
+            return fused_sdf.sdf_values_plain(params.sdf, cfg, pts,
+                                              bounding_sphere)
+        return plain_fn
+
     pack = pack_sdf(params.sdf, cfg)
 
     def sdf_fn(pts):

@@ -8,9 +8,17 @@ and the (D, Hc, Wc) probability volume is sampled trilinearly with
 grid_sample's align_corners=True / zeros-padding semantics. Same-view
 probability (pi) and the other-view sum (pj) feed the GCE loss.
 
-The port reads the UNPACKED (V, D, Hc, Wc) volume with eight direct
-gathers per sample; the JAX package's 8x corner-cube pack
-(`pack_volumes`) is a TPU gather workaround and is not ported. Corner
+The kernel reads corner-block copies of the volume and of the near/far
+planes (`corner_cubes`, `slab_cubes`: the layout of the JAX package's
+`pack_volumes`), so that a sample's 8 corners in a view are one 32-byte
+sector, one memory request, instead of 8. They take 8 times the bytes
+of what they copy (about 1 GB for bench.py's three bf16 volumes, 2 GB
+in float32). `check_volumes` validates a set of volumes and makes them,
+with the launch's constant arguments, as an explicit `KernelVolumes`
+kept in the volumes' `kernel` field; the trainer does so once per run
+(`engine.train_step.pack_for_chunk`) and drops them when the run ends.
+They are a copy: a later in-place write to the volumes is not seen.
+The plain version reads the volumes as the caller holds them. Corner
 weights and the out-of-range rule are the JAX ones: lookup indices are
 clamped, weights come from the unclamped floor index, and a corner past
 the edge contributes zero. Forward only: the inputs are detached.
@@ -26,9 +34,14 @@ counted in `cost_mapping.launches`) or raises. There is no fallback from
 the kernel to the plain version. The plain version is written in the
 kernel's order of operations with no matrix product and no division by
 a scalar (which the card's torch turns into a product by its
-reciprocal), so that on the card the two agree to the bit, masks
-included. The kernel library is built with nvcc (`--fmad=false`) at
-first use into `_build/` and bound with ctypes.
+reciprocal), and sums the views one by one from view 0, as the kernel
+does, so that on the card the two agree to the bit, masks included, for
+any number of views. The kernel library is built with nvcc
+(`--fmad=false`) at first use into `_build/` and bound with ctypes.
+
+A call checks only `xyz` and `view_onehot`, that the volumes carry a
+kernel copy made from their own tensors (else it raises, naming
+`check_volumes`), and makes two allocations for its three outputs.
 """
 
 from __future__ import annotations
@@ -36,7 +49,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from dataclasses import dataclass
+from dataclasses import dataclass, field, replace
 from typing import List, Optional, Tuple
 
 import torch
@@ -60,6 +73,7 @@ class MVSVolumes:
     img_res: (H, W) of the VolSDF image grid.
     inverse_depth: slab normalisation uniform in 1/z (stage 0 of
       unbounded scenes).
+    kernel: the kernel's copy of the above (`check_volumes`), or None.
     """
     prob: torch.Tensor
     z_slab: torch.Tensor
@@ -67,6 +81,8 @@ class MVSVolumes:
     c2w: torch.Tensor
     img_res: Tuple[int, int]
     inverse_depth: bool
+    kernel: Optional["KernelVolumes"] = field(default=None, repr=False,
+                                              compare=False)
 
 
 def _unnormalize(coord, size: int):
@@ -190,57 +206,109 @@ def cost_mapping_plain(xyz, view_onehot, mvs: MVSVolumes):
     """What the kernel computes, as eager torch ops: (pj, pi, valid) of
     xyz (R, S, 3) (see `cost_mapping`)."""
     costs, valids = _sample_all_views(xyz, mvs)    # (V, R, S)
-    w_same = view_onehot[:, None, None]
-    pi = torch.sum(w_same * costs, dim=0)
-    pj = torch.sum((1.0 - w_same) * costs, dim=0)
-    valid = torch.any((w_same == 0.0) & valids, dim=0)
+    pi = pj = 0.0
+    valid = torch.zeros_like(valids[0])
+    for v in range(costs.shape[0]):   # from view 0 up, as the kernel sums
+        w_same = view_onehot[v]
+        pi = pi + w_same * costs[v]
+        pj = pj + (1.0 - w_same) * costs[v]
+        valid = valid | ((w_same == 0.0) & valids[v])
     pi = torch.where(valid, pi, torch.zeros_like(pi))
     return pj, pi, valid
 
 
-_LIB = None
-_LIB_LOCK = threading.Lock()
+# Views the kernel's shared memory holds (18 floats a view in 48 KB).
+MAX_VIEWS = 48 * 1024 // (18 * 4)
+INT32 = 2 ** 31
 
 
-def build(force: bool = False) -> str:
-    """Compile csrc/cost_mapping.cu into _build/libcost_mapping.so unless
-    an up-to-date library exists. Raises RuntimeError naming nvcc when
-    it cannot."""
-    return build_library([nvcc()] + FLAGS, SOURCE, "libcost_mapping.so",
-                         force)
+def corner_cubes(t: torch.Tensor) -> torch.Tensor:
+    """(V, ..., Hv, Wv) -> (V, ..., Hv, Wv, 2 ** k): at each index, the
+    values of its corner block, the last k = t.dim() - 1 axes each at +0
+    and +1 (clamped at the end), the last axis varying fastest after the
+    first: a (V, D, Hv, Wv) volume gives corner (by, bx, bz) of the cube
+    at (z, y, x) at (by * 2 + bx) * 2 + bz, as the kernel reads it (the
+    layout of the JAX package's pack_volumes)."""
+    axes = list(range(1, t.dim()))
+    for a in axes:            # one more index at the end of every axis
+        t = torch.cat([t, t.narrow(a, t.shape[a] - 1, 1)], dim=a)
+    sizes = [t.shape[a] - 1 for a in axes]
+    # Offsets with the axes in the order (y, x, z, ...): rows, columns,
+    # then the leading axes (depth).
+    order = axes[-2:] + axes[:-2]
+    corners = []
+    for bits in range(2 ** len(axes)):
+        view = t
+        for i, a in enumerate(order):
+            off = (bits >> (len(order) - 1 - i)) & 1
+            view = view.narrow(a, off, sizes[a - 1])
+        corners.append(view)
+    return torch.stack(corners, dim=-1)
 
 
-def bind(path: str):
-    """Load a build of csrc/cost_mapping.cu and declare its C entry
-    points."""
-    lib = ctypes.CDLL(path)
-    vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.cost_mapping_launch.argtypes = [
-        vp, ci, vp, ci, vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, ci, vp, vp,
-        vp, vp]
-    lib.cost_mapping_launch.restype = ci
-    lib.cost_mapping_error_string.argtypes = [ci]
-    lib.cost_mapping_error_string.restype = ctypes.c_char_p
-    return lib
+def slab_cubes(z_slab: torch.Tensor) -> torch.Tensor:
+    """(V, 2, Hv, Wv) near/far planes -> (V, Hv, Wv, 8): at each pixel,
+    corner (by, bx) of its 2 x 2 block, near then far, at
+    (by * 2 + bx) * 2 + (0 near, 1 far)."""
+    V, _, Hv, Wv = z_slab.shape
+    blocks = corner_cubes(z_slab.reshape(V * 2, Hv, Wv))   # (2V, Hv, Wv, 4)
+    return blocks.reshape(V, 2, Hv, Wv, 4).permute(0, 2, 3, 4, 1).reshape(
+        V, Hv, Wv, 8)
 
 
-def _load():
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            _LIB = bind(build())
-        return _LIB
+class CostArgs(ctypes.Structure):
+    """Mirror of `struct CostArgs` in csrc/cost_mapping.cu: the launch's
+    constant arguments, built once per set of volumes."""
+    _fields_ = [("prob8", ctypes.c_void_p), ("slab8", ctypes.c_void_p),
+                ("intr", ctypes.c_void_p), ("c2w", ctypes.c_void_p),
+                ("prob_bf16", ctypes.c_int), ("V", ctypes.c_int),
+                ("D", ctypes.c_int), ("Hv", ctypes.c_int),
+                ("Wv", ctypes.c_int), ("group", ctypes.c_int),
+                ("u_scale", ctypes.c_float), ("v_scale", ctypes.c_float),
+                ("inverse_depth", ctypes.c_int)]
 
 
-def _launch(xyz: torch.Tensor, view_onehot: torch.Tensor,
-            mvs: MVSVolumes):
-    """One launch of the kernel on xyz (R, S, 3) CUDA float32, or an
-    exception naming what it does not take."""
-    dev = xyz.device
+@dataclass(frozen=True, eq=False)
+class KernelVolumes:
+    """The kernel's copy of a set of volumes, made by `check_volumes`:
+    the tensors it was made from, the corner-block packs of the volume
+    and the near/far planes (held, so that their memory outlives the
+    arguments that point into them), their device and view count, and
+    the launch's constant arguments."""
+    source: Tuple[torch.Tensor, ...]
+    packed: Tuple[torch.Tensor, torch.Tensor]
+    img_res: Tuple[int, int]
+    inverse_depth: bool
+    device: torch.device
+    V: int
+    args: CostArgs
+    ref: object          # ctypes.byref(args), made once
+
+    def made_from(self, mvs: MVSVolumes) -> bool:
+        """Whether this copy was made from `mvs`'s tensors and settings
+        (a `dataclasses.replace` of one of them keeps a stale copy)."""
+        t = self.source
+        return (mvs.prob is t[0] and mvs.z_slab is t[1]
+                and mvs.intrinsics is t[2] and mvs.c2w is t[3]
+                and tuple(mvs.img_res) == self.img_res
+                and bool(mvs.inverse_depth) == self.inverse_depth)
+
+
+def check_volumes(mvs: MVSVolumes) -> MVSVolumes:
+    """`mvs` with the kernel's copy of it in its `kernel` field: the
+    volumes validated, the corner-block copies of the volume and the
+    near/far planes made (`corner_cubes`, `slab_cubes`) and the launch's
+    constant arguments. Returns `mvs` itself when it already carries a
+    copy made from its tensors. Raises ValueError naming what the kernel
+    does not take."""
+    if mvs.kernel is not None and mvs.kernel.made_from(mvs):
+        return mvs
+    if mvs.prob.dim() != 4:
+        raise ValueError(f"cost_mapping: prob must be (V, D, Hc, Wc), got "
+                         f"{tuple(mvs.prob.shape)}")
     V, D, Hv, Wv = mvs.prob.shape
-    want = {"xyz": (xyz, torch.float32, None),
-            "view_onehot": (view_onehot, torch.float32, (V,)),
-            "z_slab": (mvs.z_slab, torch.float32, (V, 2, Hv, Wv)),
+    dev = mvs.prob.device
+    want = {"z_slab": (mvs.z_slab, torch.float32, (V, 2, Hv, Wv)),
             "intrinsics": (mvs.intrinsics, torch.float32, (V, 4, 4)),
             "c2w": (mvs.c2w, torch.float32, (V, 4, 4)),
             "prob": (mvs.prob, None, None)}
@@ -257,29 +325,110 @@ def _launch(xyz: torch.Tensor, view_onehot: torch.Tensor,
     if mvs.prob.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"cost_mapping: prob must be float32 or bfloat16, "
                          f"got {mvs.prob.dtype}")
-    if xyz.dim() != 3 or xyz.shape[-1] != 3:
-        raise ValueError(f"cost_mapping: want xyz (R, S, 3), got "
-                         f"{tuple(xyz.shape)}")
-    n = xyz.shape[0] * xyz.shape[1]
-    if n >= 2 ** 31 or mvs.prob.numel() >= 2 ** 62:
-        raise ValueError(f"cost_mapping: {n} samples exceed int32 indexing")
+    if min(V, D, Hv, Wv) < 1 or V > MAX_VIEWS:
+        raise ValueError(f"cost_mapping: {V} views of ({D}, {Hv}, {Wv}); the "
+                         f"kernel takes 1 to {MAX_VIEWS} non-empty views")
+    if D * Hv * Wv >= INT32 or 2 * Hv * Wv >= INT32:
+        raise ValueError(f"cost_mapping: a ({D}, {Hv}, {Wv}) volume exceeds "
+                         f"int32 indexing")
     H, W = mvs.img_res
-    lib = _load()
-    pj = torch.empty(xyz.shape[:2], dtype=torch.float32, device=dev)
-    pi = torch.empty_like(pj)
-    valid = torch.empty(xyz.shape[:2], dtype=torch.bool, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    # The kernel writes 0/1 bytes, which is torch.bool's storage.
-    rc = lib.cost_mapping_launch(
-        xyz.data_ptr(), n, mvs.prob.data_ptr(),
-        int(mvs.prob.dtype == torch.bfloat16), mvs.z_slab.data_ptr(),
-        mvs.intrinsics.data_ptr(), mvs.c2w.data_ptr(), view_onehot.data_ptr(),
-        V, D, Hv, Wv, 2.0 / (W - 1), 2.0 / (H - 1), int(mvs.inverse_depth),
-        pj.data_ptr(), pi.data_ptr(), valid.data_ptr(), stream)
+    if H < 2 or W < 2:
+        raise ValueError(f"cost_mapping: img_res {mvs.img_res}")
+    with torch.no_grad():
+        packed = (corner_cubes(mvs.prob), slab_cubes(mvs.z_slab))
+    args = CostArgs(
+        packed[0].data_ptr(), packed[1].data_ptr(), mvs.intrinsics.data_ptr(),
+        mvs.c2w.data_ptr(), int(mvs.prob.dtype == torch.bfloat16), V, D, Hv,
+        Wv, min(V, 32), 2.0 / (W - 1), 2.0 / (H - 1),
+        int(mvs.inverse_depth))
+    return replace(mvs, kernel=KernelVolumes(
+        (mvs.prob, mvs.z_slab, mvs.intrinsics, mvs.c2w), packed,
+        tuple(mvs.img_res), bool(mvs.inverse_depth), dev, V, args,
+        ctypes.byref(args)))
+
+
+_LIB = None
+_STREAM = None
+_LIB_LOCK = threading.Lock()
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/cost_mapping.cu into _build/libcost_mapping.so unless
+    an up-to-date library exists. Raises RuntimeError naming nvcc when
+    it cannot."""
+    return build_library([nvcc()] + FLAGS, SOURCE, "libcost_mapping.so",
+                         force)
+
+
+def bind(path: str):
+    """Load a build of csrc/cost_mapping.cu and declare its C entry
+    points."""
+    lib = ctypes.CDLL(path)
+    vp = ctypes.c_void_p
+    lib.cost_mapping_launch.argtypes = [ctypes.POINTER(CostArgs), vp, vp,
+                                        ctypes.c_int, vp, vp, vp, vp]
+    lib.cost_mapping_launch.restype = ctypes.c_int
+    lib.cost_mapping_error_string.argtypes = [ctypes.c_int]
+    lib.cost_mapping_error_string.restype = ctypes.c_char_p
+    lib.cost_mapping_trace.argtypes = [vp, ctypes.c_int]
+    lib.cost_mapping_trace.restype = ctypes.c_int
+    return lib
+
+
+def _load():
+    """The library, built and bound at the first call, and the function
+    that reads a device's current stream as an integer."""
+    global _LIB, _STREAM
+    with _LIB_LOCK:
+        if _LIB is None:
+            _STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+                or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+            _LIB = bind(build())
+        return _LIB
+
+
+def _launch(xyz: torch.Tensor, view_onehot: torch.Tensor,
+            mvs: MVSVolumes):
+    """One launch of the kernel on xyz (R, S, 3) CUDA float32, or an
+    exception naming what it does not take."""
+    chk = mvs.kernel
+    if chk is None or not chk.made_from(mvs):
+        raise ValueError("cost_mapping: the volumes carry no kernel copy "
+                         "made from their own tensors; make one with "
+                         "check_volumes (the trainer's pack_for_chunk "
+                         "does, once per run)")
+    idx = chk.device.index
+    if not (xyz.get_device() == idx and xyz.dtype == torch.float32
+            and xyz.dim() == 3 and xyz.shape[2] == 3 and xyz.is_contiguous()):
+        raise ValueError(f"cost_mapping: want xyz (R, S, 3) float32 "
+                         f"contiguous on {chk.device}, got "
+                         f"{tuple(xyz.shape)} {xyz.dtype} on {xyz.device}")
+    if not (view_onehot.get_device() == idx
+            and view_onehot.dtype == torch.float32
+            and view_onehot.shape == (chk.V,)
+            and view_onehot.is_contiguous()):
+        raise ValueError(f"cost_mapping: want view_onehot ({chk.V},) float32 "
+                         f"contiguous on {chk.device}, got "
+                         f"{tuple(view_onehot.shape)} {view_onehot.dtype} on "
+                         f"{view_onehot.device}")
+    R, S, _ = xyz.shape
+    n = R * S
+    if -(-n // (32 // chk.args.group)) * 32 >= INT32:
+        raise ValueError(f"cost_mapping: {n} samples exceed int32 indexing")
+    lib = _LIB if _LIB is not None else _load()
+    # pj and pi in one allocation, valid (bytes 0/1) in another: views of
+    # a single byte buffer cost the host more than the second allocation.
+    pjpi = torch.empty((2, R, S), device=chk.device)
+    valid = torch.empty((R, S), dtype=torch.bool, device=chk.device)
+    ptr = pjpi.data_ptr()
+    rc = lib.cost_mapping_launch(chk.ref, xyz.data_ptr(),
+                                 view_onehot.data_ptr(), n, ptr, ptr + 4 * n,
+                                 valid.data_ptr(), _STREAM(idx))
     if rc != 0:
         raise RuntimeError("cost_mapping kernel launch failed: "
                            + lib.cost_mapping_error_string(rc).decode())
     cost_mapping.launches += 1
+    pj, pi = pjpi.unbind(0)
     return pj, pi, valid
 
 
@@ -292,26 +441,26 @@ def cost_mapping(z_vals, xyz, view_onehot, mvs: MVSVolumes):
     masked to samples seen by >= 1 other view, and that mask.
 
     CPU tensors: `cost_mapping_plain`. CUDA tensors: one launch of the
-    kernel on the current stream, or an exception.
+    kernel on the current stream, reading `mvs.kernel` (`check_volumes`),
+    or an exception.
     """
     del z_vals
+    if xyz.is_cuda:
+        return _launch(xyz, view_onehot, mvs)
+    if xyz.device.type != "cpu":
+        raise ValueError(f"cost_mapping: unsupported device {xyz.device}")
     with torch.no_grad():
-        xyz = xyz.detach()
-        if xyz.device.type == "cpu":
-            return cost_mapping_plain(xyz, view_onehot, mvs)
-        if xyz.device.type != "cuda":
-            raise ValueError(f"cost_mapping: unsupported device {xyz.device}")
-        return _launch(xyz.contiguous(), view_onehot.contiguous(), mvs)
+        return cost_mapping_plain(xyz.detach(), view_onehot, mvs)
 
 
 cost_mapping.launches = 0
 
 
 def touched_bytes(xyz, mvs: MVSVolumes) -> int:
-    """The bytes a cost_mapping of xyz (R, S, 3) must move at the least:
-    every 32-byte sector of the near/far planes and of the volume that
-    some sample reads, once, and each sample's xyz read and pj, pi and
-    valid written once."""
+    """The bytes a cost_mapping of xyz (R, S, 3) on the volumes as the
+    caller holds them must move at the least: every 32-byte sector of
+    the near/far planes and of the volume that some sample reads, once,
+    and each sample's xyz read and pj, pi and valid written once."""
     reads: List[List[torch.Tensor]] = [[], []]
     with torch.no_grad():
         _sample_all_views(xyz.detach(), mvs, reads=reads)
@@ -322,3 +471,21 @@ def touched_bytes(xyz, mvs: MVSVolumes) -> int:
         total += int(torch.unique(sectors).numel()) * SECTOR
     n = xyz.shape[0] * xyz.shape[1]
     return total + n * (12 + 4 + 4 + 1)
+
+
+def packed_bytes(xyz, mvs: MVSVolumes) -> int:
+    """The same on the kernel's corner-block copies (`check_volumes`):
+    each distinct 32-byte sector of the volume's cubes (8 values a cube)
+    and of the near/far blocks (32 bytes a pixel) that some sample
+    reads, and each sample's 21 bytes of input and output."""
+    reads: List[List[torch.Tensor]] = [[], []]
+    with torch.no_grad():
+        _sample_all_views(xyz.detach(), mvs, reads=reads)
+    V, D, Hv, Wv = mvs.prob.shape
+    cube = reads[1][0].reshape(-1)          # corner (0, 0, 0) of each cube
+    pix = cube % (Hv * Wv) + cube // (D * Hv * Wv) * (Hv * Wv)
+    cube_bytes = 8 * mvs.prob.element_size()
+    sectors = (torch.unique(cube * cube_bytes // SECTOR).numel()
+               + torch.unique(pix).numel())
+    n = xyz.shape[0] * xyz.shape[1]
+    return SECTOR * sectors + n * (12 + 4 + 4 + 1)

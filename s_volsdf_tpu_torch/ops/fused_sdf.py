@@ -23,7 +23,11 @@ weights out for one mode once per weight version, and the pack carries
 its mode: the callers pack once per training step and once per render
 (`models/network.sampler_sdf_fn`) and hand the pack to every launch;
 `fused_sdf_values` without a pack packs for itself, and refuses a pack
-of another mode than its config's.
+of another mode than its config's. `fused_sdf_values` stays strict: a
+config outside `supported` raises on the card; the sampler's sweep
+chooses the plain route for such a config before any launch
+(`models.network.sampler_sdf_fn`, counted in `plain_sweeps`), as the
+JAX package's gate `supported` keeps its Pallas kernel to the family.
 
 The kernel library is built with nvcc at first use into `_build/`
 (rebuilt when the source is newer) and bound with ctypes.
@@ -346,10 +350,19 @@ def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
     return out
 
 
+# Sweeps of the sampler that took the plain route
+# (`models.network.sampler_sdf_fn`: the CPU, or a config outside
+# `supported`), beside the kernel's launch counts.
+plain_sweeps = 0
+
+
 def reset_launches() -> None:
-    """Set the launch counts, the total and each mode's, to 0."""
+    """Set the launch counts, the total and each mode's, and the plain
+    sweeps to 0."""
+    global plain_sweeps
     fused_sdf_values.launches = 0
     fused_sdf_values.mode_launches = dict.fromkeys(MODES, 0)
+    plain_sweeps = 0
 
 
 reset_launches()

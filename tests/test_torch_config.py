@@ -59,6 +59,23 @@ def small_configs():
     return shrink(jconfig.dtu_config()), shrink(tconfig.dtu_config())
 
 
+# Two SDF MLPs outside the fused kernel's family (`fused_sdf.supported`):
+# a hidden width past its 256, and two skip junctions. The port's
+# sampler sweeps them with its plain MLP, as the JAX package does.
+OUTSIDE_FAMILY = {"width320": ((320,) * 4, (2,)),
+                  "skip24": ((32,) * 4, (2, 4))}
+
+
+def outside_configs(name):
+    """(JAX Config, port Config) at the small size with the SDF MLP of
+    OUTSIDE_FAMILY[name]."""
+    dims, skip_in = OUTSIDE_FAMILY[name]
+    cfgs = small_configs()
+    for cfg in cfgs:
+        cfg.model.implicit.dims, cfg.model.implicit.skip_in = dims, skip_in
+    return cfgs
+
+
 def params_pair(jcfg, seed=0):
     """JAX parameters from a PRNGKey and the same values in the port."""
     jp = init_volsdf_params(jax.random.PRNGKey(seed), jcfg.model)
@@ -66,16 +83,16 @@ def params_pair(jcfg, seed=0):
     return jp, from_jax_params(np_params)
 
 
-def scene_and_volumes(inverse_depth=False, seed=7):
-    """A 24x32 sphere scene and V=3 informative volumes (D=16, 12x16),
-    as numpy: (scene, prob (V,D,Hc,Wc), z_slab (V,2,Hc,Wc))."""
-    scene = jsynth.make_sphere_scene(3, IMG_RES)
+def scene_and_volumes(inverse_depth=False, seed=7, n_views=3):
+    """A 24x32 sphere scene and V=n_views informative volumes (D=16,
+    12x16), as numpy: (scene, prob (V,D,Hc,Wc), z_slab (V,2,Hc,Wc))."""
+    scene = jsynth.make_sphere_scene(n_views, IMG_RES)
     D, Hc, Wc = VOL
     H, W = IMG_RES
     dvals = np.linspace(0.5, 5.0, D).astype(np.float32)
     rng = np.random.default_rng(seed)
     probs, hyps = [], []
-    for v in range(3):
+    for v in range(n_views):
         Kc = scene.intrinsics[v].copy()
         Kc[0, :] *= Wc / W
         Kc[1, :] *= Hc / H
@@ -87,8 +104,8 @@ def scene_and_volumes(inverse_depth=False, seed=7):
         hyps.append(hyp)
     prob = np.stack(probs)
     near, far = hyps[0][0], hyps[0][-1]
-    z_slab = np.stack([np.full((3, Hc, Wc), near, np.float32),
-                       np.full((3, Hc, Wc), far, np.float32)], axis=1)
+    z_slab = np.stack([np.full((n_views, Hc, Wc), near, np.float32),
+                       np.full((n_views, Hc, Wc), far, np.float32)], axis=1)
     # A ragged slab edge: some pixels with degenerate near/far.
     z_slab[:, :, :2, :3] = 0.0
     return scene, prob, z_slab

@@ -53,3 +53,24 @@ def test_cost_mapping_matches_jax(inverse_depth, view):
     valid = tvalid.numpy()
     assert 0 < valid.sum() < valid.size
     assert tpj.numpy().max() > 0.05
+
+
+@pytest.mark.parametrize("n_views", [2, 4])
+def test_cost_mapping_any_views_matches_jax(n_views):
+    """Other view counts than 3 (the JAX package takes any number of
+    training views): the plain version, which sums the views one by one
+    in the kernel's order, against JAX's sums at the same bars."""
+    scene, prob, z_slab = scene_and_volumes(n_views=n_views)
+    jm, tm = mvs_pair(scene, prob, z_slab)
+    z, xyz = _samples(scene, seed=11)
+    onehot = np.zeros(n_views, np.float32)
+    onehot[n_views - 1] = 1.0
+    jpj, jpi, jvalid = jcost(jnp.asarray(z), jnp.asarray(xyz),
+                             jnp.asarray(onehot), jm)
+    tpj, tpi, tvalid = tcost(torch.tensor(z), torch.tensor(xyz),
+                             torch.tensor(onehot), tm)
+    np.testing.assert_array_equal(tvalid.numpy(), np.asarray(jvalid))
+    np.testing.assert_allclose(tpj.numpy(), np.asarray(jpj), atol=1e-5)
+    np.testing.assert_allclose(tpi.numpy(), np.asarray(jpi), atol=1e-5)
+    valid = tvalid.numpy()
+    assert 0 < valid.sum() < valid.size

@@ -12,6 +12,8 @@ version on the card (tests/test_torch_cuda.py, chip_smoke.py); on the
 CPU the wrapper takes the plain version and launches nothing.
 """
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -88,3 +90,109 @@ def test_touched_bytes_counts_sectors():
     f32 = tcm.touched_bytes(xyz, tm)
     bf16 = tcm.touched_bytes(xyz, pack_for_chunk(cfg, tm))
     assert 21 * n < bf16 <= f32 <= 21 * n + 3 * n * 16 * tcm.SECTOR
+
+
+def test_packed_bytes_counts_sectors():
+    """The bound's bytes on the kernel's corner-block copies: each
+    sample's own input and output, and at most one volume sector and one
+    near/far sector per sample and view (the 8 corners of a cube, the 4
+    of a 2 x 2 block of planes, are one sector each)."""
+    scene, prob, z_slab = scene_and_volumes()
+    _, tm = mvs_pair(scene, prob, z_slab)
+    _, xyz = _samples(scene, seed=11)
+    xyz = torch.tensor(xyz)
+    n = xyz.shape[0] * xyz.shape[1]
+    for dtype in (torch.float32, torch.bfloat16):
+        mvs = dataclasses.replace(tm, prob=tm.prob.to(dtype))
+        got = tcm.packed_bytes(xyz, mvs)
+        assert 21 * n < got <= 21 * n + 3 * n * 2 * tcm.SECTOR
+        assert (got - 21 * n) % tcm.SECTOR == 0
+
+
+def test_pack_for_chunk_checks_volumes_once():
+    """The trainer's store validates the volumes and gives them the
+    kernel's copy, explicitly, in their `kernel` field; storing them
+    again makes no second copy; a copy kept through a replaced tensor or
+    setting is seen as stale; `check_volumes` then makes a fresh one."""
+    scene, prob, z_slab = scene_and_volumes()
+    _, tm = mvs_pair(scene, prob, z_slab)
+    assert tm.kernel is None
+    _, cfg = small_configs()
+    cfg.train.mvs_pack_dtype = "bfloat16"
+    tm = pack_for_chunk(cfg, tm)
+    chk = tm.kernel
+    assert chk.made_from(tm) and chk.V == 3 and chk.device == tm.prob.device
+    assert pack_for_chunk(cfg, tm) is tm and tcm.check_volumes(tm) is tm
+    a = chk.args
+    assert (a.V, a.D, a.Hv, a.Wv) == tuple(tm.prob.shape)
+    assert a.group == 3 and a.prob_bf16 == 1 and a.inverse_depth == 0
+    assert a.prob8 == chk.packed[0].data_ptr()
+    assert a.slab8 == chk.packed[1].data_ptr()
+    assert chk.packed[0].dtype == torch.bfloat16
+    H, W = scene.img_res
+    assert a.u_scale == pytest.approx(2.0 / (W - 1), rel=1e-7)
+    assert a.v_scale == pytest.approx(2.0 / (H - 1), rel=1e-7)
+    for stale in (dataclasses.replace(tm, z_slab=tm.z_slab * 2.0),
+                  dataclasses.replace(tm, inverse_depth=True)):
+        assert stale.kernel is chk and not chk.made_from(stale)
+    stale = dataclasses.replace(tm, z_slab=tm.z_slab * 2.0)
+    again = tcm.check_volumes(stale).kernel
+    assert again is not chk
+    assert torch.equal(again.packed[1], tcm.slab_cubes(stale.z_slab))
+    assert again.args.slab8 == again.packed[1].data_ptr()
+
+
+@pytest.mark.parametrize("change,match", [
+    ("z_slab", "z_slab of shape"),
+    ("prob_dtype", "prob must be float32 or bfloat16"),
+    ("intrinsics_dtype", "intrinsics must be"),
+    ("c2w_strided", "c2w must be contiguous"),
+    ("img_res", "img_res"),
+    ("views", "views"),
+])
+def test_check_volumes_refuses(change, match):
+    """What the kernel does not take raises when the volumes are checked,
+    before any launch."""
+    scene, prob, z_slab = scene_and_volumes()
+    _, tm = mvs_pair(scene, prob, z_slab)
+    if change == "z_slab":
+        tm.z_slab = tm.z_slab[:, :, :-1].contiguous()
+    elif change == "prob_dtype":
+        tm.prob = tm.prob.to(torch.float16)
+    elif change == "intrinsics_dtype":
+        tm.intrinsics = tm.intrinsics.double()
+    elif change == "c2w_strided":
+        tm.c2w = tm.c2w.transpose(1, 2)
+    elif change == "img_res":
+        tm.img_res = (1, scene.img_res[1])
+    else:
+        V = tcm.MAX_VIEWS + 1
+        tm.prob = torch.zeros((V, 2, 2, 2))
+        tm.z_slab = torch.zeros((V, 2, 2, 2))
+        tm.intrinsics = tm.c2w = torch.zeros((V, 4, 4))
+    with pytest.raises(ValueError, match=match):
+        tcm.check_volumes(tm)
+
+
+def test_corner_packs_layout():
+    """The kernel's packed copies: at each (z, y, x), the cube's corner
+    (by, bx, bz) at (by * 2 + bx) * 2 + bz, each index clamped at the
+    end of its axis; at each pixel of the planes, its 2 x 2 block's
+    (near, far) at (by * 2 + bx) * 2 + plane."""
+    scene, prob, z_slab = scene_and_volumes()
+    _, tm = mvs_pair(scene, prob, z_slab)
+    vol8, nf8 = tcm.check_volumes(tm).kernel.packed
+    V, D, H, W = tm.prob.shape
+    assert vol8.shape == (V, D, H, W, 8) and nf8.shape == (V, H, W, 8)
+    v, z, y, x = torch.meshgrid(*(torch.arange(k) for k in (V, D, H, W)),
+                                indexing="ij")
+    for by in (0, 1):
+        for bx in (0, 1):
+            yb = torch.clamp(y + by, max=H - 1)
+            xb = torch.clamp(x + bx, max=W - 1)
+            for bz in (0, 1):
+                want = tm.prob[v, torch.clamp(z + bz, max=D - 1), yb, xb]
+                assert torch.equal(vol8[..., (by * 2 + bx) * 2 + bz], want)
+            for plane in (0, 1):
+                want = tm.z_slab[v[:, 0], plane, yb[:, 0], xb[:, 0]]
+                assert torch.equal(nf8[..., (by * 2 + bx) * 2 + plane], want)

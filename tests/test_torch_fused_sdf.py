@@ -372,12 +372,21 @@ def test_bf16_pack_layout(activation):
                                    pts, 3.0, pack=pack)
 
 
-def test_pack_once_per_weight_version():
-    """A training step packs once; after its optimizer step the next pack
-    differs; a whole render, over several chunks, packs once."""
+def test_pack_once_per_weight_version(monkeypatch):
+    """On the kernel's route, a training step packs once; after its
+    optimizer step the next pack differs; a whole render, over several
+    chunks, packs once. The route is the card's (`network.uses_kernel`);
+    forced here, the CPU's sweeps still take the plain version and leave
+    the pack unused. On the CPU's own route nothing is packed."""
+    from s_volsdf_tpu_torch.models import network
     cfg = shrink(chip_smoke.float32_dtu_config())
     trainer = chip_smoke.make_trainer(cfg, IMG_RES, VOL, "cpu")
     sdf = trainer.state.params.sdf
+    builds, sweeps = fused_sdf.pack_sdf.builds, fused_sdf.plain_sweeps
+    trainer.run(1)
+    assert fused_sdf.pack_sdf.builds == builds
+    assert fused_sdf.plain_sweeps > sweeps
+    monkeypatch.setattr(network, "uses_kernel", lambda params, cfg: True)
     before = fused_sdf.pack_sdf(sdf, cfg.model)
     builds = fused_sdf.pack_sdf.builds
     trainer.run(1)

@@ -30,7 +30,9 @@ from s_volsdf_tpu.engine import train_step as jts
 from s_volsdf_tpu.models.loss import compute_loss as jloss
 from s_volsdf_tpu_torch.engine import train_step as tts
 from s_volsdf_tpu_torch.models.loss import compute_loss as tloss
-from test_torch_config import (N_RAYS, mvs_pair, params_pair,
+from s_volsdf_tpu_torch.ops import fused_sdf
+from test_torch_config import (N_RAYS, OUTSIDE_FAMILY, mvs_pair,
+                               outside_configs, params_pair,
                                scene_and_volumes, small_configs, torch_jitter)
 from tools.paired_jitter import JitterStream, jitter_batch_entry
 
@@ -141,6 +143,35 @@ def test_step_gradients_match_jax():
     np.testing.assert_allclose(float(tlo.loss.detach()), float(jlo.loss),
                                rtol=1e-4)
     assert float(jlo.mvs_loss) != 0.0      # the GCE term is live
+    names = [n for n, _ in tp.named_parameters()]
+    assert len(names) == len(jax.tree.leaves(jp))
+    for name, g in zip(names, tgrads):
+        np.testing.assert_allclose(g.numpy(), np.asarray(_leaf(jgrads, name)),
+                                   rtol=1e-3, atol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("family", sorted(OUTSIDE_FAMILY))
+def test_step_gradients_match_jax_outside_family(family):
+    """One step's loss and gradients with an SDF MLP outside the fused
+    kernel's family (width 320; skips at 2 and 4), at the float32 bars
+    above: the sampler sweeps the plain MLP and packs nothing."""
+    jcfg, tcfg = outside_configs(family)
+    assert not fused_sdf.supported(tcfg.model)
+    jp, tp = params_pair(jcfg, seed=1)
+    jm, tm = _mvs()
+    (jb, tb), = _batches(1, seed=21)
+    grad_fn = jax.jit(jax.grad(jts._loss_fn, has_aux=True),
+                      static_argnums=(1,))
+    jgrads, jlo = grad_fn(jp, jcfg, jb, jax.random.PRNGKey(0), jm,
+                          jnp.asarray(5, jnp.int32))
+    builds, sweeps = fused_sdf.pack_sdf.builds, fused_sdf.plain_sweeps
+    tgrads, tlo = tts.loss_and_grads(tp, tcfg, tb,
+                                     torch.Generator().manual_seed(0), tm, 5)
+    assert fused_sdf.pack_sdf.builds == builds
+    assert fused_sdf.plain_sweeps > sweeps
+    np.testing.assert_allclose(float(tlo.loss.detach()), float(jlo.loss),
+                               rtol=1e-4)
+    assert float(jlo.mvs_loss) != 0.0
     names = [n for n, _ in tp.named_parameters()]
     assert len(names) == len(jax.tree.leaves(jp))
     for name, g in zip(names, tgrads):
