@@ -7,8 +7,8 @@ checks it, in phases that print in order:
 
   1. environment: torch and CUDA versions, the card, its power limit;
   2. build: compiles csrc/fused_sdf.cu, csrc/cost_mapping.cu and
-     csrc/fusion.cu with nvcc and csrc/downsample.cpp with g++, all at
-     once (seconds printed);
+     csrc/fusion.cu with nvcc and csrc/downsample.cpp and csrc/mc.cpp
+     with g++, all at once (seconds printed);
   3. kernels: the fused SDF kernel against its plain PyTorch version on
      65,536, 700 and 2,097,152 points (one training sweep, a ragged
      tail, one render launch) in both modes: float32 (bf16 x 3 split,
@@ -74,8 +74,31 @@ checks it, in phases that print in order:
      cameras fuse from the sphere's own depths (acc below 1),
      seconds of the downsampling and of the NN queries; (d) the command
      line end to end at 64x96 on the card with no precision override
-     (PFMs, PNGs and PLY written);
-  8. a JSON line with the kernels' numbers, the card's name and power
+     (PFMs, PNGs, PLY and the trainer's checkpoints written);
+  8. evaluation: (a)-(c) right after phase 5, on phase 4's float32
+     trainer before it goes, (d) and (e) after phase 7: (a) a checkpoint
+     round trip (save, load into a fresh VolTrainer(is_continue=True):
+     every leaf and the CUDA generator bit-equal; 3 more steps on each:
+     losses and parameters bit-equal), save and load ms; (b)
+     render_image of view 0 at 576x768 (fast=-1; seconds, fused
+     launches, peak memory, finite maps), its depth against
+     render_depth's (printed), a 6x8 render_image card vs the CPU's
+     plain path (2e-4); (c) export_mesh at 512^3 over plot.grid_boundary
+     (extract_mesh_high_res) and at 256^3 through a bbs.npz
+     (extract_mesh_by_grid): seconds of the 100^3 pass, the 512^3 grid
+     (64 launches), marching tetrahedra (csrc/mc.cpp), the largest
+     component, the PLY write, the counts, the host's peak memory; the
+     plain MLP at up to 65,536 of each mesh's vertices within one
+     voxel; the kernel on a 64^3 sub-grid against the plain MLP (1e-4);
+     the per-launch grid points equal to the whole grid's; (d)
+     eval_rendered_views on two 576x768 eval views of phase 6's fixture
+     rendered with its float32 trainer (PSNR, SSIM, LPIPS with random
+     VGG weights the phase writes as a checkpoint; seconds per view);
+     (e) cli.eval_vsdf on phase 7(d)'s checkpoint at 64x96
+     (--eval_rendering --eval_mesh --resolution 64: 28 views and a mesh;
+     then --result_from default), and cli.eval_dtu --mode mesh of that
+     mesh against 7(c)'s sphere points in an official-DTU layout;
+  9. a JSON line with the kernels' numbers, the card's name and power
      limit, and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -97,6 +120,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from itertools import permutations
@@ -106,27 +130,34 @@ import numpy as np
 import torch
 
 from s_volsdf_tpu_torch.bridge import from_jax_mvs_params, to_jax_mvs_params
+from s_volsdf_tpu_torch.cli import eval_dtu as cli_eval_dtu
+from s_volsdf_tpu_torch.cli import eval_vsdf as cli_eval_vsdf
 from s_volsdf_tpu_torch.cli import run as cli_run
 from s_volsdf_tpu_torch.config import Config, dtu_config
 from s_volsdf_tpu_torch.data.fixtures import make_dtu_fixture
-from s_volsdf_tpu_torch.data.io import load_ply, read_pfm, write_png
+from s_volsdf_tpu_torch.data.io import load_ply, read_pfm, save_ply, write_png
 from s_volsdf_tpu_torch.data.mvs_dataset import MVSDataset
 from s_volsdf_tpu_torch.data.scene_dataset import scene_from_synthetic
 from s_volsdf_tpu_torch.data.splits import get_trains_ids
 from s_volsdf_tpu_torch.data.synthetic import gt_prob_volume, make_sphere_scene
 from s_volsdf_tpu_torch.engine import eval_geo
+from s_volsdf_tpu_torch.engine import mesh as mesh_mod
+from s_volsdf_tpu_torch.engine.eval_nvs import eval_rendered_views, export_mesh
 from s_volsdf_tpu_torch.engine.fusion import (filter_depth, fuse_views,
                                               load_views)
-from s_volsdf_tpu_torch.engine.render import render_depth
+from s_volsdf_tpu_torch.engine.mesh import mesh_sdf_fn
+from s_volsdf_tpu_torch.engine.render import render_depth, render_image
 from s_volsdf_tpu_torch.engine.runner import MVSEngine, save_scene_depth
 from s_volsdf_tpu_torch.engine.train_step import training_model_config
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer
+from s_volsdf_tpu_torch.models.lpips import init_lpips_params, lpips_leaves
 from s_volsdf_tpu_torch.models.network import init_volsdf_params, render_rays
 from s_volsdf_tpu_torch.ops import cost_mapping, fused_sdf, geo_consistency
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
 from s_volsdf_tpu_torch.tools.fp64_count import fp64_instructions
 from s_volsdf_tpu_torch.tools.time_cost_mapping import (cold_ms, sample_sets,
                                                         samples)
+from s_volsdf_tpu_torch.utils import checkpoint as ckpt
 
 # The kernel's bf16 x 3 split (about 2^-16 of each product) and f32 sums
 # in another order across 9 layers.
@@ -175,6 +206,7 @@ GT_POINTS = 1_000_000
 # count up to max_dist each.)
 TRUTH_ACC_TOL = 1.0
 SMALL_CLI_STEPS = 3
+SMALL_VSDF = "small_vsdf"   # phase 7(d)'s exps_folder under the temp dir
 # SDF MLPs outside the fused kernel's family (`fused_sdf.supported`), run
 # through the sampler's plain route: two skip junctions, and a hidden
 # width past the kernel's 256.
@@ -227,12 +259,15 @@ def make_volumes(scene, vol_shape, device) -> MVSVolumes:
                       img_res=scene.img_res, inverse_depth=False)
 
 
-def make_trainer(cfg: Config, img_res, vol_shape, device) -> VolTrainer:
+def make_trainer(cfg: Config, img_res, vol_shape, device,
+                 exps_root=None) -> VolTrainer:
     """A VolTrainer on a 3-view sphere scene with informative volumes,
-    one step per chunk (so chunk_seconds are step times)."""
+    one step per chunk (so chunk_seconds are step times); with
+    exps_root, its run directory there (as scan106)."""
     scene = make_sphere_scene(3, img_res)
-    trainer = VolTrainer(cfg, scene_from_synthetic(scene), device=device,
-                         chunk_steps=1)
+    trainer = VolTrainer(cfg, scene_from_synthetic(scene),
+                         SCAN if exps_root else None, device=device,
+                         exps_root=exps_root, chunk_steps=1)
     trainer.mvs = make_volumes(scene, vol_shape, device)
     return trainer
 
@@ -706,6 +741,7 @@ def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
     t0 = time.perf_counter()
     plys = cli_run.main([
         f"testlist={SCAN}", f"outdir={out}", f"data_dir_root={small}",
+        f"exps_folder={os.path.join(tmp, SMALL_VSDF)}",
         f"dataset.data_dir_root={small}", f"max_h={SMALL_RES[0]}",
         f"max_w={SMALL_RES[1]}", f"dataset.img_res=[{SMALL_RES[0]},"
         f"{SMALL_RES[1]}]", f"mvs.ndepths={list(SMALL_NDEPTHS)}",
@@ -973,17 +1009,19 @@ def check_cost_mapping(dev, card: str) -> Dict:
     return out
 
 
-def run_training(dev, card: str):
+def run_training(dev, card: str, exps_root: str):
     """Phases 4 and 5 (see the module docstring), the main path: the
     launch counts are set to 0 before the first step and read after the
-    last render. Returns the trainers ({"defaults", "float32"}) and the
+    last render. Returns the trainers ({"defaults", "float32"}; the
+    float32 one with its run directory under exps_root) and the
     launches."""
     trainers = {}
     t0 = time.perf_counter()
     for what, cfg in (("defaults", dtu_config()),
                       ("float32", float32_dtu_config())):
-        trainers[what] = make_trainer(cfg, (cfg.max_h, cfg.max_w),
-                                      BENCH_VOLUMES, dev)
+        trainers[what] = make_trainer(
+            cfg, (cfg.max_h, cfg.max_w), BENCH_VOLUMES, dev,
+            exps_root if what == "float32" else None)
     torch.cuda.synchronize()
     print(f"[train] two scenes + volumes set up in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
@@ -1162,6 +1200,350 @@ def check_near_surface(trainer) -> Dict[str, float]:
     return errs
 
 
+# --------------------------------------------------------------------------
+# 8. Evaluation
+# --------------------------------------------------------------------------
+
+EVAL_RES = 512            # mesh export's grid (the eval command line's default)
+# The bbs.npz export's grid: its host side (marching tetrahedra, the
+# largest component) took 30 s at 512^3 on an NVIDIA H100 80GB HBM3
+# machine (700 W), which the 512^3 export over plot.grid_boundary
+# already shows.
+EVAL_BOX_RES = 256
+EVAL_SUBGRID = 64         # the kernel held to the plain MLP on a 64^3 sub-grid
+EVAL_VERTS = 65536        # mesh vertices checked against the plain MLP
+EVAL_CLI_RES = 64         # the command line's mesh grid at 64x96
+ROUND_TRIP_STEPS = 3
+# The fixture's bbs.npz box for mesh export (scan106; scaled by [1.5, 1.0]
+# as in the JAX package), in the trainer's units: around the sphere.
+EVAL_BOX = np.array([[-1.0, -1.0, -1.0], [1.0, 1.0, 1.0]])
+
+
+def _rss_gb() -> float:
+    """The process's resident memory now, in GB (/proc/self/status)."""
+    with open("/proc/self/status") as f:
+        line = next(x for x in f if x.startswith("VmRSS:"))
+    return int(line.split()[1]) / 2 ** 20
+
+
+class RssPeak:
+    """The largest resident memory of the process seen while the block
+    runs, sampled every 10 ms by a thread (the card's machine does not
+    let a process reset its own peak): `before` and `peak`, in GB."""
+
+    def __enter__(self):
+        self.before = self.peak = _rss_gb()
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def _sample(self):
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, _rss_gb())
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, _rss_gb())
+
+
+def _launch_counts() -> Dict:
+    return {"fused_sdf": dict(fused_sdf.fused_sdf_values.mode_launches),
+            "cost_mapping": cost_mapping.cost_mapping.launches}
+
+
+def eval_round_trip(dev, card: str, trainer: VolTrainer, exps_root: str):
+    """Phase 8(a): save the trained float32 trainer, load it into a fresh
+    VolTrainer(is_continue=True), hold every leaf and the generator
+    bit-equal, then ROUND_TRIP_STEPS more steps on each bit-equal."""
+    t0 = time.perf_counter()
+    path = trainer.save_checkpoint()
+    save_ms = 1e3 * (time.perf_counter() - t0)
+    fresh = VolTrainer(trainer.cfg, trainer.scene, SCAN, device=dev,
+                       exps_root=exps_root, is_continue=True, chunk_steps=1)
+    t0 = time.perf_counter()
+    fresh.load_checkpoint()
+    torch.cuda.synchronize()
+    load_ms = 1e3 * (time.perf_counter() - t0)
+    _check(fresh.checkpoints_path == trainer.checkpoints_path,
+           f"resumed run directory {fresh.rundir} != {trainer.rundir}")
+
+    def leaves_equal(a, b) -> bool:
+        return all(np.array_equal(x, y) for x, y in
+                   zip(ckpt.train_state_leaves(a.state),
+                       ckpt.train_state_leaves(b.state)))
+    _check(leaves_equal(trainer, fresh)
+           and torch.equal(trainer.gen.get_state(), fresh.gen.get_state()),
+           "checkpoint round trip: leaves or generator state differ")
+    fresh.mvs = trainer.mvs
+    trainer.run(ROUND_TRIP_STEPS)
+    fresh.run(ROUND_TRIP_STEPS)
+    torch.cuda.synchronize()
+    a = [lo.loss for lo in trainer.losses]
+    b = [lo.loss for lo in fresh.losses]
+    _check(a == b and leaves_equal(trainer, fresh),
+           f"resumed steps differ: losses {a} vs {b}")
+    n = len(ckpt.train_state_leaves(trainer.state))
+    size = os.path.getsize(os.path.join(path, ckpt.STATE_FILE))
+    print(f"[eval] checkpoint round trip at iter_step "
+          f"{trainer.state.iter_step - ROUND_TRIP_STEPS}: save {save_ms:.1f} ms"
+          f", load {load_ms:.1f} ms ({n} leaves, {size / 2 ** 20:.2f} MiB); "
+          f"leaves, Adam and the CUDA generator bit-equal; "
+          f"{ROUND_TRIP_STEPS} more steps on each: losses and parameters "
+          f"bit-equal ({a[-1]:.6f}) [{card}]", flush=True)
+    return {"save_ms": save_ms, "load_ms": load_ms}
+
+
+def eval_render(dev, card: str, trainer: VolTrainer) -> Dict:
+    """Phase 8(b): render_image of view 0 at full resolution, its depth
+    against render_depth's, and a 6x8 render_image card vs CPU."""
+    scene, mcfg = trainer.scene, trainer.cfg.model
+    H, W = scene.img_res
+    before = dict(fused_sdf.fused_sdf_values.mode_launches)
+    builds = fused_sdf.pack_sdf.builds
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    maps = trainer.render_view(0)
+    torch.cuda.synchronize()
+    image_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launches = fused_sdf.fused_sdf_values.mode_launches["float32"] \
+        - before["float32"]
+    _check(all(bool(np.isfinite(m).all()) for m in maps.values())
+           and maps["rgb"].shape == (H, W, 3) and launches > 0
+           and fused_sdf.pack_sdf.builds == builds + 1,
+           f"render_image {H}x{W}: finite maps, {launches} launches, "
+           f"{fused_sdf.pack_sdf.builds - builds} packs")
+    t0 = time.perf_counter()
+    depth = render_depth(trainer.state.params, mcfg, scene.poses[0],
+                         scene.intrinsics[0], (H, W), fast=-1)
+    torch.cuda.synchronize()
+    depth_s = time.perf_counter() - t0
+    err = np.abs(maps["depth"] - depth["depth"])
+    acc_err = float(np.abs(maps["acc"] - depth["acc"]).max())
+    print(f"[eval] render_image {H}x{W} fast=-1, float32: {image_s:.3f} s "
+          f"(render_depth of the view {depth_s:.3f} s), fused SDF launches "
+          f"{launches}, peak memory {peak:.2f} GiB; rgb "
+          f"{maps['rgb'].min():.4f}..{maps['rgb'].max():.4f}, acc "
+          f"{maps['acc'].min():.4f}..{maps['acc'].max():.4f} [{card}]",
+          flush=True)
+    print(f"[eval] render_image depth vs render_depth (same sampler sweeps, "
+          f"final SDF from the plain MLP vs the kernel): max|diff| "
+          f"{err.max():.3e}, {int((err > RENDER_TOL).sum())} of {err.size} "
+          f"pixels past {RENDER_TOL}; acc max|diff| {acc_err:.3e}", flush=True)
+    intr = np.array(scene.intrinsics[0], np.float32)
+    intr[:2] *= 8 / W
+    args = (mcfg, scene.poses[0], intr, (6, 8))
+    on_card = render_image(trainer.state.params, *args, chunk=48)
+    cpu_params = init_volsdf_params(torch.Generator().manual_seed(0), mcfg,
+                                    "cpu")
+    cpu_params.load_state_dict(trainer.state.params.state_dict())
+    on_cpu = render_image(cpu_params, *args, chunk=48, device="cpu")
+    small_err = max(float(np.max(np.abs(on_card[k] - on_cpu[k])))
+                    for k in on_card)
+    _check(small_err <= RENDER_TOL,
+           f"6x8 render_image, card vs CPU plain: {small_err} > {RENDER_TOL}")
+    print(f"[eval] 6x8 render_image card vs CPU plain path: max|diff| "
+          f"{small_err:.3e} over rgb, depth, normal, acc (tol {RENDER_TOL})",
+          flush=True)
+    return {"image_s": image_s, "depth_s": depth_s, "peak_gib": peak,
+            "launches": launches}
+
+
+def _print_export(what: str, res: int, st: Dict, total_s: float, rss,
+                  card: str) -> None:
+    low, high = st["grids"]
+    print(f"[eval] export_mesh {what} at {res}^3: {total_s:.2f} s: "
+          f"100^3 pass (grid {low['seconds']:.3f} s, {low['launches']} "
+          f"launch; marching {st['marching'][0]:.3f} s; largest component "
+          f"{st['component'][0]:.3f} s), {res}^3 grid {high['seconds']:.3f}"
+          f" s ({high['launches']} launches, "
+          f"{1e3 * high['seconds'] / high['launches']:.2f} ms each with the "
+          f"points' making and the copy back), marching tetrahedra "
+          f"{st['marching'][1]:.3f} s, largest component "
+          f"{st['component'][-1]:.3f} s, PLY write {st['write']:.3f} s; "
+          f"{st['verts']} vertices, {st['faces']} faces; host RSS "
+          f"{rss.before:.2f} GB before, peak {rss.peak:.2f} GB during "
+          f"(sampled every 10 ms) [{card}]", flush=True)
+
+
+def eval_mesh(dev, card: str, trainer: VolTrainer, tmp: str) -> Dict:
+    """Phase 8(c): export_mesh on the trained field at EVAL_RES over
+    plot.grid_boundary (extract_mesh_high_res) and at EVAL_BOX_RES
+    through a bbs.npz (extract_mesh_by_grid); the kernel's grid values
+    on a 64^3 sub-grid
+    against the plain MLP, the plain SDF at the mesh's vertices, and the
+    per-launch grid points against the whole array."""
+    cfg, params = trainer.cfg, trainer.state.params
+    bs = cfg.model.scene_bounding_sphere
+    scene = dataclasses.replace(trainer.scene, scan_id=int(SCAN[4:]))
+    bbs = os.path.join(tmp, "bbs.npz")
+    np.savez(bbs, **{SCAN: EVAL_BOX})
+    out = {}
+    for what, bbs_file, res in (("high_res", None, EVAL_RES),
+                                ("by_grid", bbs, EVAL_BOX_RES)):
+        stats = {}
+        ply = os.path.join(tmp, f"mesh_{what}.ply")
+        with RssPeak() as rss:
+            t0 = time.perf_counter()
+            _check(export_mesh(cfg, scene, params, ply, resolution=res,
+                               bbs_file=bbs_file, stats=stats) == ply,
+                   f"export_mesh {what}: no surface")
+            total_s = time.perf_counter() - t0
+        _print_export(what, res, stats, total_s, rss, card)
+        verts = load_ply(ply)[0]
+        pick = np.random.default_rng(0).permutation(len(verts))[:EVAL_VERTS]
+        with torch.no_grad():
+            sdf = fused_sdf.sdf_values_plain(
+                params.sdf, cfg.model, torch.as_tensor(verts[pick], device=dev),
+                bs).abs().max().item()
+        voxel = stats["voxel"][-1]
+        _check(sdf <= voxel, f"{what}: plain |sdf| {sdf} at the mesh's "
+               f"vertices > one voxel {voxel}")
+        print(f"[eval] {what}: plain MLP at {len(pick)} mesh vertices: "
+              f"max |sdf| {sdf:.3e} (one voxel {voxel:.3e})", flush=True)
+        out[what] = {"seconds": total_s, "stats": stats}
+
+    sdf_fn = mesh_sdf_fn(params, cfg.model, bs)
+    full, _ = mesh_mod._grid_from_bounds([cfg.plot.grid_boundary[0]] * 3,
+                                         [cfg.plot.grid_boundary[1]] * 3,
+                                         EVAL_RES)
+    step = EVAL_RES // EVAL_SUBGRID
+    sub = mesh_mod.GridPoints(full.xs[::step], full.ys[::step],
+                              full.zs[::step])
+    got = mesh_mod.eval_sdf_grid(sdf_fn, sub)
+    with torch.no_grad():
+        ref = fused_sdf.sdf_values_plain(
+            params.sdf, cfg.model,
+            torch.as_tensor(sub.block(0, len(sub)), device=dev), bs)
+    err = float(np.abs(got - ref.cpu().numpy()).max())
+    _check(err <= KERNEL_TOL, f"grid values kernel vs plain: {err}")
+    rng = np.random.default_rng(1)
+    vecs = np.linalg.qr(rng.standard_normal((3, 3)))[0]
+    grid, _ = mesh_mod._grid_from_bounds([-1.0] * 3, [1.0] * 3, 160, vecs,
+                                         rng.standard_normal(3))
+    whole = grid.block(0, len(grid))
+    blocks = np.concatenate([grid.block(i, min(i + mesh_mod.LAUNCH_POINTS,
+                                                len(grid)))
+                             for i in range(0, len(grid),
+                                            mesh_mod.LAUNCH_POINTS)])
+    _check(np.array_equal(whole, blocks), "per-launch grid points differ "
+           "from the whole grid's")
+    print(f"[eval] grid values on a {EVAL_SUBGRID}^3 sub-grid of the "
+          f"{EVAL_RES}^3 grid, kernel vs plain: max|diff| {err:.3e} (tol "
+          f"{KERNEL_TOL}); per-launch grid points equal the whole 160^3 "
+          f"grid's (PCA transform, this machine's BLAS)", flush=True)
+    out["subgrid_err"] = err
+    return out
+
+
+def eval_scene_views(dev, card: str, tmp: str, res: Dict) -> Dict:
+    """Phase 8(d): two eval views of phase 6's fixture rendered with its
+    float32 trainer and written as the eval command line writes them,
+    then eval_rendered_views with random LPIPS weights from a
+    checkpoint the phase writes."""
+    trainer = res["trainer"]
+    scene, cfg = trainer.scene, trainer.cfg
+    images = os.path.join(tmp, "nvs")
+    vids = scene.eval_ids()[:2]
+    render_s = []
+    for vid in vids:
+        t0 = time.perf_counter()
+        maps = trainer.render_view(vid)
+        write_png(os.path.join(images, f"eval_{vid:03d}.png"),
+                  (np.clip(maps["rgb"], 0, 1) * 255).astype(np.uint8))
+        render_s.append(time.perf_counter() - t0)
+    weights = os.path.join(tmp, "lpips_random")
+    ckpt.save_state(weights, lpips_leaves(init_lpips_params(
+        np.random.default_rng(0))))
+    seconds = []
+    m = eval_rendered_views(cfg, scene, images, "default", weights,
+                            device=dev, seconds=seconds)
+    _check(m["n_views"] == len(vids)
+           and all(np.isfinite(m[f"{k}_mean"]) for k in ("psnr", "ssim",
+                                                         "lpips"))
+           and 0 < m["ssim_mean"] <= 1 and m["lpips_mean"] > 0,
+           f"NVS metrics of {vids}: {m}")
+    print(f"[eval] eval_rendered_views {SCAN} views {vids} at "
+          f"{scene.img_res[0]}x{scene.img_res[1]}: PSNR {m['psnr_mean']:.3f}, "
+          f"SSIM {m['ssim_mean']:.4f}, LPIPS (random VGG weights) "
+          f"{m['lpips_mean']:.5f}; metrics "
+          + ", ".join(f"{x:.3f}" for x in seconds) + " s per view (render "
+          + ", ".join(f"{x:.3f}" for x in render_s) + f" s) [{card}]",
+          flush=True)
+    return {"metric_s": seconds, "render_s": render_s}
+
+
+def write_sphere_gt(root: str) -> None:
+    """An official-DTU layout for scan106 around the fixture's sphere:
+    ObsMask106_10.mat observing the whole box, Plane106.mat below it,
+    and the GT points of phase 7(c) as stl106_total.ply."""
+    import scipy.io
+    obs = os.path.join(root, "ObsMask")
+    os.makedirs(obs, exist_ok=True)
+    lo, hi, res = -1.25 * SPHERE_RADIUS, 1.25 * SPHERE_RADIUS, 4.0
+    n = int(np.ceil((hi - lo) / res)) + 1
+    scipy.io.savemat(os.path.join(obs, "ObsMask106_10.mat"),
+                     {"ObsMask": np.ones((n, n, n), np.uint8),
+                      "BB": np.array([[lo] * 3, [hi] * 3]),
+                      "Res": np.array([[res]])})
+    scipy.io.savemat(os.path.join(obs, "Plane106.mat"),
+                     {"P": np.array([[0.0], [0.0], [1.0], [10 * hi]])})
+    save_ply(os.path.join(root, "Points", "stl", "stl106_total.ply"),
+             sphere_points(GT_POINTS))
+
+
+def eval_command_lines(dev, card: str, tmp: str) -> Dict:
+    """Phase 8(e): cli.eval_vsdf on phase 7(d)'s checkpoint at 64x96
+    (renders and mesh, then the metrics), then cli.eval_dtu --mode mesh
+    of that mesh against the fixture's sphere points."""
+    small = os.path.join(tmp, "small")
+    evals = os.path.join(tmp, "small_evals")
+    common = ["--conf", "dtu", "--scan_ids", SCAN[4:], "--exps_folder",
+              os.path.join(tmp, SMALL_VSDF), "--evals_folder", evals,
+              "--data_dir_root", small, "--override",
+              f"dataset.img_res=[{SMALL_RES[0]},{SMALL_RES[1]}]"]
+    t0 = time.perf_counter()
+    cli_eval_vsdf.main(["--eval_rendering", "--eval_mesh", "--resolution",
+                        str(EVAL_CLI_RES)] + common)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    out = os.path.join(evals, f"ours_{SCAN[4:]}")
+    images = [d for d in os.listdir(out) if d.startswith("rendering_")]
+    _check(len(images) == 1, f"rendering dirs {images}")
+    written = os.listdir(os.path.join(out, images[0]))
+    n_views = sum(f.startswith("eval_") for f in written)
+    mesh_ply = os.path.join(out, "mesh", f"{SCAN}.ply")
+    _check(n_views == 28 and os.path.isfile(mesh_ply),
+           f"eval_vsdf wrote {n_views} views, mesh {os.path.isfile(mesh_ply)}")
+    t0 = time.perf_counter()
+    (m,) = cli_eval_vsdf.main(["--eval_rendering", "--result_from",
+                               "default"] + common)
+    metric_s = time.perf_counter() - t0
+    _check(np.isfinite(m["psnr_mean"]) and 0 < m["ssim_mean"] <= 1,
+           f"eval_vsdf metrics {m}")
+    gt, pred = os.path.join(tmp, "sphere_gt"), os.path.join(tmp, "mesh_eval")
+    write_sphere_gt(gt)
+    os.makedirs(pred, exist_ok=True)
+    os.replace(mesh_ply, os.path.join(pred, f"mvsnet{SCAN[4:]}_l3.ply"))
+    t0 = time.perf_counter()
+    rows = cli_eval_dtu.main(["--datadir", pred, "--dataset_dir", gt,
+                              "--scan", SCAN[4:], "--mode", "mesh"])
+    dtu_s = time.perf_counter() - t0
+    _check(len(rows) == 1, f"eval_dtu rows {rows}")
+    print(f"[eval] cli.eval_vsdf {SCAN} at {SMALL_RES[0]}x{SMALL_RES[1]}: "
+          f"{n_views} views rendered and a {EVAL_CLI_RES}^3 mesh in "
+          f"{render_s:.2f} s; --result_from default {metric_s:.2f} s: PSNR "
+          f"{m['psnr_mean']:.3f}, SSIM {m['ssim_mean']:.4f} over "
+          f"{m['n_views']} views; cli.eval_dtu --mode mesh {dtu_s:.2f} s: acc "
+          f"{rows[0][0]:.3f}, comp {rows[0][1]:.3f}, overall "
+          f"{rows[0][2]:.3f} [{card}]", flush=True)
+    return {"render_s": render_s, "metric_s": metric_s, "dtu_s": dtu_s}
+
+
+
 def main() -> None:
     # 1. Environment.
     if not torch.cuda.is_available():
@@ -1190,7 +1572,8 @@ def main() -> None:
     sources = {"csrc/fused_sdf.cu": fused_sdf.build,
                "csrc/cost_mapping.cu": cost_mapping.build,
                "csrc/fusion.cu": geo_consistency.build,
-               "csrc/downsample.cpp": eval_geo.build_downsample}
+               "csrc/downsample.cpp": eval_geo.build_downsample,
+               "csrc/mc.cpp": mesh_mod.build_mc}
     with ThreadPoolExecutor(len(sources)) as pool:
         build_s = dict(zip(sources, pool.map(timed, sources.values())))
     print("[build] " + ", ".join(f"{k} {v:.2f} s" for k, v in build_s.items())
@@ -1200,30 +1583,52 @@ def main() -> None:
     sdf = check_fused_sdf(dev, card)
     cost = check_cost_mapping(dev, card)
 
-    # 4, 5. Training at bench.py's shapes, then the feedback renders.
-    trainers, launches = run_training(dev, card)
-    outside = run_outside_family(dev, card, trainers["defaults"])
-    check_render_on_cpu(trainers["float32"])
-    near = check_near_surface(trainers["float32"])
-    for mode, err in near.items():
-        sdf[mode]["errs"]["near_surface"] = err
-    del trainers
-
-    # 6. The cascade and the scene runner; 7. fusion and evaluation on
-    # its outputs.
     with tempfile.TemporaryDirectory() as tmp:
+        # 4, 5. Training at bench.py's shapes, then the feedback renders.
+        trainers, launches = run_training(dev, card, tmp)
+        outside = run_outside_family(dev, card, trainers["defaults"])
+        check_render_on_cpu(trainers["float32"])
+        near = check_near_surface(trainers["float32"])
+        for mode, err in near.items():
+            sdf[mode]["errs"]["near_surface"] = err
+
+        # 8(a)-(c). Evaluation on the float32 trainer before it goes: the
+        # launch counts set to 0 here and read after (c).
+        fused_sdf.reset_launches()
+        cost_mapping.cost_mapping.launches = 0
+        trainer = trainers["float32"]
+        eval_round_trip(dev, card, trainer, tmp)
+        eval_render(dev, card, trainer)
+        mesh = eval_mesh(dev, card, trainer, tmp)
+        sdf["float32"]["errs"]["mesh_subgrid"] = mesh["subgrid_err"]
+        eval_field = _launch_counts()
+        print(f"[eval] launches on the trained field's evaluation path: "
+              f"{eval_field}", flush=True)
+        del trainers, trainer
+
+        # 6. The cascade and the scene runner; 7. fusion and evaluation on
+        # its outputs; 8(d), (e) on both.
         scene_launches, res, data_root = run_cascade(dev, card, tmp)
         fusion = run_fusion(dev, card, tmp, res, data_root)
+        fused_sdf.reset_launches()
+        cost_mapping.cost_mapping.launches = 0
+        eval_scene_views(dev, card, tmp, res)
+        eval_command_lines(dev, card, tmp)
+        eval_cli = _launch_counts()
+        print(f"[eval] launches on the scene and command-line evaluation "
+              f"path: {eval_cli}", flush=True)
         del res
 
-    # 8. Results. Launches are summed over the paths, each counted from 0.
+    # 9. Results. Launches are summed over the paths, each counted from 0.
     paths = [launches, outside, scene_launches["float32"],
              scene_launches["defaults"],
              {"fused_sdf": fusion["sdf_launches"],
-              "cost_mapping": fusion["cost_launches"]}]
+              "cost_mapping": fusion["cost_launches"]}, eval_field, eval_cli]
     sdf_launches = {m: sum(p["fused_sdf"][m] for p in paths)
                     for m in fused_sdf.MODES}
     cost_launches = sum(p["cost_mapping"] for p in paths)
+    grid_launches = sum(g["launches"] for k in ("high_res", "by_grid")
+                        for g in mesh[k]["stats"]["grids"])
     print(f"[kernels] launches on the paths driven: fused SDF {sdf_launches}, "
           f"cost_mapping {cost_launches}, geo_consistency "
           f"{fusion['launches']}", flush=True)
@@ -1241,7 +1646,9 @@ def main() -> None:
             "bound_by": "operations", "library_ms": None,
             "tflops": m["tflops"][KERNEL_SWEEP],
             f"ms_at_{KERNEL_RENDER}": m["kernel_ms"][KERNEL_RENDER],
-            f"bound_ms_at_{KERNEL_RENDER}": m["bound_ms"][KERNEL_RENDER]})
+            f"bound_ms_at_{KERNEL_RENDER}": m["bound_ms"][KERNEL_RENDER],
+            **({"mesh_grid_launches": grid_launches}
+               if mode == "float32" else {})})
     bf16 = cost["bfloat16"]
     kernels.append({
         "name": "cost_mapping", "route": "cuda",

@@ -16,6 +16,9 @@ weight / bias / running_mean / running_var; both directions are exact.
 `load_mvs_checkpoint` reads a converted checkpoint (tools/convert_ckpt.py
 writes one: `state.npz` of the pytree's leaves in JAX's flatten order).
 
+The JAX LPIPS weights ({"features": [[{"b", "w"}]], "lins": [{"w"}]},
+HWIO kernels) become `models.lpips.LPIPS` (OIHW) with `lpips_from_jax`.
+
 All functions take and give numpy arrays; none imports JAX.
 """
 
@@ -30,6 +33,7 @@ from torch import nn
 
 from s_volsdf_tpu_torch.models.density import LaplaceDensity
 from s_volsdf_tpu_torch.models.layers import Linear, WeightNormLinear
+from s_volsdf_tpu_torch.models.lpips import LPIPS
 from s_volsdf_tpu_torch.models.mvs.blocks import ConvBnReLU
 from s_volsdf_tpu_torch.models.mvs.casmvsnet import CasMVSNet
 from s_volsdf_tpu_torch.models.network import VolSDFParams
@@ -211,3 +215,18 @@ def load_mvs_checkpoint(net: CasMVSNet, path: str) -> CasMVSNet:
             container[key] = leaf
     _load_tree(net, tree)
     return net
+
+
+# --------------------------------------------------------------------------
+# LPIPS
+# --------------------------------------------------------------------------
+
+def lpips_from_jax(np_params: Dict, device=None) -> LPIPS:
+    """The JAX LPIPS tree (numpy) -> LPIPS: HWIO kernels to OIHW."""
+    convs = [c for block in np_params["features"] for c in block]
+    return LPIPS(
+        [nn.Parameter(_tensor(np.transpose(c["w"], (3, 2, 0, 1)), device))
+         for c in convs],
+        [nn.Parameter(_tensor(c["b"], device)) for c in convs],
+        [nn.Parameter(_tensor(lin["w"], device))
+         for lin in np_params["lins"]])

@@ -1,8 +1,11 @@
-"""DTU Chamfer evaluation of fused point clouds (counterpart of
-s_volsdf_tpu/cli/eval_dtu.py:13-64; point clouds only, `--mode pcd`).
+"""DTU Chamfer evaluation of fused point clouds or meshes (counterpart
+of s_volsdf_tpu/cli/eval_dtu.py:13-64).
 
     python -m s_volsdf_tpu_torch.cli.eval_dtu --datadir exps_mvs --scan 106 \
         --dataset_dir <official DTU dir with ObsMask/ and Points/stl/>
+
+`--mode mesh` reads <datadir>/mvsnet{scan:03d}_l3.ply as a triangle mesh
+and samples its surface first (`eval_geo.mesh_to_pcd`).
 """
 
 from __future__ import annotations
@@ -36,8 +39,8 @@ def main(argv: Optional[List[str]] = None) -> List[List[float]]:
                    default=0.2)
     p.add_argument("--patch_size", type=float, default=60.0,
                    help="bbox crop margin (official protocol)")
-    p.add_argument("--mode", default="pcd", choices=["pcd"],
-                   help="'mesh' needs engine/mesh.py, not ported yet")
+    p.add_argument("--mode", default="pcd", choices=["pcd", "mesh"],
+                   help="'mesh' samples a predicted mesh PLY first")
     p.add_argument("--visualize_threshold", type=float, default=10.0)
     p.add_argument("-ve", "--visualize_error", action="store_true",
                    help="write error-colored clouds to <datadir>/result")

@@ -82,6 +82,17 @@ class ModelConfig:
 
 
 @dataclass(unsafe_hash=True)
+class PlotConfig:
+    """Mesh export's grid (`grid_boundary`, `level`; engine/eval_nvs.py)
+    and the training plot's knobs, which the JAX package carries for
+    parity and does not read either (`plot_nimgs`, `resolution`)."""
+    plot_nimgs: int = 1
+    resolution: int = 100
+    grid_boundary: Tuple[float, float] = (-1.5, 1.5)
+    level: float = 0.0
+
+
+@dataclass(unsafe_hash=True)
 class LossConfig:
     eikonal_weight: float = 0.1
     rgb_weight: float = 1.0
@@ -95,13 +106,19 @@ class LossConfig:
 
 @dataclass(unsafe_hash=True)
 class TrainConfig:
+    expname: str = "ours"
     learning_rate: float = 5e-4
     num_pixels: int = 512
+    checkpoint_freq: int = 100     # epochs between epoch_<n> snapshots
+    plot_freq: int = 500
+    render_freq: int = 500         # epochs between plot renders; <= 0 off
+    split_n_pixels: int = 10000
     grad_clip: bool = True
     mvs_pack_dtype: str = "bfloat16"
     train_compute_dtype: str = "bfloat16"
     train_activation_dtype: str = "bfloat16"
     feedback_render_dtype: str = "float32"
+    ckpt_backend: str = "npz"      # "orbax" is refused (check_ported)
 
 
 @dataclass(unsafe_hash=True)
@@ -154,12 +171,14 @@ class Config:
     ablate: bool = False
     filter_only: bool = False
     num_worker: int = 4
+    is_continue: bool = False
     seed: int = 0
     mvs: MVSConfig = field(default_factory=MVSConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
+    plot: PlotConfig = field(default_factory=PlotConfig)
     filter: FilterConfig = field(default_factory=FilterConfig)
 
 
@@ -167,7 +186,10 @@ def dtu_config() -> Config:
     """Counterpart of `s_volsdf_tpu.config.dtu_config` (the DTU preset
     that `load_config("dtu")` returns)."""
     cfg = Config()
+    cfg.train.expname = "ours"
     cfg.train.num_pixels = 512
+    cfg.train.render_freq = 500
+    cfg.train.split_n_pixels = 500
     return cfg
 
 
@@ -333,14 +355,21 @@ def check_mvs_ported(mcfg: MVSConfig) -> MVSConfig:
 
 
 def check_ported(cfg: Config) -> Config:
-    """Validate the seven precision knobs (as s_volsdf_tpu/config.py:
-    416-427 does; ValueError) and raise NotImplementedError on what the
-    port does not implement: the BMVS background model and gate rescue."""
+    """Validate the seven precision knobs and the checkpoint backend (as
+    s_volsdf_tpu/config.py:416-429 does; ValueError) and raise
+    NotImplementedError on what the port does not implement: the BMVS
+    background model, gate rescue and the orbax checkpoint backend."""
     for section, name in PRECISION_KNOBS:
         value = getattr(getattr(cfg, section), name)
         _require(value in DTYPES,
                  f"{section}.{name}={value!r}: want one of {DTYPES}")
+    _require(cfg.train.ckpt_backend in ("npz", "orbax"),
+             f"train.ckpt_backend={cfg.train.ckpt_backend!r}")
     check_model_ported(cfg.model)
     if cfg.loss.gate_rescue:
         raise NotImplementedError("loss.gate_rescue is not ported")
+    if cfg.train.ckpt_backend == "orbax":
+        raise NotImplementedError("train.ckpt_backend='orbax' is not ported "
+                                  "(the card's machine has no orbax): use "
+                                  "'npz'")
     return cfg

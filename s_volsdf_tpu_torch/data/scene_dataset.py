@@ -1,6 +1,8 @@
-"""The scene that per-scene training reads, and the IDR-format loader
-(counterpart of s_volsdf_tpu/data/scene_dataset.py:32-183, without the
-NVS eval masks).
+"""The scene that per-scene training and the NVS evaluation read, and
+the IDR-format loader (counterpart of
+s_volsdf_tpu/data/scene_dataset.py:32-183). The BlendedMVS eval masks
+and nearest views are not ported (they come with the BMVS background
+model): such a scene has no masks, and `near_pose` raises for it.
 
 Host-side numpy: images and cameras are loaded once; the trainer moves
 the training views to the device.
@@ -15,17 +17,24 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from s_volsdf_tpu_torch.data.io import glob_imgs, read_png
-from s_volsdf_tpu_torch.data.splits import get_trains_ids
+from s_volsdf_tpu_torch.data.splits import get_eval_ids, get_trains_ids
 from s_volsdf_tpu_torch.data.synthetic import SyntheticScene
 from s_volsdf_tpu_torch.utils.cameras import load_K_Rt_from_P
-from s_volsdf_tpu_torch.utils.image import gaussian_blur, resize
+from s_volsdf_tpu_torch.utils.image import (gaussian_blur, resize,
+                                            resize_nearest)
+
+# DTU scans whose eval views have no foreground masks.
+_DTU_NO_MASK = (1, 4, 11, 13, 48)
 
 
 @dataclass
 class SceneData:
     """rgb layouts are (V, H*W, 3) rows, as in the JAX package. A scene
     loaded from disk names its dataset and scan; a synthetic one does
-    not, and then every view is a training view."""
+    not, and then every view is a training view and none an eval view.
+    masks (V, H*W, 3): 1 on the pixels the NVS metrics count (a DTU
+    eval view's foreground mask, ones elsewhere); None for a BlendedMVS
+    scene."""
     img_res: Tuple[int, int]
     intrinsics: np.ndarray      # (V, 4, 4)
     poses: np.ndarray           # (V, 4, 4) camera-to-world
@@ -36,12 +45,26 @@ class SceneData:
     scan_id: Optional[int] = None
     num_views: Optional[int] = None
     scale_mat: Optional[np.ndarray] = None
+    masks: Optional[np.ndarray] = None
 
     def trains_ids(self) -> List[int]:
         if self.data_dir is None:
             return list(range(self.rgb.shape[0]))
         return get_trains_ids(self.data_dir, f"scan{self.scan_id}",
                               self.num_views)
+
+    def eval_ids(self) -> List[int]:
+        if self.data_dir is None:
+            return []
+        return get_eval_ids(self.data_dir, self.scan_id)
+
+    def near_pose(self, idx: int) -> Optional[np.ndarray]:
+        """The nearest training view's pose, which the BMVS background
+        model reads; None for a DTU or synthetic scene."""
+        if self.data_dir == "BlendedMVS":
+            raise NotImplementedError("near_pose: the BlendedMVS background "
+                                      "model is not ported")
+        return None
 
 
 def scene_from_synthetic(scene: SyntheticScene) -> SceneData:
@@ -61,11 +84,26 @@ def _load_rgb(path: str) -> np.ndarray:
     return img
 
 
+def _dtu_mask(root: str, scan_id: int, i: int, img_res) -> Optional[np.ndarray]:
+    """The DTU eval mask of view i ((H*W, 3) of 0/1) from
+    <root>/scan{id}/mask/{i:03d}.png, else <root>/scan{id}/{i:03d}.png;
+    None when neither exists."""
+    path = os.path.join(root, f"scan{scan_id}", "mask", f"{i:03d}.png")
+    if not os.path.exists(path):
+        path = os.path.join(root, f"scan{scan_id}", f"{i:03d}.png")
+    if not os.path.exists(path):
+        return None
+    m = (_load_rgb(path)[..., :3] == 1).astype(np.float32)
+    m = resize_nearest(m, img_res)
+    return (m > 0.5).astype(np.float32).reshape(-1, 3)
+
+
 def load_scene(data_dir: str, img_res: Tuple[int, int], scan_id: int,
                num_views: int, data_dir_root: str) -> SceneData:
     """Load an IDR-format scene directory: every image, resized to
     img_res (cubic) if needed, its 31x31 sigma-90 blur (the annealed RGB
-    target), and the cameras decomposed from world_mat @ scale_mat."""
+    target), the cameras decomposed from world_mat @ scale_mat, and the
+    DTU eval views' foreground masks under <root>/<data_dir>/eval_mask."""
     H, W = img_res
     instance_dir = os.path.join(data_dir_root, data_dir, f"scan{scan_id}")
     image_dir = os.path.join(instance_dir, "image")
@@ -94,7 +132,9 @@ def load_scene(data_dir: str, img_res: Tuple[int, int], scan_id: int,
     if scan_id == 5 and data_dir == "BlendedMVS":
         scale_factor = 1.0      # scan5's scale_mat is wrong; use 1
 
-    intrinsics_all, poses, rgbs, smooths = [], [], [], []
+    mask_root = os.path.join(data_dir_root, data_dir, "eval_mask")
+    eval_ids = get_eval_ids(data_dir, scan_id)
+    intrinsics_all, poses, rgbs, smooths, masks = [], [], [], [], []
     for i, path in enumerate(image_paths):
         P = (world_mats[i] @ scale_mats[i])[:3, :4]
         intr, pose = load_K_Rt_from_P(P)
@@ -108,6 +148,12 @@ def load_scene(data_dir: str, img_res: Tuple[int, int], scan_id: int,
             img = resize(img, (H, W))
         rgbs.append(img.reshape(-1, 3))
         smooths.append(gaussian_blur(img, 31, 90).reshape(-1, 3))
+        if data_dir == "DTU":
+            mask = None
+            if i in eval_ids and scan_id not in _DTU_NO_MASK:
+                mask = _dtu_mask(mask_root, scan_id, i, img_res)
+            masks.append(np.ones((H * W, 3), np.float32) if mask is None
+                         else mask)
 
     return SceneData(
         img_res=img_res,
@@ -115,4 +161,5 @@ def load_scene(data_dir: str, img_res: Tuple[int, int], scan_id: int,
         poses=np.stack(poses).astype(np.float32),
         rgb=np.stack(rgbs), rgb_smooth=np.stack(smooths),
         scale_factor=scale_factor, data_dir=data_dir, scan_id=scan_id,
-        num_views=num_views, scale_mat=scale_mats[0])
+        num_views=num_views, scale_mat=scale_mats[0],
+        masks=np.stack(masks) if masks else None)

@@ -11,9 +11,10 @@ downsampler (`csrc/downsample.cpp`, sequential by nature).
     both without distances of 20 mm or more, overall = (acc + comp) / 2,
   * BMVS: both clouds divided by the scan's `relative_scale`.
 
-Evaluating a mesh (`mode="mesh"`, `mesh_to_pcd`) and generating the BMVS
-GT cloud (`save_bmvs_gt`) sample surfaces with engine/mesh.py, which is
-not ported yet: they raise NotImplementedError.
+A mesh (`mode="mesh"`) is sampled into a cloud first (`mesh_to_pcd`:
+its vertices and area-weighted surface samples, engine/mesh.py).
+Generating the BMVS GT cloud (`save_bmvs_gt`) comes with the BMVS port
+and raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import logging
 import os
+import re
 import threading
 from typing import Dict, Optional, Tuple
 
@@ -28,13 +30,12 @@ import numpy as np
 from scipy.spatial import cKDTree
 
 from s_volsdf_tpu_torch.data.io import load_ply, save_ply
+from s_volsdf_tpu_torch.engine.mesh import sample_surface, triangle_areas
 from s_volsdf_tpu_torch.ops.build import CSRC_DIR, GXX_FLAGS, build_library, gxx
 
 logger = logging.getLogger("s_volsdf_tpu_torch")
 
 DOWNSAMPLE_SOURCE = os.path.join(CSRC_DIR, "downsample.cpp")
-_MESH_TODO = ("needs engine/mesh.py (surface sampling), which the port "
-              "does not have yet")
 
 # eval_bmvs.py:115
 BMVS_RELATIVE_SCALE = {
@@ -217,8 +218,42 @@ def write_error_clouds(detail: Dict, d2s_path: str, s2d_path: str,
 
 def mesh_to_pcd(ply_path: str, target_density: float = 0.2,
                 max_points: int = 10_000_000) -> np.ndarray:
-    """Sample a predicted mesh into a point cloud: not ported yet."""
-    raise NotImplementedError(f"mesh_to_pcd {_MESH_TODO}")
+    """A predicted mesh as a point cloud for the Chamfer evaluation: its
+    vertices, then area / target_density^2 surface samples (at most
+    max_points; `sample_surface`'s default_rng(0) stream)."""
+    verts, faces = _load_mesh(ply_path)
+    if faces is None or faces.shape[0] == 0:
+        return verts
+    area = triangle_areas(verts, faces).sum()
+    n = int(min(max_points, max(area / (target_density ** 2), 1)))
+    pts = sample_surface(verts, faces, n)
+    return np.concatenate([verts, pts.astype(np.float32)], axis=0)
+
+
+def _load_mesh(ply_path: str) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """(verts (N, 3) float32, faces (M, 3) int32 or None) of a binary
+    little-endian PLY as `save_ply` writes it."""
+    with open(ply_path, "rb") as f:
+        header = b""
+        while not header.endswith(b"end_header\n"):
+            line = f.readline()
+            if not line:
+                raise ValueError(f"{ply_path}: no end_header")
+            header += line
+        n_verts = int(re.search(rb"element vertex (\d+)", header).group(1))
+        m_face = re.search(rb"element face (\d+)", header)
+        vdt = [("x", "<f4"), ("y", "<f4"), ("z", "<f4")]
+        if b"uchar red" in header:
+            vdt += [("r", "u1"), ("g", "u1"), ("b", "u1")]
+        rec = np.fromfile(f, dtype=np.dtype(vdt), count=n_verts)
+        verts = np.stack([rec["x"], rec["y"], rec["z"]], -1)
+        faces = None
+        if m_face:
+            frec = np.fromfile(f, dtype=np.dtype(
+                [("n", "u1"), ("a", "<i4"), ("b", "<i4"), ("c", "<i4")]),
+                count=int(m_face.group(1)))
+            faces = np.stack([frec["a"], frec["b"], frec["c"]], -1)
+    return verts.astype(np.float32), faces
 
 
 def eval_dtu_scan(pred_ply: str, scan: int, dataset_dir: str,
@@ -229,11 +264,15 @@ def eval_dtu_scan(pred_ply: str, scan: int, dataset_dir: str,
     """The official DTU protocol for one scan. dataset_dir holds
     ObsMask/ObsMask{scan}_10.mat, ObsMask/Plane{scan}.mat and
     Points/stl/stl{scan:03}_total.ply. visualize_error writes
-    vis_{scan:03}_{d2s,s2d}.ply error clouds into vis_dir. Only
-    mode="pcd" is ported."""
-    if mode != "pcd":
-        raise NotImplementedError(f"eval_dtu_scan mode={mode!r} {_MESH_TODO}")
-    data_pcd, _ = load_ply(pred_ply)
+    vis_{scan:03}_{d2s,s2d}.ply error clouds into vis_dir. mode "mesh"
+    samples the predicted mesh first (`mesh_to_pcd`)."""
+    if mode == "mesh":
+        data_pcd = mesh_to_pcd(pred_ply)
+    elif mode == "pcd":
+        data_pcd, _ = load_ply(pred_ply)
+    else:
+        raise ValueError(f"eval_dtu_scan: mode={mode!r}, want 'pcd' or "
+                         f"'mesh'")
     stl, _ = load_ply(os.path.join(dataset_dir, "Points", "stl",
                                    f"stl{scan:03d}_total.ply"))
     obsmask = os.path.join(dataset_dir, "ObsMask", f"ObsMask{scan}_10.mat")
@@ -258,8 +297,9 @@ def save_bmvs_gt(scan: int, dataset_dir: str, data_dir_root: str,
                  crop_min_z: Optional[float] = None,
                  rng: Optional[np.random.Generator] = None) -> str:
     """Generate the BMVS GT cloud from its textured meshes: not ported
-    yet."""
-    raise NotImplementedError(f"save_bmvs_gt {_MESH_TODO}")
+    yet (it comes with BlendedMVS, which reads OBJ meshes)."""
+    raise NotImplementedError("save_bmvs_gt is not ported yet (it comes "
+                              "with the BlendedMVS port)")
 
 
 def eval_bmvs_scan(pred_ply: str, scan: int, data_dir_root: str,

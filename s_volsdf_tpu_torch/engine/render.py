@@ -1,12 +1,20 @@
-"""Chunked depth render, the cascade-feedback path (counterpart of
-s_volsdf_tpu/engine/render.py:66-139).
+"""Chunked full-image renders (counterpart of
+s_volsdf_tpu/engine/render.py:52-209): the depth-only render of the
+cascade feedback (`render_depth`) and the eval render with rgb, depth,
+normal and acc (`render_image`).
 
-Every SDF evaluation here — the sampler's sweeps and the final one over
-the chosen samples — goes through `models.network.sampler_sdf_fn`: the
-CUDA kernel `ops.fused_sdf.fused_sdf_values` on a CUDA device, in the
-mode the model config's precision names, for a config in the kernel's
-family; the plain MLP otherwise. The render's float32 arithmetic runs
-in full float32 on the card (`utils.device.full_float32`).
+The sampler's sweeps go through `models.network.sampler_sdf_fn`, made
+once per image (one weight pack): the CUDA kernel
+`ops.fused_sdf.fused_sdf_values` on a CUDA device, in the mode the model
+config's precision names, for a config in the kernel's family; the
+plain MLP otherwise. `render_depth` takes its final SDF over the chosen
+samples through the same function; `render_image` takes it from the
+plain MLP with its spatial gradient (`render_rays(training=False)`),
+since the normals need that gradient and the radiance MLP the
+features, and frees that graph with each chunk. The renders' float32
+arithmetic runs in full float32 on the card
+(`utils.device.full_float32`). The JAX package's `mesh=` sharding of the
+rays has no counterpart: the port renders on one card.
 """
 
 from __future__ import annotations
@@ -18,7 +26,8 @@ import torch
 
 from s_volsdf_tpu_torch.config import ModelConfig, check_model_ported
 from s_volsdf_tpu_torch.models.density import get_beta, laplace_density
-from s_volsdf_tpu_torch.models.network import (VolSDFParams, sampler_sdf_fn,
+from s_volsdf_tpu_torch.models.network import (VolSDFParams, render_rays,
+                                               sampler_sdf_fn,
                                                volume_rendering)
 from s_volsdf_tpu_torch.models.sampler import error_bound_sample
 from s_volsdf_tpu_torch.utils.cameras import (depth_scale_factor,
@@ -88,3 +97,44 @@ def render_depth(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
     depth = torch.cat(depth)[:n].reshape(H, W).cpu().numpy()
     acc = torch.cat(acc)[:n].reshape(H, W).cpu().numpy()
     return {"depth": depth, "acc": acc}
+
+
+def render_image(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
+                 img_res: Tuple[int, int], *, chunk: int = 16384,
+                 fast: int = -1, gen: Optional[torch.Generator] = None,
+                 device=None) -> Dict[str, np.ndarray]:
+    """Full-image render in chunks of `chunk` rays (the last one
+    ragged; rays are independent, so the chunk does not change the
+    values). pose/intrinsics: (4, 4) numpy. Returns host maps rgb
+    (H, W, 3), depth (H, W), normal (H, W, 3) and acc (H, W); the pixel
+    grid is x = column, y = row."""
+    check_model_ported(cfg)
+    device = torch.device(device) if device is not None \
+        else next(params.parameters()).device
+    gen = gen if gen is not None \
+        else torch.Generator(device=device).manual_seed(0)
+    H, W = img_res
+    ys, xs = np.mgrid[0:H, 0:W]
+    uv = torch.as_tensor(
+        np.stack([xs, ys], axis=-1).reshape(-1, 2).astype(np.float32),
+        device=device)
+    pose_b = torch.as_tensor(np.asarray(pose, np.float32), device=device)[None]
+    intr_b = torch.as_tensor(np.asarray(intrinsics, np.float32),
+                             device=device)[None]
+    bounding = 0.0 if cfg.white_bkgd else cfg.scene_bounding_sphere
+    sdf_fn = sampler_sdf_fn(params, cfg, bounding)   # route, pack: per image
+    keys = ("rgb_values", "depth_values", "normal_map", "acc")
+    outs = {k: [] for k in keys}
+    with torch.no_grad(), full_float32():
+        for i in range(0, uv.shape[0], chunk):
+            o = render_rays(params, cfg, uv[i:i + chunk][None], pose_b,
+                            intr_b, gen, training=False, fast=fast,
+                            sdf_fn=sdf_fn)
+            for k in keys:
+                outs[k].append(getattr(o, k).detach())
+            del o
+    cat = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
+    return {"rgb": cat["rgb_values"].reshape(H, W, 3),
+            "depth": cat["depth_values"].reshape(H, W),
+            "normal": cat["normal_map"].reshape(H, W, 3),
+            "acc": cat["acc"].reshape(H, W)}

@@ -15,8 +15,9 @@ save_scene_depth, per scene:
 
 pcd_filter then fuses each scene's depth maps into its point cloud
 (engine/fusion.py). Serial over reference views and scenes on one
-device. Not ported yet: the trainer's checkpoints, UCSNet and
-TransMVSNet.
+device. The trainer writes its run directory and checkpoints under
+{exps_root}/{exps_folder} and, with is_continue, resumes from the
+newest. Not ported yet: UCSNet and TransMVSNet.
 """
 
 from __future__ import annotations
@@ -130,7 +131,8 @@ def setup_scene(cfg: Config, scene_name: str, *, exps_root: str = ".",
         data_dir_root=cfg.data_dir_root, x2_mvsres=cfg.mvs.x2_mvsres)
     scene = load_scene(cfg.dataset.data_dir, tuple(cfg.dataset.img_res),
                        int(scene_name[4:]), cfg.num_view, cfg.data_dir_root)
-    trainer = VolTrainer(cfg, scene, device=device)
+    trainer = VolTrainer(cfg, scene, scene_name, device=device,
+                         exps_root=exps_root, is_continue=cfg.is_continue)
     if trainer.trains_i != trains_i:
         raise ValueError(f"training views {trainer.trains_i} != {trains_i}")
     samples = [dataset[i] for i in range(len(dataset))]

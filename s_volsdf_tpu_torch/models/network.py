@@ -229,11 +229,13 @@ def sampler_sdf_fn(params: VolSDFParams, cfg: ModelConfig,
 
 def render_rays(params: VolSDFParams, cfg: ModelConfig, uv, pose, intrinsics,
                 gen: Optional[torch.Generator], *, training: bool, fast: int,
-                jitter=None) -> RenderOutput:
+                jitter=None, sdf_fn=None) -> RenderOutput:
     """VolSDF forward for uv (B, N, 2), pose/intrinsics (B, 4, 4); rays
     are flattened to R = B*N. fast: sampler iterations, -1 for
     cfg.sampler.max_total_iters. jitter: the sampler feed plus "eik_pts"
-    (R, 3) U[0,1) for the uniform eikonal points."""
+    (R, 3) U[0,1) for the uniform eikonal points. sdf_fn: the sampler's
+    sweep (`sampler_sdf_fn` of these parameters, made once for many
+    calls, as a render does); made here when None."""
     check_model_ported(cfg)
     bounding_sphere = 0.0 if cfg.white_bkgd else cfg.scene_bounding_sphere
     ray_dirs, cam_loc = get_camera_params(uv, pose, intrinsics)
@@ -250,7 +252,7 @@ def render_rays(params: VolSDFParams, cfg: ModelConfig, uv, pose, intrinsics,
     with torch.no_grad():
         s_out = error_bound_sample(
             gen, cfg.sampler, ray_dirs, cam_loc,
-            sampler_sdf_fn(params, cfg, bounding_sphere), beta0,
+            sdf_fn or sampler_sdf_fn(params, cfg, bounding_sphere), beta0,
             n_iters=n_iters, training=training,
             scene_bounding_sphere=cfg.scene_bounding_sphere, jitter=jitter)
     z_vals = s_out.z_vals

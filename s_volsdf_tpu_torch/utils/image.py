@@ -41,6 +41,16 @@ def resize(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
     return _from_nchw(out, img.ndim)
 
 
+def resize_nearest(img: np.ndarray, size_hw: Tuple[int, int]) -> np.ndarray:
+    """cv2.resize(img, (W, H), interpolation=INTER_NEAREST): the source
+    pixel floor(i * in / out) on each axis. A resize to the same size
+    returns a copy."""
+    if tuple(img.shape[:2]) == tuple(size_hw):
+        return np.array(img, np.float32)
+    out = F.interpolate(_to_nchw(img), size=tuple(size_hw), mode="nearest")
+    return _from_nchw(out, img.ndim)
+
+
 def gaussian_kernel(ksize: int, sigma: float) -> np.ndarray:
     """cv2.getGaussianKernel(ksize, sigma), in float64."""
     x = np.arange(ksize, dtype=np.float64) - (ksize - 1) / 2.0

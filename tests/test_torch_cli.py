@@ -16,6 +16,7 @@ package's, and the whole entry point on the CPU.
   (chip_smoke.sphere_depth, which the smoke run scores the same way).
 """
 
+import json
 import os
 import shutil
 import sys
@@ -79,8 +80,10 @@ def test_bmvs_preset_refused_when_run():
         tconfig.check_ported(cfg)
 
 
-@pytest.mark.parametrize("key", ["plot.plot_nimgs=2", "parallel.shard_rays=false",
-                                 "is_continue=true", "train.expname=x",
+@pytest.mark.parametrize("key", ["model.bg.feature_vector_size=8",
+                                 "parallel.shard_rays=false",
+                                 "loss.gate_rescue_weight=0.2",
+                                 "parallel.shard_eval=false",
                                  "model.sampler.N_samples_inverse_sphere=4"])
 def test_unknown_override_raises(key):
     """A key or section the port lacks raises, naming it; it is never
@@ -144,18 +147,30 @@ def test_conflicting_preset_exits():
 def test_cli_end_to_end_cpu(tmp_path):
     """The port's entry point from the cascade to the fused PLY on a
     64x96 fixture: opt_stepNs (1, 0, 0) hands stage 0's volumes to the
-    trainer, renders the feedback depth without a step, then fuses."""
+    trainer, renders the feedback depth without a step, then fuses. The
+    trainer's run directory, <exps_folder>/ours_106/<timestamp>, holds
+    the run's config as run.yaml (JSON), plots/ and checkpoints/, which
+    stays empty: no step, no checkpoint (as in the JAX package)."""
     data = str(tmp_path / "data")
     make_dtu_fixture(data, scan_id=106, img_res=(64, 96))
     out = str(tmp_path / "exps")
+    vsdf = str(tmp_path / "vsdf")
     launches = fused_sdf.fused_sdf_values.launches
     plys = trun.main(["testlist=scan106", f"outdir={out}",
+                      f"exps_folder={vsdf}",
                       f"data_dir_root={data}", f"dataset.data_dir_root={data}",
                       "max_h=64", "max_w=96", "dataset.img_res=[64,96]",
                       "mvs.ndepths=[16,8,8]", "mvs.numdepth=16",
                       "mvs.x2_mvsres=false", "opt_stepNs=[1,0,0]"] + SMALL,
                      device="cpu")
     assert fused_sdf.fused_sdf_values.launches == launches
+    (stamp,) = os.listdir(os.path.join(vsdf, "ours_106"))
+    run = os.path.join(vsdf, "ours_106", stamp)
+    assert sorted(os.listdir(run)) == ["checkpoints", "plots", "run.yaml"]
+    assert os.listdir(os.path.join(run, "checkpoints")) == []
+    with open(os.path.join(run, "run.yaml")) as f:
+        snap = json.load(f)
+    assert snap["exps_folder"] == vsdf and snap["opt_stepNs"] == [1, 0, 0]
     scan_dir = os.path.join(out, "scan106")
     for v in VIEWS:
         for name in (f"depth_est/{v:08d}.pfm", f"confidence/{v:08d}.pfm",

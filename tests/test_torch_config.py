@@ -168,10 +168,11 @@ def test_precision_knobs_validated(section, name):
         tconfig.check_ported(cfg)
 
 
-@pytest.mark.parametrize("section", ["mvs", "dataset", "filter"])
+@pytest.mark.parametrize("section", ["mvs", "dataset", "filter", "plot"])
 def test_new_sections_match_jax(section):
-    """The cascade's, the dataset's and fusion's dataclasses carry every
-    field of their JAX counterparts, with the same defaults."""
+    """The cascade's, the dataset's, fusion's and mesh export's
+    dataclasses carry every field of their JAX counterparts, with the
+    same defaults."""
     t = getattr(tconfig.Config(), section)
     j = getattr(jconfig.Config(), section)
     assert dataclasses.asdict(t) == dataclasses.asdict(j)

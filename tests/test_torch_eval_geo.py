@@ -142,15 +142,42 @@ def test_eval_bmvs_scan_matches_jax(tmp_path):
         assert got[k] == pytest.approx(want[k], rel=REL), k
 
 
+def _sphere_mesh_ply(path, radius=16.0):
+    """A marching-tetrahedra sphere of `radius` as a PLY with faces."""
+    from s_volsdf_tpu_torch.engine.mesh import marching_cubes
+    xs = np.linspace(-20.0, 20.0, 48)
+    gx, gy, gz = np.meshgrid(xs, xs, xs, indexing="ij")
+    vol = (np.sqrt(gx ** 2 + gy ** 2 + gz ** 2) - radius).astype(np.float32)
+    verts, faces = marching_cubes(vol, 0.0, (xs[1] - xs[0],) * 3)
+    tio.save_ply(path, verts + np.float32(xs[0]), faces=faces)
+
+
 @pytest.mark.parametrize("call", ["mesh_mode", "mesh_to_pcd", "save_bmvs_gt"])
 def test_mesh_paths_name_their_module(call, tmp_path):
-    with pytest.raises(NotImplementedError, match="engine/mesh.py"):
-        if call == "mesh_mode":
-            teval.eval_dtu_scan("x.ply", 106, str(tmp_path), mode="mesh")
-        elif call == "mesh_to_pcd":
-            teval.mesh_to_pcd("x.ply")
-        else:
+    """The mesh paths run through engine/mesh.py now: a mesh PLY's
+    cloud and its DTU Chamfer (function and command line) equal the JAX
+    package's; the BMVS GT generator still raises, naming BlendedMVS."""
+    out = str(tmp_path / "pred")
+    ply = os.path.join(out, "mvsnet106_l3.ply")
+    if call == "save_bmvs_gt":
+        with pytest.raises(NotImplementedError, match="BlendedMVS"):
             teval.save_bmvs_gt(1, str(tmp_path), str(tmp_path))
+        return
+    _sphere_mesh_ply(ply)
+    if call == "mesh_to_pcd":
+        got = teval.mesh_to_pcd(ply)
+        assert got.shape[0] > 10000
+        np.testing.assert_array_equal(got, jeval.mesh_to_pcd(ply))
+        return
+    gt_dir = str(tmp_path / "dtu")
+    _write_dtu_gt(gt_dir, 106, _cloud(10000, 3, radius=16.0, noise=0.0))
+    got = teval.eval_dtu_scan(ply, 106, gt_dir, mode="mesh")
+    want = jeval.eval_dtu_scan(ply, 106, gt_dir, mode="mesh")
+    for k in ("acc", "comp", "overall"):
+        assert got[k] == pytest.approx(want[k], rel=REL), k
+    rows = tcli_eval.main(["--datadir", out, "--dataset_dir", gt_dir,
+                           "--scan", "106", "--mode", "mesh"])
+    assert rows == [[got["acc"], got["comp"], got["overall"]]]
 
 
 def test_write_error_clouds_byte_equal(tmp_path):

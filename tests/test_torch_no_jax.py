@@ -1,7 +1,7 @@
 """The port and chip_smoke.py run without JAX and without an image
 library: an AST scan finds no import of jax, optax or flax, nor of the
-JAX package, nor of cv2, imageio, PIL or yaml (the card's machine has
-none of them), in any of their files (the port's config, synthetic-scene and
+JAX package, nor of cv2, imageio, PIL, yaml, trimesh, skimage or
+tensorboardX (the card's machine has none of them), in any of their files (the port's config, synthetic-scene and
 split modules included, its own copies of the JAX package's), and they
 import in a process where those imports fail."""
 
@@ -15,7 +15,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "optax", "flax", "s_volsdf_tpu", "cv2",
-             "imageio", "PIL", "yaml"}
+             "imageio", "PIL", "yaml", "trimesh", "skimage", "tensorboardX"}
 
 
 def _imported_roots(path):
@@ -50,10 +50,13 @@ def test_scan_sees_imports(tmp_path):
                      "from s_volsdf_tpu.config import Config\n"
                      "def f():\n    import cv2\n"
                      "    import imageio.v2 as imageio\n"
-                     "    from PIL import Image\n    import yaml\n")
+                     "    from PIL import Image\n    import yaml\n"
+                     "    import trimesh\n    from skimage import measure\n"
+                     "    from tensorboardX import SummaryWriter\n")
     mods = {m for _, m in _imported_roots(probe)}
     assert mods == {"jax", "optax", "flax", "s_volsdf_tpu", "cv2",
-                    "imageio", "PIL", "yaml"}
+                    "imageio", "PIL", "yaml", "trimesh", "skimage",
+                    "tensorboardX"}
 
 
 def test_imports_with_jax_blocked():

@@ -218,13 +218,22 @@ def test_output_pngs(both_runs, view):
 
 def test_port_trains_and_feeds_back(data_root, tmp_path):
     """The port alone, three steps at stage 0: finite losses; depths in
-    the DTU-scaled metric range of the fixture (world_scale 200)."""
+    the DTU-scaled metric range of the fixture (world_scale 200); the
+    trainer's run directory under exps_root with the checkpoints
+    "latest" and "epoch_1" at iter_step 3."""
     cfg = _configure(tconfig.dtu_config(), data_root, (3, 0, 0))
     launches = fused_sdf.fused_sdf_values.launches
     res = trunner.save_scene_depth(cfg, "scan106", exps_root=str(tmp_path),
                                    device="cpu")
     losses = [lo.loss for lo in res["trainer"].losses]
     assert len(losses) == 3 and np.all(np.isfinite(losses))
+    ckpts = res["trainer"].checkpoints_path
+    assert os.path.dirname(os.path.dirname(ckpts)) == os.path.join(
+        str(tmp_path), cfg.exps_folder, "ours_106")
+    assert sorted(os.listdir(ckpts)) == ["epoch_1", "latest"]
+    with np.load(os.path.join(ckpts, "latest", "state.npz")) as st:
+        n = sum(k.startswith("leaf_") for k in st.files)
+        assert int(st[f"leaf_{n - 1}"]) == 3        # iter_step
     for view in VIEWS:
         depth, _ = read_pfm(os.path.join(
             str(tmp_path), "exps_mvs", "scan106", f"depth_est/{view:08d}.pfm"))
