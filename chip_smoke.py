@@ -6,9 +6,10 @@ Drives the port's main path once at the dtu model's full width and
 checks it, in phases that print in order:
 
   1. environment: torch and CUDA versions, the card, its power limit;
-  2. build: compiles csrc/fused_sdf.cu, csrc/cost_mapping.cu and
-     csrc/fusion.cu with nvcc and csrc/downsample.cpp and csrc/mc.cpp
-     with g++, all at once (seconds printed);
+  2. build: compiles csrc/fused_sdf.cu, csrc/cost_mapping.cu,
+     csrc/fusion.cu and csrc/deform_conv.cu with nvcc and
+     csrc/downsample.cpp and csrc/mc.cpp with g++, all at once (seconds
+     printed);
   3. kernels: the fused SDF kernel against its plain PyTorch version on
      65,536, 700 and 2,097,152 points (one training sweep, a ragged
      tail, one render launch) in both modes: float32 (bf16 x 3 split,
@@ -29,7 +30,8 @@ checks it, in phases that print in order:
      read in the corner-block layout it reads, with the unpacked
      volumes' beside it) and the plain version; after phase 5, the
      fused kernel again on 65,536 points of the trained field's own
-     rays nearest its surface, in both modes;
+     rays nearest its surface, in both modes; the deformable-conv
+     kernel (9(a));
   4. training: 20 steps of VolTrainer at bench.py's shapes (576x768
      scene, 512 rays/step, three 192x288x384 MVS volumes) at the JAX
      defaults (bf16 products and activations in the training render,
@@ -98,7 +100,24 @@ checks it, in phases that print in order:
      (--eval_rendering --eval_mesh --resolution 64: 28 views and a mesh;
      then --result_from default), and cli.eval_dtu --mode mesh of that
      mesh against 7(c)'s sphere points in an official-DTU layout;
-  9. a JSON line with the kernels' numbers, the card's name and power
+  9. the other cascades: (a) (printed with phase 3) the deformable-conv
+     kernel against its plain version at TransMVSNet's nine head shapes
+     of x2 DTU (Cin 32: 32/32/32 at 288x384, 32/32/16 at 576x768,
+     32/32/8 at 1152x1536; random offsets with a 2-pixel spread, masks
+     in (0, 1); within 1e-5 (1 + |plain|)), the 1152x1536 32->32 launch
+     timed against the plain version and its FP32-operations bound at
+     the SM clock's maximum; (b) `save_scene_depth` with
+     mvs.model_name=ucsnet and transmvsnet on phase 6's fixture at x2
+     (1152x1536, D 192/32/8, 20 steps, three feedback renders) at the
+     JAX defaults, He-gain convs and random DCN offset convs: stage
+     seconds and peak memory, 27 deformable-conv launches on the
+     TransMVSNet scene, 20 bf16 fused-SDF launches on each; (c) each
+     model's three stages at 64x96 on the card against the CPU in
+     float32 (prob, regressed depth; TransMVSNet's winner-take-all
+     hypothesis where the top two probabilities are more than PROB_TOL
+     apart, and its confidence); (d) `cli.run.main` at 64x96 with each
+     model;
+ 10. a JSON line with the kernels' numbers, the card's name and power
      limit, and the last line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -109,7 +128,8 @@ driven and read just after.
 The helpers `float32_dtu_config`, `make_volumes` and `make_trainer` are
 shared with the CPU tests of the same loop (tests/test_torch_trainer.py,
 tests/test_torch_precision.py), `cascade_config` and
-`cascade_card_vs_cpu` with tests/test_torch_cuda.py.
+`cascade_card_vs_cpu`, `dcn_inputs` and `DCN_HEADS` with
+tests/test_torch_cuda.py.
 """
 
 from __future__ import annotations
@@ -152,7 +172,10 @@ from s_volsdf_tpu_torch.engine.train_step import training_model_config
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer
 from s_volsdf_tpu_torch.models.lpips import init_lpips_params, lpips_leaves
 from s_volsdf_tpu_torch.models.network import init_volsdf_params, render_rays
-from s_volsdf_tpu_torch.ops import cost_mapping, fused_sdf, geo_consistency
+from s_volsdf_tpu_torch.models.mvs import blocks as B
+from s_volsdf_tpu_torch.models.mvs.transmvsnet import DCN
+from s_volsdf_tpu_torch.ops import (cost_mapping, deform_conv, fused_sdf,
+                                    geo_consistency)
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
 from s_volsdf_tpu_torch.tools.fp64_count import fp64_instructions
 from s_volsdf_tpu_torch.tools.time_cost_mapping import (cold_ms, sample_sets,
@@ -188,6 +211,25 @@ PROB_SUM_TOL = 1e-4   # every prob_volume sums to 1 along depth
 PROB_TOL = 1e-4
 DEPTH_RTOL = 1e-5
 SCAN = "scan106"
+# TransMVSNet's winner-take-all depth is compared where the top two
+# probabilities differ by more than PROB_TOL: elsewhere argmax may pick
+# either hypothesis on either side.
+OTHER_MODELS = ("ucsnet", "transmvsnet")
+# The deformable-conv kernel against its plain version: float32 sums of
+# 9 x 32 products (and each sample's four corners) in another order, on
+# unit-scale inputs.
+DCN_TOL = 1e-5
+DCN_CIN = 32
+# TransMVSNet's nine deformable convs a view at x2 DTU shapes: each
+# head's scale and its three DCNs' Cout.
+DCN_HEADS = ((4, (32, 32, 32)), (2, (32, 32, 16)), (1, (32, 32, 8)))
+DCN_PER_VIEW = sum(len(c) for _, c in DCN_HEADS)
+# The DCNs' offset convs are zero at init (a DCN starts as a plain conv):
+# the smoke run puts random ones in place, this many times the uniform
+# +-sqrt(1/fan_in) init, so that offsets of a few pixels (some past the
+# edges) and masks away from 0.5 occur.
+OFFSET_GAIN = 4.0
+FP32_LANES_PER_SM = 128   # the H100's FP32 pipe: 128 FMAs a clock per SM
 # Fusion: the kernel repeats the host C++'s float64 arithmetic
 # (--fmad=false), so it is held to its plain version at these bars.
 FUSION_DEPTH_TOL, FUSION_XY_TOL = 1e-12, 1e-9
@@ -288,51 +330,85 @@ def cascade_config(data_root: str, img_res, ndepths, x2_mvsres: bool,
     return cfg
 
 
-def stages_against_cpu(card: MVSEngine, sample, card_outs) -> Dict[str, float]:
+def stages_against_cpu(card: MVSEngine, sample, card_outs,
+                       card_extras=None) -> Dict[str, float]:
     """Recompute the three cascade stages of one MVS sample on the CPU,
     with the card engine's weights (through the bridge), from the inputs
     the card's stages had: the sample's images, and for stages 1 and 2
     the depth the card's previous stage handed on (`card_outs[k - 1]
     ["depth"]`, on the host; after a stage with an optimisation budget,
-    the VolSDF feedback render). The CPU computes its own features.
-    Returns the largest |prob_volume| difference and the largest relative
-    difference of the regressed depth sum(prob * hypotheses) over the
-    stages, and the CPU's seconds."""
+    the VolSDF feedback render) and its `extra` (`card_extras[k - 1]`:
+    UCSNet's variance, TransMVSNet's view weights). The CPU computes its
+    own features. Returns the largest |prob_volume| difference, the
+    largest relative difference of the regressed depth sum(prob *
+    hypotheses) over the stages, for TransMVSNet also the pixels whose
+    winner-take-all hypothesis differs where the CPU's top two
+    probabilities are more than PROB_TOL apart ("wta") and the largest
+    confidence difference, and the CPU's seconds."""
     cfg = card.cfg
     cpu = MVSEngine(cfg, device="cpu")
     cpu.net = from_jax_mvs_params(to_jax_mvs_params(card.net),
                                   cfg.mvs.ndepths, cfg.mvs.cr_base_chs,
-                                  device="cpu")
+                                  device="cpu", model=cfg.mvs.model_name)
+    card_extras = card_extras or [None] * len(card_outs)
     t0 = time.perf_counter()
-    feats = cpu.scene_feature_cache(sample.imgs)["feats"]
+    feats = cpu.sample_features(cpu.scene_feature_cache(sample.imgs),
+                                list(range(len(sample.view_ids))))
     hw = sample.imgs.shape[1:3]
-    prob_err = depth_err = 0.0
+    errs = {"prob": 0.0, "depth_rel": 0.0}
     for stage, got in enumerate(card_outs):
-        want = cpu.stage(stage, feats,
-                         sample.proj_matrices[f"stage{stage + 1}"],
-                         sample.depth_values,
-                         None if stage == 0 else card_outs[stage - 1]["depth"],
-                         hw, inverse_depth=cfg.inverse_depth and stage == 0)
+        extra = card_extras[stage - 1] if stage else None
+        want, _ = cpu.stage(
+            stage, feats, sample.proj_matrices[f"stage{stage + 1}"],
+            sample.depth_values,
+            None if stage == 0 else card_outs[stage - 1]["depth"],
+            None if extra is None else extra.cpu(), hw,
+            inverse_depth=cfg.inverse_depth and stage == 0)
         pv, dv = got["prob_volume"].cpu(), got["depth_values"].cpu()
-        prob_err = max(prob_err,
-                       (pv - want["prob_volume"]).abs().max().item())
+        errs["prob"] = max(errs["prob"],
+                           (pv - want["prob_volume"]).abs().max().item())
         want_depth = (want["prob_volume"] * want["depth_values"]).sum(0)
-        depth_err = max(depth_err, ((pv * dv).sum(0) - want_depth).abs()
-                        .div(want_depth.abs()).max().item())
+        errs["depth_rel"] = max(errs["depth_rel"], ((pv * dv).sum(0)
+                                - want_depth).abs().div(
+                                    want_depth.abs()).max().item())
+        if cfg.mvs.model_name == "transmvsnet":
+            top2 = want["prob_volume"].topk(2, dim=0).values
+            sure = (top2[0] - top2[1]) > PROB_TOL
+            wta = pv.argmax(0) != want["prob_volume"].argmax(0)
+            errs["wta"] = errs.get("wta", 0) + int((wta & sure).sum())
+            errs["conf"] = max(errs.get("conf", 0.0), (torch.as_tensor(
+                got["photometric_confidence"]).cpu()
+                - want["photometric_confidence"]).abs().max().item())
         del want, pv, dv
-    return {"prob": prob_err, "depth_rel": depth_err,
-            "cpu_s": time.perf_counter() - t0}
+    errs["cpu_s"] = time.perf_counter() - t0
+    return errs
 
 
-def cascade_card_vs_cpu(device, data_root: str) -> Dict[str, float]:
-    """The three cascade stages of the first reference view of a 64x96
-    fixture (written under data_root if absent), x2_mvsres off, D =
-    16/8/8, chained on `device`, then held against the CPU
-    (`stages_against_cpu`)."""
+def random_offsets(net: torch.nn.Module, seed: int = 1) -> None:
+    """Every DCN offset conv of `net` uniform in +-OFFSET_GAIN /
+    sqrt(fan_in), in place (a no-op for nets without DCNs)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, DCN):
+                w = m.offset_conv.weight
+                bound = OFFSET_GAIN / w[0].numel() ** 0.5
+                w.copy_(torch.rand(w.shape, generator=gen) * (2 * bound)
+                        - bound)
+
+
+def cascade_card_vs_cpu(device, data_root: str,
+                        model: str = "casmvsnet") -> Dict[str, float]:
+    """The three cascade stages of `model` on the first reference view
+    of a 64x96 fixture (written under data_root if absent), x2_mvsres
+    off, D = 16/8/8, float32, chained on `device`, then held against the
+    CPU (`stages_against_cpu`). UCSNet and TransMVSNet run at He's gain
+    (`he_gain`) with random offset convs (`random_offsets`)."""
     if not os.path.isdir(os.path.join(data_root, "DTU")):
         make_dtu_fixture(data_root, img_res=SMALL_RES)
     cfg = cascade_config(data_root, SMALL_RES, SMALL_NDEPTHS, False,
                          (0, 0, 0))
+    cfg.mvs.model_name = model
     sample = MVSDataset(
         datapath=os.path.join(data_root, "DTU", "mvs_data"), scan=SCAN,
         nviews=cfg.num_view, data_dir="DTU", ndepths=cfg.mvs.numdepth,
@@ -340,15 +416,21 @@ def cascade_card_vs_cpu(device, data_root: str) -> Dict[str, float]:
         max_w=cfg.max_w, trains_i=get_trains_ids("DTU", SCAN, cfg.num_view),
         data_dir_root=data_root, x2_mvsres=False)[0]
     card = MVSEngine(cfg, device=device)
-    feats = card.scene_feature_cache(sample.imgs)["feats"]
-    outs, prev = [], None
+    if model != "casmvsnet":
+        he_gain(card.net)
+        random_offsets(card.net)
+    feats = card.sample_features(card.scene_feature_cache(sample.imgs),
+                                 list(range(len(sample.view_ids))))
+    outs, extras, prev, extra = [], [], None, None
     for stage in range(3):
-        out = card.stage(stage, feats, sample.proj_matrices[f"stage{stage + 1}"],
-                         sample.depth_values, prev, sample.imgs.shape[1:3],
-                         inverse_depth=False)
+        out, extra = card.stage(
+            stage, feats, sample.proj_matrices[f"stage{stage + 1}"],
+            sample.depth_values, prev, extra, sample.imgs.shape[1:3],
+            inverse_depth=False)
         prev = out["depth"] = out["depth"].cpu().numpy()
         outs.append(out)
-    return stages_against_cpu(card, sample, outs)
+        extras.append(extra)
+    return stages_against_cpu(card, sample, outs, extras)
 
 
 def _check_stage(out: Dict, stage: int, shape) -> None:
@@ -378,30 +460,31 @@ def he_gain(net: torch.nn.Module) -> None:
     the +-sqrt(1/fan_in) uniform init, so that random features keep their
     size through the ReLUs and the stage-0 probabilities are not uniform
     (with the plain init they are 1/D to the bit, and bf16 convs could
-    not be told from float32 ones)."""
+    not be told from float32 ones). The DCNs' (9 Cin, Cout) kernels
+    too."""
     with torch.no_grad():
         for m in net.modules():
-            if isinstance(m, (torch.nn.Conv2d, torch.nn.Conv3d,
-                              torch.nn.ConvTranspose3d)):
+            if isinstance(m, B.CONVS):
                 m.weight.mul_(6 ** 0.5)
+            elif isinstance(m, DCN):
+                m.w.mul_(6 ** 0.5)
 
 
 def _scene_run(dev, card: str, cfg: Config, exps_root: str, what: str):
-    """One `save_scene_depth` of phase 6 with `cfg` and the He-gain
-    cascade weights, its launch counts set to 0 before and read after;
-    checks its losses, feedback renders, volumes and files, and prints
-    its numbers. Returns the engine, the result and the launches
-    {"fused_sdf": {mode: n}, "cost_mapping": n}."""
+    """One `save_scene_depth` of phase 6 (or 9) with `cfg` and the
+    He-gain cascade weights (random DCN offset convs), its launch counts
+    set to 0 before and read after; checks its losses, feedback renders,
+    volumes and files, and prints its numbers. Returns the engine, the
+    result and its launches (`_launch_counts`)."""
     engine = MVSEngine(cfg, device=dev)
     he_gain(engine.net)
-    fused_sdf.reset_launches()                  # this path starts
-    cost_mapping.cost_mapping.launches = 0
+    random_offsets(engine.net)
+    _reset_counts()                             # this path starts
     t0 = time.perf_counter()
     res = save_scene_depth(cfg, SCAN, exps_root=exps_root, engine=engine)
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
-    launches = {"fused_sdf": dict(fused_sdf.fused_sdf_values.mode_launches),
-                "cost_mapping": cost_mapping.cost_mapping.launches}
+    launches = _launch_counts()
     trainer = res["trainer"]                    # ... and ends here
 
     losses = [lo.loss for lo in trainer.losses]
@@ -512,6 +595,145 @@ def run_cascade(dev, card: str, tmp: str):
           f"{(f32_prob.max() - f32_prob.min()).item():.3e})", flush=True)
     del dres, prob, f32_prob
     return {"float32": launches, "defaults": dlaunches}, res, data_root
+
+
+def _sm_clock_mhz() -> float:
+    """The SM clock's maximum, as nvidia-smi reads it now."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def dcn_inputs(H: int, W: int, cout: int, device, seed: int):
+    """Unit-scale deformable-conv operands (x, offset, mask, weight,
+    bias) at one head shape: offsets normal with a 2-pixel spread (some
+    samples past every edge), masks uniform in (0, 1)."""
+    gen = torch.Generator().manual_seed(seed)
+    K, cin = deform_conv.TAPS, DCN_CIN
+    x = torch.randn((cin, H, W), generator=gen)
+    offset = 2.0 * torch.randn((2 * K, H, W), generator=gen)
+    mask = torch.rand((K, H, W), generator=gen)
+    bound = 1.0 / (K * cin) ** 0.5
+    weight = torch.rand((K * cin, cout), generator=gen) * (2 * bound) - bound
+    bias = 0.1 * torch.randn((cout,), generator=gen)
+    return [t.to(device) for t in (x, offset, mask, weight, bias)]
+
+
+def check_deform_conv(dev, card: str) -> Dict:
+    """Phase 9(a): the deformable-conv kernel against its plain version
+    at TransMVSNet's nine head shapes of x2 DTU, bar DCN_TOL (1 +
+    |plain|); the 1152x1536 32 -> 32 launch timed against the plain
+    version and its bound (the larger of its FP32-pipe operations at
+    the SM clock's maximum and its bytes at HBM_TBPS)."""
+    H2, W2 = CASCADE_MVS_RES
+    err = worst = 0.0
+    for head, (scale, couts) in enumerate(DCN_HEADS):
+        H, W = H2 // scale, W2 // scale
+        for i, cout in enumerate(couts):
+            args = dcn_inputs(H, W, cout, dev, 10 * head + i)
+            got = deform_conv.deform_conv2d(*args)
+            ref = deform_conv.deform_conv2d_plain(*args)
+            torch.cuda.synchronize()
+            diff = (got - ref).abs()
+            rel = (diff / (1 + ref.abs())).max().item()
+            _check(rel <= DCN_TOL, f"deform_conv {DCN_CIN}->{cout} at "
+                   f"{H}x{W}: {rel} (1 + |plain|) > {DCN_TOL}")
+            err, worst = max(err, diff.max().item()), max(worst, rel)
+            del got, ref, args
+    args = dcn_inputs(H2, W2, DCN_CIN, dev, 99)
+    kernel_ms = _median_ms(lambda: deform_conv.deform_conv2d(*args),
+                           backlog=True)
+    plain_ms = _median_ms(lambda: deform_conv.deform_conv2d_plain(*args),
+                          reps=5, backlog=True)
+    clock_mhz = _sm_clock_mhz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    flop = deform_conv.flops(H2, W2, DCN_CIN, DCN_CIN)
+    ops_ms = flop / (sms * FP32_LANES_PER_SM * 2 * clock_mhz * 1e6) * 1e3
+    nbytes = deform_conv.io_bytes(H2, W2, DCN_CIN, DCN_CIN)
+    bytes_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    print(f"[dcn] deform_conv vs plain at the nine head shapes (Cin "
+          f"{DCN_CIN}; 288x384, 576x768, 1152x1536): max|diff| {err:.3e}, "
+          f"{worst:.3e} (1 + |plain|) (tol {DCN_TOL}) [{card}]", flush=True)
+    print(f"[dcn] {H2}x{W2} {DCN_CIN}->{DCN_CIN}: kernel {kernel_ms:.4f} ms "
+          f"(device, median of 20), bound {bound_ms:.4f} ms by {bound_by} "
+          f"(operations {ops_ms:.4f} ms: {flop / 1e9:.2f} GFLOP at {sms} x "
+          f"{FP32_LANES_PER_SM} FMAs a clock, {clock_mhz:.0f} MHz; bytes "
+          f"{bytes_ms:.4f} ms: {nbytes / 1e9:.3f} GB at {HBM_TBPS} TB/s): "
+          f"{100 * bound_ms / kernel_ms:.1f}% of bound; plain "
+          f"{plain_ms:.3f} ms [{card}]", flush=True)
+    return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "ops_ms": ops_ms,
+            "bytes_ms": bytes_ms, "sm_clock_mhz": clock_mhz}
+
+
+def run_other_cascades(dev, card: str, tmp: str, data_root: str):
+    """Phase 9(b)-(d) (see the module docstring); returns the launches
+    of each path driven, each counted from 0."""
+    paths = []
+    # (b) save_scene_depth at x2 DTU shapes, the JAX defaults.
+    args = (data_root, CASCADE_RES, CASCADE_NDEPTHS, CASCADE_X2,
+            (TRAIN_STEPS, 0, 0))
+    for model in OTHER_MODELS:
+        cfg = cascade_config(*args, base=dtu_config)
+        cfg.mvs.model_name = model
+        _, res, launches = _scene_run(dev, card, cfg,
+                                      os.path.join(tmp, model),
+                                      f"{model} defaults")
+        want = DCN_PER_VIEW * 3 if model == "transmvsnet" else 0
+        _check(launches["deform_conv"] == want
+               and launches["fused_sdf"]["bfloat16"] == TRAIN_STEPS,
+               f"{model} scene: launches {launches}, want deform_conv "
+               f"{want} and {TRAIN_STEPS} bf16 fused SDF")
+        if model == "ucsnet":
+            var = res["outs"][0]["stage3"]["variance"]
+            _check(bool(torch.isfinite(var).all()), "ucsnet: finite variance")
+        paths.append(launches)
+        del res
+    # (c) Three stages at 64x96 on the card against the CPU, float32.
+    for model in OTHER_MODELS:
+        errs = cascade_card_vs_cpu(dev, os.path.join(tmp, "small"), model)
+        _check(errs["prob"] <= PROB_TOL and errs["depth_rel"] <= DEPTH_RTOL
+               and errs.get("wta", 0) == 0
+               and errs.get("conf", 0.0) <= PROB_TOL,
+               f"{model} card vs CPU: {errs} (tol prob {PROB_TOL}, depth rel "
+               f"{DEPTH_RTOL}, winner-take-all where the top two differ by "
+               f"more than {PROB_TOL})")
+        print(f"[other] {model}: 3 stages at {SMALL_RES[0]}x{SMALL_RES[1]}, "
+              f"D {'/'.join(map(str, SMALL_NDEPTHS))}, card vs CPU: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol prob {PROB_TOL}, depth rel {DEPTH_RTOL})", flush=True)
+    # (d) The command line at 64x96 with each model, no precision override.
+    small = os.path.join(tmp, "small")
+    for model in OTHER_MODELS:
+        out = os.path.join(tmp, f"small_{model}")
+        _reset_counts()                         # this path starts
+        t0 = time.perf_counter()
+        plys = cli_run.main([
+            f"testlist={SCAN}", f"outdir={out}", f"data_dir_root={small}",
+            f"exps_folder={os.path.join(tmp, f'vsdf_{model}')}",
+            f"dataset.data_dir_root={small}", f"max_h={SMALL_RES[0]}",
+            f"max_w={SMALL_RES[1]}", f"dataset.img_res=[{SMALL_RES[0]},"
+            f"{SMALL_RES[1]}]", f"mvs.ndepths={list(SMALL_NDEPTHS)}",
+            f"mvs.numdepth={SMALL_NDEPTHS[0]}", "mvs.x2_mvsres=false",
+            f"mvs.model_name={model}", f"opt_stepNs=[{SMALL_CLI_STEPS},0,0]"])
+        torch.cuda.synchronize()
+        small_s = time.perf_counter() - t0
+        launches = _launch_counts()             # ... and ends here
+        want = DCN_PER_VIEW * 3 if model == "transmvsnet" else 0
+        _check(os.path.isfile(plys[0])
+               and launches["deform_conv"] == want
+               and launches["fused_sdf"]["bfloat16"] == SMALL_CLI_STEPS
+               and launches["cost_mapping"] == SMALL_CLI_STEPS,
+               f"{model} command line: {plys}, launches {launches}")
+        print(f"[other] cli.run mvs.model_name={model} end to end {SCAN} at "
+              f"{SMALL_RES[0]}x{SMALL_RES[1]}, {SMALL_CLI_STEPS} steps: "
+              f"{small_s:.2f} s, {load_ply(plys[0])[0].shape[0]} points; "
+              f"launches {launches} [{card}]", flush=True)
+        paths.append(launches)
+    return paths
 
 
 def png_seconds(res) -> float:
@@ -656,10 +878,7 @@ def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
     nbytes = geo_consistency.io_bytes(H, W)
     bytes_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
     fp64 = fp64_instructions(geo_consistency.build())
-    clock_mhz = float(subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0])
+    clock_mhz = _sm_clock_mhz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     ops_ms = fp64["main"] * H * W / (sms * FP64_PER_SM_CLOCK
                                      * clock_mhz * 1e6) * 1e3
@@ -1249,8 +1468,18 @@ class RssPeak:
 
 
 def _launch_counts() -> Dict:
+    """Every kernel's launches since `_reset_counts`."""
     return {"fused_sdf": dict(fused_sdf.fused_sdf_values.mode_launches),
-            "cost_mapping": cost_mapping.cost_mapping.launches}
+            "cost_mapping": cost_mapping.cost_mapping.launches,
+            "deform_conv": deform_conv.deform_conv2d.launches,
+            "geo_consistency": geo_consistency.geo_consistency.launches}
+
+
+def _reset_counts() -> None:
+    fused_sdf.reset_launches()
+    cost_mapping.cost_mapping.launches = 0
+    deform_conv.deform_conv2d.launches = 0
+    geo_consistency.geo_consistency.launches = 0
 
 
 def eval_round_trip(dev, card: str, trainer: VolTrainer, exps_root: str):
@@ -1572,6 +1801,7 @@ def main() -> None:
     sources = {"csrc/fused_sdf.cu": fused_sdf.build,
                "csrc/cost_mapping.cu": cost_mapping.build,
                "csrc/fusion.cu": geo_consistency.build,
+               "csrc/deform_conv.cu": deform_conv.build,
                "csrc/downsample.cpp": eval_geo.build_downsample,
                "csrc/mc.cpp": mesh_mod.build_mc}
     with ThreadPoolExecutor(len(sources)) as pool:
@@ -1582,6 +1812,7 @@ def main() -> None:
     # 3. The kernels against their plain versions, full width.
     sdf = check_fused_sdf(dev, card)
     cost = check_cost_mapping(dev, card)
+    dcn = check_deform_conv(dev, card)
 
     with tempfile.TemporaryDirectory() as tmp:
         # 4, 5. Training at bench.py's shapes, then the feedback renders.
@@ -1594,8 +1825,7 @@ def main() -> None:
 
         # 8(a)-(c). Evaluation on the float32 trainer before it goes: the
         # launch counts set to 0 here and read after (c).
-        fused_sdf.reset_launches()
-        cost_mapping.cost_mapping.launches = 0
+        _reset_counts()
         trainer = trainers["float32"]
         eval_round_trip(dev, card, trainer, tmp)
         eval_render(dev, card, trainer)
@@ -1610,8 +1840,7 @@ def main() -> None:
         # its outputs; 8(d), (e) on both.
         scene_launches, res, data_root = run_cascade(dev, card, tmp)
         fusion = run_fusion(dev, card, tmp, res, data_root)
-        fused_sdf.reset_launches()
-        cost_mapping.cost_mapping.launches = 0
+        _reset_counts()
         eval_scene_views(dev, card, tmp, res)
         eval_command_lines(dev, card, tmp)
         eval_cli = _launch_counts()
@@ -1619,19 +1848,26 @@ def main() -> None:
               f"path: {eval_cli}", flush=True)
         del res
 
-    # 9. Results. Launches are summed over the paths, each counted from 0.
+        # 9. The other cascades: UCSNet and TransMVSNet.
+        other = run_other_cascades(dev, card, tmp, data_root)
+
+    # 10. Results. Launches are summed over the paths, each counted from 0.
     paths = [launches, outside, scene_launches["float32"],
              scene_launches["defaults"],
              {"fused_sdf": fusion["sdf_launches"],
-              "cost_mapping": fusion["cost_launches"]}, eval_field, eval_cli]
+              "cost_mapping": fusion["cost_launches"]}, eval_field,
+             eval_cli] + other
     sdf_launches = {m: sum(p["fused_sdf"][m] for p in paths)
                     for m in fused_sdf.MODES}
     cost_launches = sum(p["cost_mapping"] for p in paths)
+    dcn_launches = sum(p.get("deform_conv", 0) for p in paths)
+    geo_launches = fusion["launches"] + sum(p.get("geo_consistency", 0)
+                                            for p in paths)
     grid_launches = sum(g["launches"] for k in ("high_res", "by_grid")
                         for g in mesh[k]["stats"]["grids"])
     print(f"[kernels] launches on the paths driven: fused SDF {sdf_launches}, "
-          f"cost_mapping {cost_launches}, geo_consistency "
-          f"{fusion['launches']}", flush=True)
+          f"cost_mapping {cost_launches}, geo_consistency {geo_launches}, "
+          f"deform_conv {dcn_launches}", flush=True)
     kernels = []
     for mode, name in (("float32", "fused_sdf"), ("bfloat16", "fused_sdf_bf16")):
         m = sdf[mode]
@@ -1670,7 +1906,7 @@ def main() -> None:
         "name": "geo_consistency", "route": "cuda",
         "source": "s_volsdf_tpu_torch/csrc/fusion.cu",
         "replaces": "s_volsdf_tpu/native/fusion.cpp:59",
-        "launches": fusion["launches"],
+        "launches": geo_launches,
         "max_abs_err": fusion["max_abs_err"], "ms": fusion["ms"],
         "plain_ms": fusion["plain_ms"], "bound_ms": fusion["bound_ms"],
         "bound_by": fusion["bound_by"], "library_ms": None,
@@ -1678,6 +1914,16 @@ def main() -> None:
         "fp64_instructions": fusion["fp64_instructions"],
         "sm_clock_mhz": fusion["sm_clock_mhz"],
         "wrapper_ms": fusion["wrapper_ms"], "shape": list(CASCADE_MVS_RES)})
+    kernels.append({
+        "name": "deform_conv", "route": "cuda",
+        "source": "s_volsdf_tpu_torch/csrc/deform_conv.cu",
+        "replaces": "s_volsdf_tpu/ops/deform_conv.py:29",
+        "launches": dcn_launches, "max_abs_err": dcn["max_abs_err"],
+        "ms": dcn["ms"], "plain_ms": dcn["plain_ms"],
+        "bound_ms": dcn["bound_ms"], "bound_by": dcn["bound_by"],
+        "library_ms": None, "ops_ms": dcn["ops_ms"],
+        "bytes_ms": dcn["bytes_ms"], "sm_clock_mhz": dcn["sm_clock_mhz"],
+        "shape": [DCN_CIN, *CASCADE_MVS_RES, DCN_CIN]})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,15 +6,20 @@ The JAX VolSDF parameters are the pytree
 the same layouts ((in, out) weights), so the conversion is one to one
 and exact.
 
-The JAX CasMVSNet parameters are {"feature": {...}, "cost_reg": [...]},
-each conv a {"w", "b"?, "bn"?: {"scale", "bias", "mean", "var"}} leaf
-dict with HWIO / DHWIO kernels; the transposed convs' kernels are
-stored flipped, for an input-dilated conv. `from_jax_mvs_params` and
+The JAX MVS parameters (CasMVSNet and UCSNet {"feature": {...},
+"cost_reg": [...]}; TransMVSNet also "fmt" and "pixelwise") hold each
+conv as a {"w", "b"?, "bn"?: {"scale", "bias", "mean", "var"}} leaf dict
+with HWIO / DHWIO kernels; the transposed convs' kernels are stored
+flipped, for an input-dilated conv. `from_jax_mvs_params` and
 `to_jax_mvs_params` transpose them to OIHW / OIDHW, flip the transposed
-convs back into `ConvTranspose3d`'s (I, O, kD, kH, kW), and map BN onto
-weight / bias / running_mean / running_var; both directions are exact.
-`load_mvs_checkpoint` reads a converted checkpoint (tools/convert_ckpt.py
-writes one: `state.npz` of the pytree's leaves in JAX's flatten order).
+convs back into `ConvTranspose2d`'s / `ConvTranspose3d`'s (I, O, k...),
+and map BN onto weight / bias / running_mean / running_var. A DCN is
+{"offset_conv", "w" (9 Cin, Cout) tap-major, "b"}; the FMT's linears
+{"w" (in, out), "b"} and LayerNorms {"scale", "bias"} are the port's
+own parameter names. Both directions are exact, and a tree whose leaves
+do not match the net raises. `load_mvs_checkpoint` reads a converted
+checkpoint (tools/convert_ckpt.py writes one: `state.npz` of the
+pytree's leaves in JAX's flatten order).
 
 The JAX LPIPS weights ({"features": [[{"b", "w"}]], "lins": [{"w"}]},
 HWIO kernels) become `models.lpips.LPIPS` (OIHW) with `lpips_from_jax`.
@@ -34,8 +39,12 @@ from torch import nn
 from s_volsdf_tpu_torch.models.density import LaplaceDensity
 from s_volsdf_tpu_torch.models.layers import Linear, WeightNormLinear
 from s_volsdf_tpu_torch.models.lpips import LPIPS
+from s_volsdf_tpu_torch.models.mvs import blocks as B
 from s_volsdf_tpu_torch.models.mvs.blocks import ConvBnReLU
 from s_volsdf_tpu_torch.models.mvs.casmvsnet import CasMVSNet
+from s_volsdf_tpu_torch.models.mvs.fmt import Dense, LayerNorm
+from s_volsdf_tpu_torch.models.mvs.transmvsnet import DCN, TransMVSNet
+from s_volsdf_tpu_torch.models.mvs.ucsnet import UCSNet
 from s_volsdf_tpu_torch.models.network import VolSDFParams
 
 
@@ -80,26 +89,35 @@ def to_jax_params(params: VolSDFParams) -> Dict:
 
 
 # --------------------------------------------------------------------------
-# CasMVSNet
+# The MVS nets
 # --------------------------------------------------------------------------
 
-_CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)
 _TORCH_NAME = {"cost_reg": "cost_regularization"}
 _JAX_NAME = {v: k for k, v in _TORCH_NAME.items()}
+_TRANSPOSED = (nn.ConvTranspose2d, nn.ConvTranspose3d)
+_BN = (nn.BatchNorm2d, nn.BatchNorm3d)
+_BN_FIELDS = (("scale", "weight"), ("bias", "bias"), ("mean", "running_mean"),
+              ("var", "running_var"))
+# Modules whose parameters carry the JAX leaves' names and layouts.
+_SAME_LEAVES = (Dense, LayerNorm)
+_NETS = {"casmvsnet": CasMVSNet, "ucsnet": UCSNet,
+         "transmvsnet": TransMVSNet}
 
 
 def _kernel_from_jax(conv: nn.Module, w: np.ndarray) -> np.ndarray:
-    if isinstance(conv, nn.ConvTranspose3d):
-        # Flipped DHWIO -> (I, O, kD, kH, kW).
-        return np.flip(w, (0, 1, 2)).transpose(3, 4, 0, 1, 2)
+    if isinstance(conv, _TRANSPOSED):
+        # Flipped HWIO / DHWIO -> (I, O, k...).
+        sp = tuple(range(w.ndim - 2))
+        return np.flip(w, sp).transpose((w.ndim - 2, w.ndim - 1) + sp)
     if w.ndim == 4:
         return w.transpose(3, 2, 0, 1)          # HWIO -> OIHW
     return w.transpose(4, 3, 0, 1, 2)           # DHWIO -> OIDHW
 
 
 def _kernel_to_jax(conv: nn.Module, w: np.ndarray) -> np.ndarray:
-    if isinstance(conv, nn.ConvTranspose3d):
-        return np.flip(w.transpose(2, 3, 4, 0, 1), (0, 1, 2))
+    if isinstance(conv, _TRANSPOSED):
+        sp = tuple(range(w.ndim - 2))
+        return np.flip(w.transpose(tuple(i + 2 for i in sp) + (0, 1)), sp)
     if w.ndim == 4:
         return w.transpose(2, 3, 1, 0)
     return w.transpose(2, 3, 4, 1, 0)
@@ -112,6 +130,18 @@ def _split(mod: nn.Module):
     return mod, None
 
 
+def _copy(param: torch.Tensor, a, what: str) -> None:
+    a = np.asarray(a, np.float32)
+    if tuple(a.shape) != tuple(param.shape):
+        raise ValueError(f"{what}: {a.shape} vs {tuple(param.shape)}")
+    param.copy_(_tensor(a, param.device))
+
+
+def _load_bn(bn: nn.Module, q: Dict) -> None:
+    for jname, tname in _BN_FIELDS:
+        _copy(getattr(bn, tname), q[jname], f"bn {jname}")
+
+
 @torch.no_grad()
 def load_conv(mod: nn.Module, p: Dict) -> None:
     """Load one JAX conv leaf {"w", "b"?, "bn"?} into a block or a plain
@@ -121,29 +151,44 @@ def load_conv(mod: nn.Module, p: Dict) -> None:
         raise ValueError(f"conv leaf {sorted(p)} does not match {mod}")
     w = np.ascontiguousarray(
         _kernel_from_jax(conv, np.asarray(p["w"], np.float32)))
-    if tuple(w.shape) != tuple(conv.weight.shape):
-        raise ValueError(f"kernel {w.shape} vs {tuple(conv.weight.shape)}")
-    dev = conv.weight.device
-    conv.weight.copy_(_tensor(w, dev))
+    _copy(conv.weight, w, "kernel")
     if "b" in p:
-        conv.bias.copy_(_tensor(p["b"], dev))
+        _copy(conv.bias, p["b"], "conv bias")
     if "bn" in p:
-        q = p["bn"]
-        bn.weight.copy_(_tensor(q["scale"], dev))
-        bn.bias.copy_(_tensor(q["bias"], dev))
-        bn.running_mean.copy_(_tensor(q["mean"], dev))
-        bn.running_var.copy_(_tensor(q["var"], dev))
+        _load_bn(bn, p["bn"])
 
 
+def _check_keys(tree: Dict, names, mod: nn.Module) -> None:
+    if set(tree) != set(names):
+        raise ValueError(f"leaves {sorted(tree)} do not match "
+                         f"{type(mod).__name__}'s {sorted(names)}")
+
+
+@torch.no_grad()
 def _load_tree(mod: nn.Module, tree) -> None:
-    if isinstance(tree, list):
+    if isinstance(mod, (ConvBnReLU,) + B.CONVS):
+        load_conv(mod, tree)
+    elif isinstance(mod, _BN):
+        _check_keys(tree, [j for j, _ in _BN_FIELDS], mod)
+        _load_bn(mod, tree)
+    elif isinstance(mod, DCN):
+        _check_keys(tree, ("offset_conv", "w", "b"), mod)
+        load_conv(mod.offset_conv, tree["offset_conv"])
+        _copy(mod.w, tree["w"], "DCN weight")
+        _copy(mod.b, tree["b"], "DCN bias")
+    elif isinstance(mod, _SAME_LEAVES):
+        names = [n for n, _ in mod.named_parameters()]
+        _check_keys(tree, names, mod)
+        for n in names:
+            _copy(getattr(mod, n), tree[n], f"{type(mod).__name__}.{n}")
+    elif isinstance(tree, list):
         if len(tree) != len(mod):
             raise ValueError(f"{len(tree)} entries for {len(mod)} modules")
         for m, t in zip(mod, tree):
             _load_tree(m, t)
-    elif "w" in tree:
-        load_conv(mod, tree)
     else:
+        _check_keys(tree, [_JAX_NAME.get(k, k) for k, _ in
+                           mod.named_children()], mod)
         for k, t in tree.items():
             _load_tree(getattr(mod, _TORCH_NAME.get(k, k)), t)
 
@@ -158,30 +203,47 @@ def _conv_to(mod: nn.Module) -> Dict:
     if conv.bias is not None:
         p["b"] = _np(conv.bias)
     if bn is not None:
-        p["bn"] = {"scale": _np(bn.weight), "bias": _np(bn.bias),
-                   "mean": _np(bn.running_mean), "var": _np(bn.running_var)}
+        p["bn"] = _bn_to(bn)
     return p
 
 
+def _bn_to(bn: nn.Module) -> Dict:
+    return {j: _np(getattr(bn, t)) for j, t in _BN_FIELDS}
+
+
 def _tree_to(mod: nn.Module):
-    if isinstance(mod, (ConvBnReLU,) + _CONVS):
+    if isinstance(mod, (ConvBnReLU,) + B.CONVS):
         return _conv_to(mod)
+    if isinstance(mod, _BN):
+        return _bn_to(mod)
+    if isinstance(mod, DCN):
+        return {"offset_conv": _conv_to(mod.offset_conv), "w": _np(mod.w),
+                "b": _np(mod.b)}
+    if isinstance(mod, _SAME_LEAVES):
+        return {n: _np(p) for n, p in mod.named_parameters()}
     if isinstance(mod, (nn.Sequential, nn.ModuleList)):
         return [_tree_to(m) for m in mod]
     return {_JAX_NAME.get(k, k): _tree_to(m) for k, m in mod.named_children()}
 
 
 def from_jax_mvs_params(np_params: Dict, ndepths=(192, 32, 8),
-                        cr_base_chs=(8, 8, 8), device=None) -> CasMVSNet:
-    """The JAX CasMVSNet pytree of numpy arrays -> a frozen CasMVSNet."""
+                        cr_base_chs=(8, 8, 8), device=None,
+                        model: str = "casmvsnet") -> nn.Module:
+    """A JAX MVS pytree of numpy arrays (`init_casmvsnet`, `init_ucsnet`
+    (`cr_base_chs` its `base_chs`) or `init_transmvsnet`, per `model`)
+    -> the frozen port net."""
     base = np.asarray(np_params["feature"]["conv0"][0]["w"]).shape[-1]
-    net = CasMVSNet(ndepths, base, cr_base_chs).to(device)
+    if model == "ucsnet":
+        net = UCSNet(ndepths, cr_base_chs, base)
+    else:
+        net = _NETS[model](ndepths, base, cr_base_chs)
+    net = net.to(device)
     _load_tree(net, np_params)
     return net.eval().requires_grad_(False)
 
 
-def to_jax_mvs_params(net: CasMVSNet) -> Dict:
-    """CasMVSNet -> the JAX pytree, as numpy arrays."""
+def to_jax_mvs_params(net: nn.Module) -> Dict:
+    """A port MVS net -> its JAX pytree, as numpy arrays."""
     return _tree_to(net)
 
 
@@ -198,7 +260,7 @@ def _leaf_slots(tree, out: List) -> List:
     return out
 
 
-def load_mvs_checkpoint(net: CasMVSNet, path: str) -> CasMVSNet:
+def load_mvs_checkpoint(net: nn.Module, path: str) -> nn.Module:
     """Load a converted checkpoint directory (`state.npz` with leaves
     `leaf_<i>` in JAX's flatten order of the pytree) into `net`."""
     tree = to_jax_mvs_params(net)

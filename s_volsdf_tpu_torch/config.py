@@ -132,7 +132,7 @@ class DatasetConfig:
 
 @dataclass(unsafe_hash=True)
 class MVSConfig:
-    model_name: str = "casmvsnet"  # only casmvsnet is ported
+    model_name: str = "casmvsnet"  # one of MVS_MODELS
     ndepths: Tuple[int, ...] = (192, 32, 8)
     depth_inter_r: Tuple[float, ...] = (1.0, 0.5, 0.5)
     numdepth: int = 192
@@ -347,8 +347,13 @@ def check_model_ported(mcfg: ModelConfig) -> ModelConfig:
     return mcfg
 
 
+MVS_MODELS = ("casmvsnet", "ucsnet", "transmvsnet")
+
+
 def check_mvs_ported(mcfg: MVSConfig) -> MVSConfig:
-    """Validate the cascade's precision knob."""
+    """Validate the cascade's model name and precision knob."""
+    _require(mcfg.model_name in MVS_MODELS,
+             f"mvs.model_name={mcfg.model_name!r}: want one of {MVS_MODELS}")
     _require(mcfg.compute_dtype in DTYPES,
              f"mvs.compute_dtype={mcfg.compute_dtype!r}: want one of {DTYPES}")
     return mcfg

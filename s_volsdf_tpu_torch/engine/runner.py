@@ -1,11 +1,14 @@
-"""The per-scene pipeline: the 3-stage CasMVSNet cascade interleaved
-with VolSDF optimisation and depth feedback (counterpart of
-s_volsdf_tpu/engine/runner.py:46-250, 321-353, 377-516, 519-561,
-604-626).
+"""The per-scene pipeline: the 3-stage MVS cascade (CasMVSNet, UCSNet or
+TransMVSNet) interleaved with VolSDF optimisation and depth feedback
+(counterpart of s_volsdf_tpu/engine/runner.py:46-250, 321-353, 377-516,
+519-561, 604-626).
 
 save_scene_depth, per scene:
-  (a) runs the frozen cascade stage by stage (features once per scene,
-      a cost volume per stage per reference view),
+  (a) runs the frozen cascade stage by stage (per-view features once per
+      scene, TransMVSNet's FMT once per sample, a cost volume per stage
+      per reference view; UCSNet's variance and TransMVSNet's view
+      weights carried from each stage to the next as the view's
+      `extra`),
   (b) at a stage with an optimisation budget, hands the probability
       volumes to the VolSDF trainer (they stay on the device), trains,
       renders VolSDF depth for each training view and feeds it to the
@@ -17,7 +20,7 @@ pcd_filter then fuses each scene's depth maps into its point cloud
 (engine/fusion.py). Serial over reference views and scenes on one
 device. The trainer writes its run directory and checkpoints under
 {exps_root}/{exps_folder} and, with is_continue, resumes from the
-newest. Not ported yet: UCSNet and TransMVSNet.
+newest.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +47,13 @@ from s_volsdf_tpu_torch.models.mvs import blocks as B
 from s_volsdf_tpu_torch.models.mvs.casmvsnet import (casmvsnet_features,
                                                      casmvsnet_stage,
                                                      init_casmvsnet)
+from s_volsdf_tpu_torch.models.mvs.fmt import fmt_with_pathway
+from s_volsdf_tpu_torch.models.mvs.transmvsnet import (init_transmvsnet,
+                                                       trans_feature_net,
+                                                       transmvsnet_stage)
+from s_volsdf_tpu_torch.models.mvs.ucsnet import (init_ucsnet,
+                                                  ucsnet_features,
+                                                  ucsnet_stage)
 from s_volsdf_tpu_torch.ops.fused_sdf import fused_sdf_values
 from s_volsdf_tpu_torch.utils.device import full_float32, resolve_device
 from s_volsdf_tpu_torch.utils.viz import visualize_depth
@@ -52,9 +62,10 @@ logger = logging.getLogger("s_volsdf_tpu_torch")
 
 
 class MVSEngine:
-    """The frozen cascade on one device. Weights come from a converted
-    checkpoint (tools/convert_ckpt.py) or are random from `rng_seed`.
-    Only casmvsnet is ported; other models raise.
+    """The frozen cascade (mvs.model_name: casmvsnet, ucsnet or
+    transmvsnet) on one device. Weights come from a converted checkpoint
+    (tools/convert_ckpt.py) or are random from `rng_seed`. UCSNet is
+    built without mvs.cr_base_chs, as the JAX engine builds it.
 
     With mvs.compute_dtype="bfloat16" (the JAX default) the conv kernels
     are cast to bf16 once, after loading (`blocks.cast_conv_weights`).
@@ -65,16 +76,19 @@ class MVSEngine:
     def __init__(self, cfg: Config, weights_path: Optional[str] = None,
                  rng_seed: int = 0, *, device):
         self.cfg = cfg
-        self.name = cfg.mvs.model_name
-        if self.name != "casmvsnet":
-            raise NotImplementedError(
-                f"mvs.model_name={self.name!r}: the port runs casmvsnet only")
         check_mvs_ported(cfg.mvs)
+        self.name = cfg.mvs.model_name
         self.device = torch.device(device)
-        self.net = init_casmvsnet(torch.Generator().manual_seed(rng_seed),
-                                  ndepths=cfg.mvs.ndepths,
-                                  cr_base_chs=cfg.mvs.cr_base_chs,
-                                  device=self.device)
+        gen = torch.Generator().manual_seed(rng_seed)
+        if self.name == "ucsnet":
+            self.net = init_ucsnet(gen, stage_configs=cfg.mvs.ndepths,
+                                   device=self.device)
+        else:
+            init = (init_casmvsnet if self.name == "casmvsnet"
+                    else init_transmvsnet)
+            self.net = init(gen, ndepths=cfg.mvs.ndepths,
+                            cr_base_chs=cfg.mvs.cr_base_chs,
+                            device=self.device)
         if weights_path and os.path.exists(weights_path):
             load_mvs_checkpoint(self.net, weights_path)
             logger.info(f"loaded MVS weights from {weights_path}")
@@ -90,24 +104,59 @@ class MVSEngine:
         return torch.as_tensor(np.asarray(a, np.float32), device=self.device)
 
     def scene_feature_cache(self, imgs_all: np.ndarray) -> Dict:
-        """Feature pyramids of a scene's training views (V, H, W, 3),
-        computed once per scene and reused by every stage and sample."""
+        """The per-view features of a scene's training views (V, H, W, 3),
+        computed once per scene: the pyramids ("feats"), or for
+        TransMVSNet the DCN backbone's ("backbone"; the FMT mixes the
+        views of a sample, `sample_features`)."""
         imgs = self._put(imgs_all).permute(0, 3, 1, 2).contiguous()
         with torch.no_grad(), full_float32():
-            return {"feats": casmvsnet_features(self.net, imgs)}
+            if self.name == "transmvsnet":
+                return {"backbone": trans_feature_net(self.net.feature, imgs)}
+            features = (casmvsnet_features if self.name == "casmvsnet"
+                        else ucsnet_features)
+            return {"feats": features(self.net, imgs)}
+
+    def sample_features(self, cache: Dict, perm: List[int]) -> List[Dict]:
+        """One sample's features in its view order `perm` (indices into
+        the cache, reference first). For TransMVSNet the FMT over the
+        backbone's, computed once per sample and kept in `cache`: the
+        stages share it."""
+        if self.name != "transmvsnet":
+            return [cache["feats"][p] for p in perm]
+        fmt = cache.setdefault("fmt", {})
+        key = tuple(perm)
+        if key not in fmt:
+            with torch.no_grad(), full_float32():
+                fmt[key] = fmt_with_pathway(
+                    self.net.fmt, [cache["backbone"][p] for p in perm])
+        return fmt[key]
 
     def stage(self, stage_idx: int, features, proj, depth_values,
-              prev_depth, img_hw, inverse_depth: bool) -> Dict:
+              prev_depth, extra, img_hw, inverse_depth: bool
+              ) -> Tuple[Dict, Optional[torch.Tensor]]:
         """One cascade stage of one sample; `features` are its views'
-        pyramids, reference first."""
+        (`sample_features`). Returns (outputs, extra): `extra` threads
+        UCSNet's variance and TransMVSNet's view weights from one stage
+        to the next (None for CasMVSNet)."""
+        cfg = self.cfg.mvs
         prev = None if prev_depth is None else self._put(prev_depth)
+        args = (self.net, stage_idx, features, self._put(proj),
+                self._put(depth_values), prev)
         with torch.no_grad(), full_float32():
-            return casmvsnet_stage(
-                self.net, stage_idx, features, self._put(proj),
-                self._put(depth_values), prev, img_hw,
-                ndepths=self.cfg.mvs.ndepths,
-                depth_inter_r=self.cfg.mvs.depth_inter_r,
-                inverse_depth=inverse_depth)
+            if self.name == "casmvsnet":
+                return casmvsnet_stage(
+                    *args, img_hw, ndepths=cfg.ndepths,
+                    depth_inter_r=cfg.depth_inter_r,
+                    inverse_depth=inverse_depth), None
+            if self.name == "ucsnet":
+                out = ucsnet_stage(*args, extra, img_hw,
+                                   stage_configs=cfg.ndepths,
+                                   inverse_depth=inverse_depth)
+                return out, out["variance"]
+            return transmvsnet_stage(*args, extra, img_hw,
+                                     ndepths=cfg.ndepths,
+                                     depth_inter_r=cfg.depth_inter_r,
+                                     inverse_depth=inverse_depth)
 
 
 def setup_scene(cfg: Config, scene_name: str, *, exps_root: str = ".",
@@ -139,15 +188,17 @@ def setup_scene(cfg: Config, scene_name: str, *, exps_root: str = ".",
     return {"cfg": cfg, "name": scene_name, "samples": samples,
             "trainer": trainer, "trains_i": trains_i, "outdir": outdir,
             "outs_samples": [None] * len(samples),
+            "extras": [None] * len(samples),
             "stage_seconds": [], "stage_peak_bytes": [],
             "feedback_seconds": [], "feedback_launches": []}
 
 
 def run_mvs_stage(cfg: Config, engine: MVSEngine, sc: Dict,
-                  stage_idx: int) -> List[Dict]:
-    """One cascade stage over a scene's reference views. The 2D maps
+                  stage_idx: int) -> Tuple[List[Dict], List]:
+    """One cascade stage over a scene's reference views; returns each
+    view's outputs and its `extra` for the next stage. The 2D maps
     (depth, photometric_confidence) come back to the host; the volumes
-    (prob_volume, depth_values) stay on the device for the trainer.
+    (prob_volume, depth_values) and the extras stay on the device.
 
     Records the stage's seconds in sc["stage_seconds"] and, on a CUDA
     device, its peak allocated bytes in sc["stage_peak_bytes"] (this
@@ -162,16 +213,19 @@ def run_mvs_stage(cfg: Config, engine: MVSEngine, sc: Dict,
         sc["feat_cache"] = engine.scene_feature_cache(imgs_all)
     inv = cfg.inverse_depth and stage_idx == 0
     outs: List[Dict] = []
+    extras: List = []
     for i, s in enumerate(samples):
-        feats = [sc["feat_cache"]["feats"][sc["trains_i"].index(v)]
-                 for v in s.view_ids]
+        feats = engine.sample_features(
+            sc["feat_cache"], [sc["trains_i"].index(v) for v in s.view_ids])
         prev_depth = None
         if stage_idx > 0 and outs_samples[i] is not None:
             prev_depth = outs_samples[i]["depth"]
-        outs.append(engine.stage(
+        out, extra = engine.stage(
             stage_idx, feats, s.proj_matrices[f"stage{stage_idx + 1}"],
-            s.depth_values, prev_depth, (s.imgs.shape[1], s.imgs.shape[2]),
-            inverse_depth=inv))
+            s.depth_values, prev_depth, sc["extras"][i],
+            (s.imgs.shape[1], s.imgs.shape[2]), inverse_depth=inv)
+        outs.append(out)
+        extras.append(extra)
     # Fetch the 2D maps only after every view's stage is queued; the
     # fetch is also the device sync for the stage's time.
     for out in outs:
@@ -184,7 +238,7 @@ def run_mvs_stage(cfg: Config, engine: MVSEngine, sc: Dict,
         sc["stage_peak_bytes"].append(torch.cuda.max_memory_allocated(dev))
     logger.info(f"{sc['name']} stage {stage_idx}: cost volumes in "
                 f"{sc['stage_seconds'][-1]:.1f}s")
-    return outs
+    return outs, extras
 
 
 def feedback_depths(sc: Dict, outs: List[Dict]) -> None:
@@ -205,12 +259,14 @@ def feedback_depths(sc: Dict, outs: List[Dict]) -> None:
             d, (Hm, Wm))[0, 0].cpu().numpy()
 
 
-def accumulate_stage(sc: Dict, outs: List[Dict], stage_idx: int) -> None:
+def accumulate_stage(sc: Dict, outs: List[Dict], extras: List,
+                     stage_idx: int) -> None:
     for i in range(len(sc["samples"])):
         if sc["outs_samples"][i] is None:
             sc["outs_samples"][i] = {}
         sc["outs_samples"][i].update(outs[i])
         sc["outs_samples"][i][f"stage{stage_idx + 1}"] = outs[i]
+        sc["extras"][i] = extras[i]
 
 
 def save_scene_depth(cfg: Config, scene_name: str, *,
@@ -238,7 +294,7 @@ def save_scene_depth(cfg: Config, scene_name: str, *,
     trainer = sc["trainer"]
     epoch = 0
     for stage_idx in range(3):
-        outs = run_mvs_stage(cfg, engine, sc, stage_idx)
+        outs, extras = run_mvs_stage(cfg, engine, sc, stage_idx)
         do_volopt = (not cfg.ablate
                      and cfg.opt_stepNs[stage_idx] > 0
                      and cfg.use_nerf_d[stage_idx] > 0)
@@ -251,7 +307,7 @@ def save_scene_depth(cfg: Config, scene_name: str, *,
                 epoch = trainer.run(cfg.opt_stepNs[stage_idx])
             logger.info("rendering VolSDF depth for cascade feedback")
             feedback_depths(sc, outs)
-        accumulate_stage(sc, outs, stage_idx)
+        accumulate_stage(sc, outs, extras, stage_idx)
 
     t0 = time.perf_counter()
     save_scene_outputs(sc)

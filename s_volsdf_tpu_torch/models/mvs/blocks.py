@@ -2,13 +2,13 @@
 (counterpart of s_volsdf_tpu/models/mvs/blocks.py:83-258).
 
 A block is conv + inference-mode BatchNorm + ReLU, the reference torch
-Conv2d/Conv3d/Deconv3d blocks: the modules are named `conv` and `bn`,
+Conv2d/Conv3d/Deconv2d/Deconv3d blocks: the modules are named `conv` and `bn`,
 as in the reference state dicts. The MVS nets are frozen, so BN always
 uses its stored statistics (eps 1e-5), whatever the module's mode.
 
-The JAX package writes the transposed conv as an input-dilated conv on
-pre-flipped DHWIO weights; here it is `nn.ConvTranspose3d` and the
-bridge flips the weights back (bridge.py).
+The JAX package writes the transposed convs as input-dilated convs on
+pre-flipped HWIO / DHWIO weights; here they are `nn.ConvTranspose2d` /
+`nn.ConvTranspose3d` and the bridge flips the weights back (bridge.py).
 
 The conv's precision follows its weight's dtype, as in the JAX package
 (`_conv_operands`): `cast_conv_weights` rounds every conv kernel (not BN,
@@ -21,6 +21,7 @@ does not: one more rounding of 2^-9 relative per conv (ROADMAP queue 3).
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -58,6 +59,16 @@ class Conv3d(nn.Conv3d):
             self, x, lambda x, b: self._conv_forward(x, self.weight, b))
 
 
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """nn.ConvTranspose2d (fixed output_padding) in its weight's dtype
+    (`_in_weight_dtype`)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return _in_weight_dtype(self, x, lambda x, b: F.conv_transpose2d(
+            x, self.weight, b, self.stride, self.padding, self.output_padding,
+            self.groups, self.dilation))
+
+
 class ConvTranspose3d(nn.ConvTranspose3d):
     """nn.ConvTranspose3d (fixed output_padding) in its weight's dtype
     (`_in_weight_dtype`)."""
@@ -68,13 +79,33 @@ class ConvTranspose3d(nn.ConvTranspose3d):
             self.groups, self.dilation))
 
 
+CONVS = (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.ConvTranspose3d)
+
+
 def cast_conv_weights(net: nn.Module, dtype=torch.bfloat16) -> nn.Module:
     """Every conv kernel of `net` in `dtype`, in place (biases, BN and
     any linear layer stay float32): the counterpart of the JAX
-    `cast_conv_weights`."""
+    `cast_conv_weights`, which casts every leaf of ndim >= 4. Kernels
+    held as plain parameters (the deformable conv's (K*Cin, Cout)
+    weight) are 2-D leaves there and stay float32 here."""
     for m in net.modules():
-        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
+        if isinstance(m, CONVS):
             m.weight.data = m.weight.data.to(dtype)
+    return net
+
+
+@torch.no_grad()
+def init_conv_weights(net: nn.Module, gen: torch.Generator) -> nn.Module:
+    """Every conv kernel of `net` uniform in +-sqrt(1/fan_in) from `gen`
+    (fan_in: input channels times the kernel's taps), every conv bias 0:
+    the JAX package's distribution (`init_conv2d`, `init_conv3d`)."""
+    for m in net.modules():
+        if isinstance(m, CONVS):
+            bound = math.sqrt(1.0 / (m.in_channels * math.prod(m.kernel_size)))
+            m.weight.copy_(torch.rand(m.weight.shape, generator=gen)
+                           * (2 * bound) - bound)
+            if m.bias is not None:
+                m.bias.zero_()
     return net
 
 
@@ -103,6 +134,13 @@ def conv3d(cin: int, cout: int, k: int = 3, stride: int = 1,
            padding: int = 1) -> ConvBnReLU:
     return ConvBnReLU(Conv3d(cin, cout, k, stride, padding, bias=False),
                       nn.BatchNorm3d(cout, eps=BN_EPS))
+
+
+def deconv2d(cin: int, cout: int, k: int = 3, stride: int = 2,
+             padding: int = 1, output_padding: int = 1) -> ConvBnReLU:
+    return ConvBnReLU(ConvTranspose2d(cin, cout, k, stride, padding,
+                                      output_padding, bias=False),
+                      nn.BatchNorm2d(cout, eps=BN_EPS))
 
 
 def deconv3d(cin: int, cout: int, k: int = 3, stride: int = 2,

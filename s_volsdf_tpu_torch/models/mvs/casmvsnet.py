@@ -15,7 +15,6 @@ state dict (`feature.conv0.0.conv.weight`,
 
 from __future__ import annotations
 
-import math
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -110,16 +109,7 @@ def init_casmvsnet(gen: torch.Generator, ndepths=(192, 32, 8),
     gives the same weights on every device), with the JAX package's
     distribution: kernels uniform in +-sqrt(1/fan_in), biases 0, BN the
     identity (scale 1, shift 0, mean 0, var 1)."""
-    net = CasMVSNet(ndepths, base, cr_base_chs)
-    with torch.no_grad():
-        for m in net.modules():
-            if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose3d)):
-                fan_in = m.in_channels * math.prod(m.kernel_size)
-                bound = math.sqrt(1.0 / fan_in)
-                m.weight.copy_(torch.rand(m.weight.shape, generator=gen)
-                               * (2 * bound) - bound)
-                if m.bias is not None:
-                    m.bias.zero_()
+    net = B.init_conv_weights(CasMVSNet(ndepths, base, cr_base_chs), gen)
     return net.to(device).eval().requires_grad_(False)
 
 

@@ -1,9 +1,12 @@
 """Depth-hypothesis generators for the MVS cascade (counterpart of
-s_volsdf_tpu/models/mvs/hypotheses.py:16-50): linear range sampling from
+s_volsdf_tpu/models/mvs/hypotheses.py:16-74): linear range sampling from
 a (D0,) global range or a per-pixel window around the current depth,
-and the inverse-depth variant for unbounded scenes."""
+the inverse-depth variant for unbounded scenes, and UCSNet's
+uncertainty-aware slab."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -46,3 +49,31 @@ def depth_range_samples_inverse(cur_depth: torch.Tensor, ndepth: int,
         d = 1.0 / (1.0 / dmin * (1.0 - z) + 1.0 / dmax * z)  # (D,)
         return d[:, None, None].expand(ndepth, H, W)
     return cur_depth_range_samples(cur_depth, ndepth, depth_interval_pixel)
+
+
+def uncertainty_aware_samples(cur_depth: torch.Tensor,
+                              exp_var: Optional[torch.Tensor], ndepth: int,
+                              shape, inverse_depth: bool = False,
+                              eps: float = 1e-12) -> torch.Tensor:
+    """UCSNet's hypotheses: the first stage's span of a (D0,) range
+    (uniform in 1/d with `inverse_depth`), else the per-pixel window
+    [d - min(d, sigma), d + sigma], sigma = `exp_var` (H, W), the
+    previous stage's lamb-scaled predicted std. Returns (D, H, W)."""
+    H, W = shape
+    if cur_depth.ndim == 1:
+        dmin, dmax = cur_depth[0], cur_depth[-1]
+        if inverse_depth:
+            z = torch.linspace(0.0, 1.0, ndepth, dtype=cur_depth.dtype,
+                               device=cur_depth.device)
+            d = 1.0 / (1.0 / dmin * (1.0 - z) + 1.0 / dmax * z)
+        else:
+            new_interval = (dmax - dmin) / (ndepth - 1)
+            d = dmin + torch.arange(ndepth, dtype=cur_depth.dtype,
+                                    device=cur_depth.device) * new_interval
+        return d[:, None, None].expand(ndepth, H, W)
+    low_bound = -torch.minimum(cur_depth, exp_var)
+    high_bound = exp_var
+    step = (high_bound - low_bound) / (float(ndepth) - 1)
+    steps = torch.arange(ndepth, dtype=cur_depth.dtype,
+                         device=cur_depth.device)[:, None, None]
+    return cur_depth[None] + low_bound[None] + steps * step[None] + eps

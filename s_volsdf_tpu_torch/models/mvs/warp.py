@@ -1,7 +1,8 @@
-"""Homography warping for plane-sweep cost volumes, CasMVSNet convention
-(counterpart of s_volsdf_tpu/models/mvs/warp.py:26-80 with
-align_corners=False, zeros padding and no behind-camera mask; the
-TransMVSNet variant is not ported).
+"""Homography warping for plane-sweep cost volumes (counterpart of
+s_volsdf_tpu/models/mvs/warp.py:26-80): the CasMVSNet and UCSNet
+convention (align_corners=False, zeros padding, no behind-camera mask)
+and TransMVSNet's (align_corners=True, and grid points of hypotheses
+behind the source camera set to -99, i.e. sampled as zeros).
 
 The sampling grid is computed closed-form per (depth, pixel) and the
 source features are sampled with `F.grid_sample`.
@@ -42,22 +43,27 @@ def _proj_grid(src_proj: torch.Tensor, ref_proj: torch.Tensor,
     return torch.stack([gx, gy], dim=-1), z > 1e-6
 
 
-def sample_grid(src_fea: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample (C, H, W) features at a (D, H, W, 2) grid,
-    align_corners=False and zeros padding. Returns (C, D, H, W)."""
+def sample_grid(src_fea: torch.Tensor, grid: torch.Tensor,
+                align_corners: bool = False) -> torch.Tensor:
+    """Bilinear sample (C, H, W) features at a (D, H, W, 2) grid with
+    zeros padding. Returns (C, D, H, W)."""
     C = src_fea.shape[0]
     D, H, W = grid.shape[:3]
     out = F.grid_sample(src_fea[None], grid.reshape(1, D * H, W, 2),
                         mode="bilinear", padding_mode="zeros",
-                        align_corners=False)
+                        align_corners=align_corners)
     return out.reshape(C, D, H, W)
 
 
 def homo_warping(src_fea: torch.Tensor, src_proj: torch.Tensor,
-                 ref_proj: torch.Tensor,
-                 depth_values: torch.Tensor) -> torch.Tensor:
+                 ref_proj: torch.Tensor, depth_values: torch.Tensor,
+                 align_corners: bool = False,
+                 mask_behind: bool = False) -> torch.Tensor:
     """Warp source features (C, H, W) onto the reference view's depth
-    planes depth_values (D,) or (D, H, W). Returns (C, D, H, W)."""
+    planes depth_values (D,) or (D, H, W). Returns (C, D, H, W).
+    TransMVSNet's variant: align_corners=True, mask_behind=True."""
     _, H, W = src_fea.shape
-    grid, _ = _proj_grid(src_proj, ref_proj, depth_values, H, W)
-    return sample_grid(src_fea, grid)
+    grid, valid_z = _proj_grid(src_proj, ref_proj, depth_values, H, W)
+    if mask_behind:
+        grid = torch.where(valid_z[..., None], grid, -99.0)
+    return sample_grid(src_fea, grid, align_corners)

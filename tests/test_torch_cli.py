@@ -139,6 +139,23 @@ def test_unported_modes_raise(arg, item, tmp_path):
                   device="cpu")
 
 
+@pytest.mark.parametrize("model", tconfig.MVS_MODELS)
+def test_mvs_model_name_reaches_the_engine(model, tmp_path, monkeypatch):
+    """`mvs.model_name=` builds that cascade: the engine that save_depth
+    makes from the command line's config."""
+    from s_volsdf_tpu_torch.engine import runner as trunner
+    built = []
+
+    def save_depth(cfg, testlist, *, mvs_weights=None, device=None):
+        built.append(trunner.MVSEngine(cfg, device=device))
+    monkeypatch.setattr(trun, "save_depth", save_depth)
+    monkeypatch.setattr(trun, "pcd_filter", lambda *a, **k: [])
+    trun.main([f"mvs.model_name={model}", "testlist=scan106",
+               f"outdir={tmp_path}"], device="cpu")
+    assert built[0].name == model
+    assert type(built[0].net).__name__.lower() == model
+
+
 def test_conflicting_preset_exits():
     with pytest.raises(SystemExit, match="conflicting"):
         trun.main(["preset=dtu", "vol=bmvs"], device="cpu")

@@ -76,6 +76,43 @@ def outside_configs(name):
     return cfgs
 
 
+def lively_mvs_tree(tree, rng, gain=6 ** 0.5, offset_gain=4.0):
+    """A JAX MVS pytree (numpy leaves) made lively for the comparisons:
+    random BN statistics and LayerNorm affines; every conv kernel (ndim
+    >= 4) and DCN weight times `gain` (He's gain for the uniform init, so
+    that features keep their size and the probabilities are not
+    uniform); the DCNs' offset convs (zero at init, which makes a DCN a
+    plain conv) uniform in +-offset_gain / sqrt(fan_in), their biases
+    normal(0, 0.5): offsets of a few pixels, masks away from 0.5."""
+    if isinstance(tree, list):
+        return [lively_mvs_tree(t, rng, gain, offset_gain) for t in tree]
+    if "mean" in tree:
+        c = tree["scale"].shape[0]
+        return {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                "bias": rng.normal(0, 0.1, c).astype(np.float32),
+                "mean": rng.normal(0, 0.1, c).astype(np.float32),
+                "var": rng.uniform(0.5, 2.0, c).astype(np.float32)}
+    if set(tree) == {"scale", "bias"}:
+        c = tree["scale"].shape[0]
+        return {"scale": rng.uniform(0.5, 1.5, c).astype(np.float32),
+                "bias": rng.normal(0, 0.1, c).astype(np.float32)}
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, (dict, list)):
+            out[k] = lively_mvs_tree(v, rng, gain, offset_gain)
+        elif k == "w" and (np.ndim(v) >= 4 or "offset_conv" in tree):
+            out[k] = (np.asarray(v) * np.float32(gain)).astype(np.float32)
+        else:
+            out[k] = np.asarray(v)
+    if "offset_conv" in tree:
+        w = out["offset_conv"]["w"]
+        bound = offset_gain / np.sqrt(np.prod(w.shape[:3]))
+        out["offset_conv"] = {
+            "w": rng.uniform(-bound, bound, w.shape).astype(np.float32),
+            "b": rng.normal(0, 0.5, w.shape[-1]).astype(np.float32)}
+    return out
+
+
 def params_pair(jcfg, seed=0):
     """JAX parameters from a PRNGKey and the same values in the port."""
     jp = init_volsdf_params(jax.random.PRNGKey(seed), jcfg.model)
@@ -166,6 +203,19 @@ def test_precision_knobs_validated(section, name):
     setattr(getattr(cfg, section), name, "float16")
     with pytest.raises(ValueError, match=f"{section}.{name}"):
         tconfig.check_ported(cfg)
+
+
+def test_mvs_model_names_validated():
+    """The three cascades pass `check_mvs_ported`; another name raises
+    ValueError, as the JAX engine raises for it."""
+    _, cfg = small_configs()
+    for name in tconfig.MVS_MODELS:
+        cfg.mvs.model_name = name
+        tconfig.check_mvs_ported(cfg.mvs)
+    assert tconfig.MVS_MODELS == ("casmvsnet", "ucsnet", "transmvsnet")
+    cfg.mvs.model_name = "mvsnet"
+    with pytest.raises(ValueError, match="mvs.model_name"):
+        tconfig.check_mvs_ported(cfg.mvs)
 
 
 @pytest.mark.parametrize("section", ["mvs", "dataset", "filter", "plot"])

@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain PyTorch versions, the
-CasMVSNet cascade on the card against the same cascade on the CPU, and
+three MVS cascades on the card against the same cascades on the CPU, and
 fusion on the card against fusion on the CPU. No TF32 flag is set here:
 the port's entry points keep their float32 work out of TF32 themselves.
 
@@ -28,8 +28,8 @@ from s_volsdf_tpu_torch.models.network import init_volsdf_params  # noqa: E402
 from s_volsdf_tpu_torch.engine.render import render_depth  # noqa: E402
 from s_volsdf_tpu_torch.engine import fusion  # noqa: E402
 from s_volsdf_tpu_torch.data.synthetic import make_sphere_scene  # noqa: E402
-from s_volsdf_tpu_torch.ops import (cost_mapping, fused_sdf,  # noqa: E402
-                                    geo_consistency)
+from s_volsdf_tpu_torch.ops import (cost_mapping, deform_conv,  # noqa: E402
+                                    fused_sdf, geo_consistency)
 
 pytestmark = pytest.mark.cuda
 
@@ -239,6 +239,79 @@ def test_cascade_stages_match_cpu(cuda, tmp_path):
     errs = chip_smoke.cascade_card_vs_cpu(cuda, str(tmp_path / "data"))
     assert errs["prob"] <= chip_smoke.PROB_TOL, errs
     assert errs["depth_rel"] <= chip_smoke.DEPTH_RTOL, errs
+
+
+@pytest.mark.parametrize("model", chip_smoke.OTHER_MODELS)
+def test_other_cascades_match_cpu(cuda, tmp_path, model):
+    """UCSNet's and TransMVSNet's three stages of one 64x96 view, D =
+    16/8/8, float32, He-gain convs and random DCN offset convs, on the
+    card and on the CPU with the same weights, each stage fed the card's
+    previous depth and extra: prob_volume within 1e-4, the regressed
+    depth within 1e-5 relative; TransMVSNet's winner-take-all hypothesis
+    equal where the top two probabilities differ by more than 1e-4, its
+    confidence within 1e-4."""
+    errs = chip_smoke.cascade_card_vs_cpu(cuda, str(tmp_path / "data"), model)
+    assert errs["prob"] <= chip_smoke.PROB_TOL, errs
+    assert errs["depth_rel"] <= chip_smoke.DEPTH_RTOL, errs
+    assert errs.get("wta", 0) == 0, errs
+    assert errs.get("conf", 0.0) <= chip_smoke.PROB_TOL, errs
+
+
+@pytest.mark.parametrize("head", [0, 1, 2])
+def test_deform_conv_kernel_matches_plain(cuda, head):
+    """The deformable-conv kernel against its plain version at the
+    three DCNs of TransMVSNet's stage-`head + 1` head at x2 DTU shapes
+    (Cin 32; 288x384, 576x768, 1152x1536), random offsets with a
+    2-pixel spread and masks in (0, 1): within 1e-5 (1 + |plain|), one
+    launch a call."""
+    scale, couts = chip_smoke.DCN_HEADS[head]
+    H, W = 1152 // scale, 1536 // scale
+    for i, cout in enumerate(couts):
+        args = chip_smoke.dcn_inputs(H, W, cout, cuda, 10 * head + i)
+        before = deform_conv.deform_conv2d.launches
+        got = deform_conv.deform_conv2d(*args)
+        ref = deform_conv.deform_conv2d_plain(*args)
+        torch.cuda.synchronize()
+        assert deform_conv.deform_conv2d.launches == before + 1
+        assert got.shape == (cout, H, W)
+        rel = ((got - ref) / (1 + ref.abs())).abs().max().item()
+        assert rel <= chip_smoke.DCN_TOL, (cout, rel)
+
+
+@pytest.mark.parametrize("cout", [8, 16, 32])
+def test_deform_conv_kernel_ragged_tile(cuda, cout):
+    """37 x 53 pixels: the last 256-pixel tile and the last 64-pixel
+    block of the channel-last copy are partial."""
+    args = chip_smoke.dcn_inputs(37, 53, cout, cuda, cout)
+    got = deform_conv.deform_conv2d(*args)
+    ref = deform_conv.deform_conv2d_plain(*args)
+    torch.cuda.synchronize()
+    rel = ((got - ref) / (1 + ref.abs())).abs().max().item()
+    assert rel <= chip_smoke.DCN_TOL, rel
+
+
+def test_deform_conv_refuses_what_it_does_not_take(cuda):
+    """A CUDA tensor goes to the kernel or raises: other dtypes (the
+    kernel is float32 only), a non-contiguous operand, a Cout outside
+    8/16/32, operands on two devices."""
+    args = chip_smoke.dcn_inputs(64, 96, 16, cuda, 0)
+    for i in range(5):
+        for dtype in (torch.float64, torch.bfloat16):
+            bad = list(args)
+            bad[i] = bad[i].to(dtype)
+            with pytest.raises(ValueError, match="float32"):
+                deform_conv.deform_conv2d(*bad)
+    bad = list(args)
+    bad[0] = args[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        deform_conv.deform_conv2d(*bad)
+    bad = chip_smoke.dcn_inputs(64, 96, 12, cuda, 0)
+    with pytest.raises(ValueError, match="Cout"):
+        deform_conv.deform_conv2d(*bad)
+    bad = list(args)
+    bad[3] = args[3].cpu()
+    with pytest.raises(ValueError, match="cpu"):
+        deform_conv.deform_conv2d(*bad)
 
 
 def _depth_pair(H, W, angle, seed=0):

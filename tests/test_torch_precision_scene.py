@@ -50,7 +50,7 @@ from s_volsdf_tpu_torch.models import layers as tlayers
 from s_volsdf_tpu_torch.models.mvs import blocks as B
 from s_volsdf_tpu_torch.ops import fused_sdf
 from test_torch_config import IMG_RES, VOL, params_pair, shrink
-from test_torch_runner import RES, VIEWS, _configure
+from test_torch_runner import RES, VIEWS, _configure, f32_of_bf16_operands
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
@@ -100,8 +100,9 @@ def _sample(root):
 
 def _port_stage0(engine, s):
     feats = engine.scene_feature_cache(s.imgs)["feats"]
-    out = engine.stage(0, feats, s.proj_matrices["stage1"], s.depth_values,
-                       None, RES, inverse_depth=False)
+    out, _ = engine.stage(0, feats, s.proj_matrices["stage1"],
+                          s.depth_values, None, None, RES,
+                          inverse_depth=False)
     return {k: v.numpy() for k, v in out.items()}
 
 
@@ -130,16 +131,7 @@ def test_cascade_stage_bf16_matches_jax(fixture, monkeypatch):
 
     # The output rounding alone: the port against an f32 conv of the same
     # bf16 operands.
-    in_weight_dtype = B._in_weight_dtype
-
-    def f32_of_bf16_operands(conv, x, apply):
-        w = conv.weight.data
-        conv.weight.data = w.float()
-        try:
-            return in_weight_dtype(conv, x.to(torch.bfloat16).float(), apply)
-        finally:
-            conv.weight.data = w
-    monkeypatch.setattr(B, "_in_weight_dtype", f32_of_bf16_operands)
+    f32_of_bf16_operands(monkeypatch)
     unrounded = _port_stage0(teng, s)
     assert np.abs(got["prob_volume"]
                   - unrounded["prob_volume"]).max() <= PROB_TOL

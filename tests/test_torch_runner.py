@@ -30,6 +30,24 @@ error of 2 levels of it).
 
 A second test runs the port alone with three steps: finite losses,
 depths inside the fixture's range.
+
+UCSNet and TransMVSNet (the engine's two other cascades), with the JAX
+engine's random weights made lively (`test_torch_config.lively_mvs_tree`:
+random BN, He's gain, random DCN offset convs), loaded by both engines
+from one converted checkpoint:
+- both packages' `save_scene_depth` with ablate=true (the cascade alone,
+  the extras threaded from stage to stage), PFMs compared. UCSNet's
+  regressed depth within 1e-5 relative (the MVS volumes' bar) and its
+  confidence as CasMVSNet's; TransMVSNet's winner-take-all depth equal
+  (1e-6 relative: the two packages' hypotheses) on every pixel whose
+  top two stage-3 probabilities differ by more than 1e-5 (elsewhere
+  argmax may pick either), its confidence within 1e-5 on the pixels
+  whose three stages all pass that rule;
+- one stage 1 with an injected full-resolution previous depth (as a
+  feedback render gives it) and extra, against JAX's: prob within 1e-5,
+  depth as above;
+- the port alone with a 2-step VolSDF budget at stage 0: stages 1 and 2
+  receive the feedback render and the previous stage's extra.
 """
 
 import os
@@ -47,14 +65,18 @@ from s_volsdf_tpu_torch.data.fixtures import make_dtu_fixture
 from s_volsdf_tpu_torch.data.io import read_pfm, read_png
 from s_volsdf_tpu_torch.engine import runner as trunner
 from s_volsdf_tpu_torch.engine import trainer as ttrainer
+from s_volsdf_tpu_torch.data.mvs_dataset import MVSDataset
+from s_volsdf_tpu_torch.data.splits import get_trains_ids
 from s_volsdf_tpu_torch.ops import fused_sdf
-from test_torch_config import params_pair, shrink
+from test_torch_config import lively_mvs_tree, params_pair, shrink
 
 RES = (64, 96)
 VIEWS = (25, 22, 28)
 DEPTH_RTOL = 1e-3       # every pixel
 DEPTH_BAR = 1e-4        # at least 99% of the pixels
 CONF_ATOL = 1e-5
+OTHER_MODELS = ("ucsnet", "transmvsnet")
+MVS_TOL = 1e-5          # MVS volumes (README "Verified parity")
 
 
 def _configure(cfg, data_root, opt_steps):
@@ -154,14 +176,6 @@ def test_stage_records(both_runs):
         np.testing.assert_allclose(pv.sum(0).numpy(), 1.0, atol=1e-4)
 
 
-@pytest.mark.parametrize("name", ["ucsnet", "transmvsnet"])
-def test_engine_refuses_other_cascades(name):
-    cfg = shrink(tconfig.dtu_config())
-    cfg.mvs.model_name = name
-    with pytest.raises(NotImplementedError, match=name):
-        trunner.MVSEngine(cfg, device="cpu")
-
-
 def test_save_scene_depth_takes_one_device():
     """The trainer runs on the engine's device: an engine and a device
     together are refused rather than left to disagree."""
@@ -242,3 +256,238 @@ def test_port_trains_and_feeds_back(data_root, tmp_path):
             (depth.min(), depth.max())
     # On the CPU the renders take the plain SDF version.
     assert fused_sdf.fused_sdf_values.launches == launches
+
+
+# --------------------------------------------------------------------------
+# UCSNet and TransMVSNet
+# --------------------------------------------------------------------------
+
+def lively_checkpoint(data_root, model, path):
+    """The JAX engine's random `model` weights made lively, saved as a
+    converted checkpoint that both engines load."""
+    jcfg = _configure(jconfig.dtu_config(), data_root, (0, 0, 0))
+    jcfg.mvs.model_name = model
+    params = jax.tree.map(np.asarray, jrunner.MVSEngine(jcfg).params)
+    jckpt.save_state(path, lively_mvs_tree(params, np.random.default_rng(0)),
+                     model=model)
+    return path
+
+
+def engines(data_root, model, ck, compute_dtype="float32"):
+    """(JAX MVSEngine, port MVSEngine) of `model` at `compute_dtype`, one
+    device, serial over views, weights from `ck`."""
+    cfgs = []
+    for mod in (jconfig, tconfig):
+        cfg = _configure(mod.dtu_config(), data_root, (0, 0, 0))
+        cfg.mvs.model_name = model
+        cfg.mvs.compute_dtype = compute_dtype
+        cfgs.append(cfg)
+    cfgs[0].parallel.shard_rays = cfgs[0].parallel.shard_eval = False
+    cfgs[0].parallel.shard_mvs_views = False
+    return (jrunner.MVSEngine(cfgs[0], weights_path=ck),
+            trunner.MVSEngine(cfgs[1], weights_path=ck, device="cpu"))
+
+
+def first_sample(data_root):
+    return MVSDataset(
+        datapath=os.path.join(data_root, "DTU", "mvs_data"), scan="scan106",
+        nviews=3, data_dir="DTU", ndepths=16, interval_scale=1.06,
+        max_h=RES[0], max_w=RES[1],
+        trains_i=get_trains_ids("DTU", "scan106", 3), data_dir_root=data_root,
+        x2_mvsres=False)[0]
+
+
+def stage_pair(jeng, teng, s, stage, prev_depth=None, extra=None):
+    """One stage of the first sample on both engines from the same
+    inputs: (JAX outputs, JAX extra, port outputs, port extra), numpy."""
+    import jax.numpy as jnp
+    proj = s.proj_matrices[f"stage{stage + 1}"]
+    jf = jeng.sample_features(jeng.scene_feature_cache(jnp.asarray(s.imgs)),
+                              [0, 1, 2])
+    want, jextra = jeng.stage(
+        stage, jf, jnp.asarray(proj), jnp.asarray(s.depth_values),
+        None if prev_depth is None else jnp.asarray(prev_depth),
+        None if extra is None else jnp.asarray(extra), RES,
+        inverse_depth=False)
+    tf = teng.sample_features(teng.scene_feature_cache(s.imgs), [0, 1, 2])
+    got, textra = teng.stage(
+        stage, tf, proj, s.depth_values, prev_depth,
+        None if extra is None else torch.tensor(extra), RES,
+        inverse_depth=False)
+    return ({k: np.asarray(v) for k, v in want.items()}, np.asarray(jextra),
+            {k: v.numpy() for k, v in got.items()}, textra.numpy())
+
+
+def f32_of_bf16_operands(monkeypatch):
+    """Make the port's bf16 convs f32 convs of the same bf16-rounded
+    operands: the rounding of their output to bf16 (the one place where
+    the port's bf16 conv differs from JAX's, ROADMAP queue 3) taken
+    away."""
+    from s_volsdf_tpu_torch.models.mvs import blocks as B
+    in_weight_dtype = B._in_weight_dtype
+
+    def unrounded(conv, x, apply):
+        w = conv.weight.data
+        if w.dtype != torch.bfloat16:
+            return in_weight_dtype(conv, x, apply)
+        conv.weight.data = w.float()
+        try:
+            return in_weight_dtype(conv, x.to(torch.bfloat16).float(), apply)
+        finally:
+            conv.weight.data = w
+    monkeypatch.setattr(B, "_in_weight_dtype", unrounded)
+
+
+def sure_pixels(prob, tol=MVS_TOL):
+    """Pixels whose top two probabilities differ by more than tol: there
+    winner-take-all picks the same hypothesis on either side."""
+    top2 = -np.sort(-prob, axis=0)[:2]
+    return top2[0] - top2[1] > tol
+
+
+def assert_stage_matches(got, want, model, prob_tol=MVS_TOL,
+                         depth_rtol=MVS_TOL):
+    """prob_volume within prob_tol and the hypotheses within 1e-5
+    relative; the depth within depth_rtol relative (UCSNet's
+    regression), or TransMVSNet's winner-take-all hypothesis equal on the
+    `sure_pixels` (at least half of them) and its confidence within
+    prob_tol everywhere."""
+    np.testing.assert_allclose(got["depth_values"], want["depth_values"],
+                               rtol=1e-5)
+    assert np.abs(got["prob_volume"] - want["prob_volume"]).max() <= prob_tol
+    if model == "transmvsnet":
+        sure = sure_pixels(want["prob_volume"], prob_tol)
+        assert sure.mean() >= 0.5, sure.mean()
+        np.testing.assert_array_equal(got["prob_volume"].argmax(0)[sure],
+                                      want["prob_volume"].argmax(0)[sure])
+        np.testing.assert_allclose(got["depth"][sure], want["depth"][sure],
+                                   rtol=1e-6)
+        assert np.abs(got["photometric_confidence"]
+                      - want["photometric_confidence"]).max() <= prob_tol
+    else:
+        np.testing.assert_allclose(got["depth"], want["depth"],
+                                   rtol=depth_rtol)
+
+
+@pytest.fixture(scope="module", params=OTHER_MODELS)
+def ablate_runs(request, data_root, tmp_path_factory):
+    """Both packages' save_scene_depth of `model` with ablate=true."""
+    model = request.param
+    out = tmp_path_factory.mktemp(f"ablate_{model}")
+    ck = lively_checkpoint(data_root, model, str(out / "ck"))
+    jeng, teng = engines(data_root, model, ck)
+    jdir, tdir = str(out / "jax"), str(out / "port")
+    jeng.cfg.ablate = teng.cfg.ablate = True
+    jrunner.save_scene_depth(jeng.cfg, "scan106", exps_root=jdir, engine=jeng)
+    res = trunner.save_scene_depth(teng.cfg, "scan106", exps_root=tdir,
+                                   engine=teng)
+    return (model, os.path.join(jdir, "exps_mvs", "scan106"),
+            os.path.join(tdir, "exps_mvs", "scan106"), res)
+
+
+@pytest.mark.parametrize("view", VIEWS)
+def test_ablate_pfms_match_jax(ablate_runs, view):
+    model, jdir, tdir, res = ablate_runs
+    assert len(res["stage_seconds"]) == 3 and not res["feedback_seconds"]
+    pfm = {}
+    for kind in ("depth_est", "confidence"):
+        want, _ = read_pfm(os.path.join(jdir, f"{kind}/{view:08d}.pfm"))
+        got, _ = read_pfm(os.path.join(tdir, f"{kind}/{view:08d}.pfm"))
+        assert got.shape == want.shape == RES
+        assert np.isfinite(got).all()
+        pfm[kind] = got, want
+    (depth, jdepth), (conf, jconf) = pfm["depth_est"], pfm["confidence"]
+    if model == "ucsnet":
+        np.testing.assert_allclose(depth, jdepth, rtol=MVS_TOL)
+        assert np.mean(np.abs(conf - jconf) > CONF_ATOL) <= 1e-3
+        return
+    outs = next(o for o, s in zip(res["outs"], res["samples"])
+                if s.view_ids[0] == view)
+    sure = sure_pixels(outs["stage3"]["prob_volume"].numpy())
+    assert sure.mean() >= 0.5, sure.mean()
+    np.testing.assert_allclose(depth[sure], jdepth[sure], rtol=1e-6)
+    for k in ("stage1", "stage2"):
+        s = sure_pixels(outs[k]["prob_volume"].numpy())
+        sure &= torch.nn.functional.interpolate(
+            torch.tensor(s, dtype=torch.float32)[None, None], size=RES,
+            mode="nearest")[0, 0].numpy() > 0
+    np.testing.assert_allclose(conf[sure], jconf[sure], atol=CONF_ATOL)
+
+
+def _injected(s, model, rng):
+    """A smooth full-resolution depth inside the sample's range (as a
+    feedback render hands it on) and a stage-0 extra: UCSNet's spread of
+    1-8 hypothesis intervals, TransMVSNet's view weights in (0.2, 1)."""
+    dv = np.asarray(s.depth_values)
+    lo, hi = float(dv[0]), float(dv[-1])
+    yy, xx = np.meshgrid(np.linspace(0, 1, RES[0]), np.linspace(0, 1, RES[1]),
+                         indexing="ij")
+    depth = (lo + (hi - lo) * (0.45 + 0.1 * np.sin(3 * xx + 2 * yy)))
+    h4, w4 = RES[0] // 4, RES[1] // 4
+    if model == "ucsnet":
+        extra = rng.uniform(1, 8, (h4, w4)) * (hi - lo) / dv.shape[0]
+    else:
+        extra = rng.uniform(0.2, 1.0, (2, h4, w4))
+    return depth.astype(np.float32), extra.astype(np.float32)
+
+
+@pytest.mark.parametrize("model", OTHER_MODELS)
+def test_stage_with_injected_feedback_matches_jax(data_root, tmp_path, model):
+    ck = lively_checkpoint(data_root, model, str(tmp_path / "ck"))
+    jeng, teng = engines(data_root, model, ck)
+    s = first_sample(data_root)
+    depth, extra = _injected(s, model, np.random.default_rng(3))
+    want, jextra, got, textra = stage_pair(jeng, teng, s, 1, depth, extra)
+    assert_stage_matches(got, want, model)
+    if model == "ucsnet":
+        np.testing.assert_allclose(textra, jextra, rtol=MVS_TOL)
+    else:
+        # The given weights, upsampled 2x, are handed on unchanged.
+        np.testing.assert_array_equal(textra, jextra)
+        assert textra.shape == (2, RES[0] // 2, RES[1] // 2)
+
+
+@pytest.mark.parametrize("model", OTHER_MODELS)
+def test_port_feedback_and_extras_reach_later_stages(data_root, tmp_path,
+                                                     monkeypatch, model):
+    """The port alone, two VolSDF steps at stage 0: stage 1 of each view
+    is given the view's feedback render and its stage-0 extra, stage 2
+    the stage-1 depth and extra; TransMVSNet's FMT runs once a sample."""
+    cfg = _configure(tconfig.dtu_config(), data_root, (2, 0, 0))
+    cfg.mvs.model_name = model
+    engine = trunner.MVSEngine(cfg, device="cpu")
+    calls, feedback = [], []
+    stage, feedback_depths = engine.stage, trunner.feedback_depths
+
+    def recording(stage_idx, feats, proj, dv, prev_depth, extra, hw, **kw):
+        out, new_extra = stage(stage_idx, feats, proj, dv, prev_depth, extra,
+                               hw, **kw)
+        calls.append((stage_idx, prev_depth, extra, new_extra))
+        return out, new_extra
+
+    def recording_feedback(sc, outs):
+        feedback_depths(sc, outs)
+        feedback.extend(np.array(o["depth"]) for o in outs)
+    fmt_calls = []
+    fmt = trunner.fmt_with_pathway
+    monkeypatch.setattr(engine, "stage", recording)
+    monkeypatch.setattr(trunner, "feedback_depths", recording_feedback)
+    monkeypatch.setattr(trunner, "fmt_with_pathway",
+                        lambda *a: (fmt_calls.append(1), fmt(*a))[1])
+    res = trunner.save_scene_depth(cfg, "scan106", exps_root=str(tmp_path),
+                                   engine=engine)
+    # TransMVSNet's FMT once a sample, not once a stage.
+    assert len(fmt_calls) == (3 if model == "transmvsnet" else 0)
+    losses = [lo.loss for lo in res["trainer"].losses]
+    assert len(losses) == 2 and np.all(np.isfinite(losses))
+    assert [c[0] for c in calls] == [0] * 3 + [1] * 3 + [2] * 3
+    assert len(feedback) == 3
+    for i in range(3):
+        s0, s1, s2 = calls[i], calls[3 + i], calls[6 + i]
+        assert s0[1] is None and s0[2] is None
+        h4, w4 = RES[0] // 4, RES[1] // 4
+        assert s0[3].shape == ((h4, w4) if model == "ucsnet" else (2, h4, w4))
+        np.testing.assert_array_equal(s1[1], feedback[i])
+        assert s1[2] is s0[3] and s2[2] is s1[3]
+        np.testing.assert_array_equal(s2[1], res["outs"][i]["stage2"]["depth"])
+        assert np.isfinite(res["outs"][i]["depth"]).all()
