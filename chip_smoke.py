@@ -117,8 +117,31 @@ checks it, in phases that print in order:
      hypothesis where the top two probabilities are more than PROB_TOL
      apart, and its confidence); (d) `cli.run.main` at 64x96 with each
      model;
- 10. a JSON line with the kernels' numbers, the card's name and power
-     limit, and the last line {"ok": true, "device": {...}}.
+ 11. (run before 10's results) BlendedMVS, the NeRF++ background model
+     of the bmvs preset at its full widths: (a) the fused SDF kernel at
+     bounding_sphere 0 in both modes on 65,536 points in a ball of
+     radius 2r against its plain version (1e-4; 2^-7 (|sdf| + 1)), the
+     clamped call (bounding_sphere r) differing on the points outside
+     the sphere, timed; (b) the background training step at bench.py's
+     shapes (512 rays, three 192x288x384 volumes), 20 steps at the
+     defaults and 20 in float32 (finite losses, grad_finite, one
+     fused-SDF launch a step), each then 5 steps under torch.profiler:
+     median step ms, device ms, busy share, launches a step; (c)
+     `save_scene_depth` and `pcd_filter` on a 576x768 BMVS fixture
+     (scan1: stage 0 in inverse depth) at x2 MVS shapes with the full
+     casmvsnet at He's gain, 20 background steps at the defaults: stage
+     seconds and peak memory, render seconds per view, the fused,
+     cost_mapping and geo_consistency launches, finite PFMs, the fused
+     cloud's size; (d) `render_image` of eval view 19 with its near pose
+     at 576x768 (seconds, peak memory) and `cli.eval_bmvs` of the fused
+     cloud against points on the fixture's sphere written as
+     BlendedMVS/stl/scan1.ply (printed: at scan1's relative scale its 20
+     mm bound is 0.02 fixture units, so it is NaN) and against itself
+     (0);
+ 10. a JSON line with the kernels' numbers (the fused kernel's
+     `unclamped_launches`: its launches on phase 11's paths, all at
+     bounding_sphere 0), the card's name and power limit, and the last
+     line {"ok": true, "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA device. Weights are random,
@@ -150,11 +173,13 @@ import numpy as np
 import torch
 
 from s_volsdf_tpu_torch.bridge import from_jax_mvs_params, to_jax_mvs_params
+from s_volsdf_tpu_torch.cli import eval_bmvs as cli_eval_bmvs
 from s_volsdf_tpu_torch.cli import eval_dtu as cli_eval_dtu
 from s_volsdf_tpu_torch.cli import eval_vsdf as cli_eval_vsdf
 from s_volsdf_tpu_torch.cli import run as cli_run
-from s_volsdf_tpu_torch.config import Config, dtu_config
-from s_volsdf_tpu_torch.data.fixtures import make_dtu_fixture
+from s_volsdf_tpu_torch.config import (Config, bmvs_config, dtu_config,
+                                       per_scene_overrides)
+from s_volsdf_tpu_torch.data.fixtures import make_bmvs_fixture, make_dtu_fixture
 from s_volsdf_tpu_torch.data.io import load_ply, read_pfm, save_ply, write_png
 from s_volsdf_tpu_torch.data.mvs_dataset import MVSDataset
 from s_volsdf_tpu_torch.data.scene_dataset import scene_from_synthetic
@@ -167,7 +192,8 @@ from s_volsdf_tpu_torch.engine.fusion import (filter_depth, fuse_views,
                                               load_views)
 from s_volsdf_tpu_torch.engine.mesh import mesh_sdf_fn
 from s_volsdf_tpu_torch.engine.render import render_depth, render_image
-from s_volsdf_tpu_torch.engine.runner import MVSEngine, save_scene_depth
+from s_volsdf_tpu_torch.engine.runner import (MVSEngine, pcd_filter,
+                                              save_scene_depth)
 from s_volsdf_tpu_torch.engine.train_step import training_model_config
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer
 from s_volsdf_tpu_torch.models.lpips import init_lpips_params, lpips_leaves
@@ -260,15 +286,19 @@ OUTSIDE_STEPS = 3
 BACKLOG_CYCLES = 5_000_000
 
 
-def float32_dtu_config() -> Config:
-    """The dtu preset with the three training precision knobs and the
-    cascade's at float32 (their JAX defaults are bf16)."""
-    cfg = dtu_config()
+def float32_config(cfg: Config) -> Config:
+    """cfg with the three training precision knobs and the cascade's at
+    float32 (their JAX defaults are bf16)."""
     cfg.train.train_compute_dtype = "float32"
     cfg.train.train_activation_dtype = "float32"
     cfg.train.mvs_pack_dtype = "float32"
     cfg.mvs.compute_dtype = "float32"
     return cfg
+
+
+def float32_dtu_config() -> Config:
+    """The dtu preset at float32 (`float32_config`)."""
+    return float32_config(dtu_config())
 
 
 def make_volumes(scene, vol_shape, device) -> MVSVolumes:
@@ -1773,6 +1803,217 @@ def eval_command_lines(dev, card: str, tmp: str) -> Dict:
 
 
 
+# --------------------------------------------------------------------------
+# 11. BlendedMVS: the NeRF++ background model
+# --------------------------------------------------------------------------
+
+BMVS_SCAN = "scan1"        # in the inverse-depth list: stage 0 in 1/z
+BMVS_EVAL_VIEW = 19        # scan1's first eval view
+PROFILE_STEPS = 5          # the background step's profiled steps
+
+
+def check_unclamped(dev, card: str) -> Dict:
+    """Phase 11(a): the fused kernel at bounding_sphere = 0, both modes,
+    on 65,536 points in a ball of radius 2r, against its plain version;
+    the clamped call (bounding_sphere = r) differs outside the sphere."""
+    cfg = bmvs_config()
+    models = {"float32": cfg.model, "bfloat16": training_model_config(cfg)}
+    params = init_volsdf_params(torch.Generator().manual_seed(0), cfg.model,
+                                dev)
+    r = cfg.model.scene_bounding_sphere
+    rng = np.random.default_rng(11)
+    d = rng.normal(size=(KERNEL_SWEEP, 3))
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    pts = torch.as_tensor((d * 2 * r * rng.uniform(0, 1, (KERNEL_SWEEP, 1))
+                           ** (1 / 3)).astype(np.float32), device=dev)
+    outside = torch.linalg.norm(pts, dim=-1) > r
+    out = {}
+    for mode, mcfg in models.items():
+        got = fused_sdf.fused_sdf_values(params.sdf, mcfg, pts, 0.0)
+        ref = fused_sdf.sdf_values_plain(params.sdf, mcfg, pts, 0.0)
+        if mode == "float32":
+            err = (got - ref).abs().max().item()
+            _check(err <= KERNEL_TOL, f"unclamped kernel vs plain: {err}")
+        else:
+            err = _bf16_within(got, ref)
+        clamped = fused_sdf.fused_sdf_values(params.sdf, mcfg, pts, r)
+        moved = (clamped != got)[outside].float().mean().item()
+        _check(moved > 0.99,
+               f"{mode}: the clamp moves {moved} of the points outside")
+        pack = fused_sdf.pack_sdf(params.sdf, mcfg)
+        ms = _median_ms(lambda: fused_sdf.fused_sdf_values(
+            params.sdf, mcfg, pts, 0.0, pack=pack))
+        print(f"[bmvs] fused_sdf {mode} mode unclamped (bounding_sphere 0) "
+              f"vs plain on {KERNEL_SWEEP} pts in a ball of radius {2 * r}: "
+              f"max|diff| {err:.3e} ("
+              + (f"tol {KERNEL_TOL}" if mode == "float32" else
+                 f"tol {BF16_KERNEL_UNITS} (|sdf| + 1)")
+              + f"); the clamp at r = {r} moves {100 * moved:.1f}% of the "
+              f"{int(outside.sum())} points outside; kernel {ms:.4f} ms "
+              f"[{card}]", flush=True)
+        out[mode] = {"err": err, "ms": ms}
+        del got, ref, clamped, pack
+    return out
+
+
+def _profile_steps(trainer: VolTrainer, n: int) -> Dict:
+    """torch.profiler over n more steps (tools/time_step.py's method):
+    device ms a step, kernels and copies launched a step."""
+    from torch.profiler import ProfilerActivity
+    from s_volsdf_tpu_torch.tools.time_step import _device_time
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        trainer.run(n)
+        torch.cuda.synchronize()
+    busy, launches = _device_time(prof)
+    return {"device_ms": 1e3 * busy / n, "launches": launches / n}
+
+
+def run_bmvs_training(dev, card: str) -> Dict:
+    """Phase 11(b): the background step at the bmvs preset's full widths,
+    bench.py's shapes, 20 steps at the defaults and 20 in float32, then
+    PROFILE_STEPS profiled. Returns the launches of the 40 steps."""
+    _reset_counts()                             # this path starts
+    runs = {}
+    for what, cfg in (("defaults", bmvs_config()),
+                      ("float32", float32_config(bmvs_config()))):
+        trainer = make_trainer(cfg, (cfg.max_h, cfg.max_w), BENCH_VOLUMES, dev)
+        before = dict(fused_sdf.fused_sdf_values.mode_launches)
+        trainer.run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        modes = {m: n - before[m]
+                 for m, n in fused_sdf.fused_sdf_values.mode_launches.items()}
+        losses = [lo.loss for lo in trainer.losses]
+        _check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses))
+               and all(lo.grad_finite == 1.0 for lo in trainer.losses),
+               f"bmvs {what}: finite losses and grads: {losses}")
+        mode = "bfloat16" if what == "defaults" else "float32"
+        _check(modes[mode] == TRAIN_STEPS and sum(modes.values()) == TRAIN_STEPS,
+               f"bmvs {what}: fused launches {modes}")
+        runs[what] = (trainer, losses, modes)
+    launches = _launch_counts()                 # ... and ends here
+    for what, (trainer, losses, modes) in runs.items():
+        step_ms = 1e3 * float(np.median(trainer.chunk_seconds))
+        prof = _profile_steps(trainer, PROFILE_STEPS)
+        print(f"[bmvs] background step {what}: {TRAIN_STEPS} steps at "
+              f"{trainer.cfg.train.num_pixels} rays: loss {losses[0]:.5f} -> "
+              f"{losses[-1]:.5f}, median {step_ms:.2f} ms/step; profiled "
+              f"{PROFILE_STEPS}: device {prof['device_ms']:.2f} ms/step, busy "
+              f"{100 * prof['device_ms'] / step_ms:.1f}%, "
+              f"{prof['launches']:.0f} launches/step; fused SDF launches "
+              f"{sum(modes.values()) / TRAIN_STEPS:.0f}/step {modes} "
+              f"[{card}]", flush=True)
+    del runs
+    return launches
+
+
+def bmvs_scene_config(data_root: str) -> Config:
+    """The bmvs preset at the JAX defaults on the BMVS fixture at 576x768,
+    x2 MVS shapes, scan1's overrides (stage 0 in inverse depth)."""
+    cfg = bmvs_config()
+    cfg.data_dir_root = cfg.dataset.data_dir_root = data_root
+    cfg.max_h, cfg.max_w = CASCADE_RES
+    cfg.dataset.img_res = tuple(CASCADE_RES)
+    cfg.mvs.ndepths, cfg.mvs.numdepth = CASCADE_NDEPTHS, CASCADE_NDEPTHS[0]
+    cfg.mvs.x2_mvsres = CASCADE_X2
+    cfg.mvs.interval_scale = 1.0
+    cfg.opt_stepNs = (TRAIN_STEPS, 0, 0)
+    cfg.filter.eval_mask = False
+    return per_scene_overrides(cfg, BMVS_SCAN)
+
+
+def run_bmvs_scene(dev, card: str, tmp: str) -> Dict:
+    """Phase 11(c) and (d): save_scene_depth and pcd_filter on a 576x768
+    BMVS fixture, then the background eval render of one eval view and
+    cli.eval_bmvs on a sphere GT cloud. Returns the launches of (c)."""
+    data_root = os.path.join(tmp, "bmvs")
+    make_bmvs_fixture(data_root, img_res=CASCADE_RES)
+    cfg = bmvs_scene_config(data_root)
+    _check(cfg.inverse_depth, "scan1 runs stage 0 in inverse depth")
+    engine = MVSEngine(cfg, device=dev)
+    he_gain(engine.net)
+    exps = os.path.join(tmp, "bmvs_exps")
+    _reset_counts()                             # this path starts
+    t0 = time.perf_counter()
+    res = save_scene_depth(cfg, BMVS_SCAN, exps_root=exps, engine=engine)
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    (ply,) = pcd_filter(cfg, [BMVS_SCAN], exps_root=exps, device=dev)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    launches = _launch_counts()                 # ... and ends here
+    trainer = res["trainer"]
+    losses = [lo.loss for lo in trainer.losses]
+    _check(len(losses) == TRAIN_STEPS and all(np.isfinite(losses)),
+           f"bmvs scene: finite losses {losses}")
+    _check(launches["fused_sdf"]["bfloat16"] == TRAIN_STEPS
+           and launches["fused_sdf"]["float32"] > 0
+           and launches["cost_mapping"] == TRAIN_STEPS
+           and launches["geo_consistency"] > 0,
+           f"bmvs scene launches {launches}")
+    H2, W2 = CASCADE_MVS_RES
+    for vid in trainer.trains_i:
+        for kind in ("depth_est", "confidence"):
+            arr, _ = read_pfm(os.path.join(res["outdir"], BMVS_SCAN, kind,
+                                           f"{vid:08d}.pfm"))
+            _check(arr.shape == (H2, W2) and np.isfinite(arr).all(),
+                   f"bmvs {kind} {vid}: {arr.shape}, finite "
+                   f"{np.isfinite(arr).all()}")
+    xyz, _ = load_ply(ply)
+    _check(xyz.shape[0] > 0, "bmvs: an empty fused cloud")
+    print(f"[bmvs] save_scene_depth {BMVS_SCAN} (inverse-depth stage 0), MVS "
+          f"{H2}x{W2}, D {'/'.join(map(str, CASCADE_NDEPTHS))}, "
+          f"{TRAIN_STEPS} background steps at the defaults: {scene_s:.2f} s; "
+          f"stages " + ", ".join(
+              f"{sec:.3f} s ({peak / 2**30:.2f} GiB)" for sec, peak in
+              zip(res["stage_seconds"], res["stage_peak_bytes"]))
+          + f"; median {1e3 * float(np.median(trainer.step_seconds)):.2f} "
+          f"ms/step, loss {losses[0]:.5f} -> {losses[-1]:.5f}; feedback "
+          f"renders " + ", ".join(f"{x:.3f} s" for x in res["feedback_seconds"])
+          + f"; pcd_filter {fuse_s:.2f} s, {xyz.shape[0]} points; launches "
+          f"{launches} [{card}]", flush=True)
+
+    # (d) The eval render with the nearest training view's directions,
+    # then the Chamfer command line against points on the fixture's sphere.
+    near = trainer.scene.near_pose(BMVS_EVAL_VIEW)
+    _check(near is not None and not np.array_equal(
+        near, trainer.scene.poses[BMVS_EVAL_VIEW]), "scan1's near pose")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    maps = trainer.render_view(BMVS_EVAL_VIEW)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    _check(all(np.isfinite(m).all() for m in maps.values())
+           and maps["rgb"].shape == CASCADE_RES + (3,),
+           "bmvs eval render: finite maps")
+    # scan1's relative scale (1.005e-3) makes the protocol's 20 mm bound
+    # 0.02 units of the fixture's 200-unit frame, past the spacing of any
+    # sphere cloud: its Chamfer is NaN (no neighbour within the bound),
+    # and only shows that the command line runs. The fused cloud as its
+    # own GT must score 0.
+    gt_path = os.path.join(data_root, "BlendedMVS", "stl", f"{BMVS_SCAN}.ply")
+    argv = ["--datadir", os.path.dirname(ply), "--data_dir_root", data_root,
+            "--scan", BMVS_SCAN[4:], "--no_crop"]
+    save_ply(gt_path, sphere_points(GT_POINTS // 10))
+    t0 = time.perf_counter()
+    (sphere_mm,) = cli_eval_bmvs.main(argv)
+    eval_s = time.perf_counter() - t0
+    save_ply(gt_path, xyz)
+    (self_mm,) = cli_eval_bmvs.main(argv)
+    _check(self_mm == 0.0, f"bmvs chamfer of the cloud against itself "
+           f"{self_mm}")
+    print(f"[bmvs] render_image of eval view {BMVS_EVAL_VIEW} at "
+          f"{CASCADE_RES[0]}x{CASCADE_RES[1]} with its near pose: "
+          f"{render_s:.2f} s, peak allocated {peak / 2**30:.2f} GiB, acc "
+          f"{maps['acc'].mean():.4f}; cli.eval_bmvs {eval_s:.2f} s: against "
+          f"the sphere {sphere_mm:.3f} (NaN: nothing within 20 mm at scan1's "
+          f"scale), against itself {self_mm:.3f} [{card}]", flush=True)
+    del res, trainer, engine, maps
+    return launches
+
+
 def main() -> None:
     # 1. Environment.
     if not torch.cuda.is_available():
@@ -1851,12 +2092,23 @@ def main() -> None:
         # 9. The other cascades: UCSNet and TransMVSNet.
         other = run_other_cascades(dev, card, tmp, data_root)
 
+        # 11. BlendedMVS: the unclamped kernel, the background step, a
+        # scene, its eval.
+        unclamped = check_unclamped(dev, card)
+        for mode, u in unclamped.items():
+            sdf[mode]["errs"]["unclamped"] = u["err"]
+        bmvs = [run_bmvs_training(dev, card), run_bmvs_scene(dev, card, tmp)]
+        bmvs_sdf = {m: sum(p["fused_sdf"][m] for p in bmvs)
+                    for m in fused_sdf.MODES}
+        print(f"[bmvs] fused SDF launches at bounding_sphere 0 on the "
+              f"BlendedMVS paths: {bmvs_sdf}", flush=True)
+
     # 10. Results. Launches are summed over the paths, each counted from 0.
     paths = [launches, outside, scene_launches["float32"],
              scene_launches["defaults"],
              {"fused_sdf": fusion["sdf_launches"],
               "cost_mapping": fusion["cost_launches"]}, eval_field,
-             eval_cli] + other
+             eval_cli] + other + bmvs
     sdf_launches = {m: sum(p["fused_sdf"][m] for p in paths)
                     for m in fused_sdf.MODES}
     cost_launches = sum(p["cost_mapping"] for p in paths)
@@ -1880,6 +2132,8 @@ def main() -> None:
             "ms": m["kernel_ms"][KERNEL_SWEEP], "plain_ms": m["plain_ms"],
             "bound_ms": m["bound_ms"][KERNEL_SWEEP],
             "bound_by": "operations", "library_ms": None,
+            "unclamped_launches": bmvs_sdf[mode],
+            "unclamped_ms": unclamped[mode]["ms"],
             "tflops": m["tflops"][KERNEL_SWEEP],
             f"ms_at_{KERNEL_RENDER}": m["kernel_ms"][KERNEL_RENDER],
             f"bound_ms_at_{KERNEL_RENDER}": m["bound_ms"][KERNEL_RENDER],

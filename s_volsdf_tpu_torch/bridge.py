@@ -2,7 +2,8 @@
 
 The JAX VolSDF parameters are the pytree
 {"sdf": [{"v", "g", "b"} | {"w", "b"}, ...], "rgb": [...],
- "density": {"beta"}}; the port's `VolSDFParams` keeps the same leaves in
+ "density": {"beta"}} (a BlendedMVS model adds "bg_sdf" and "bg_rgb");
+the port's `VolSDFParams` (`VolSDFBGParams`) keeps the same leaves in
 the same layouts ((in, out) weights), so the conversion is one to one
 and exact.
 
@@ -46,6 +47,7 @@ from s_volsdf_tpu_torch.models.mvs.fmt import Dense, LayerNorm
 from s_volsdf_tpu_torch.models.mvs.transmvsnet import DCN, TransMVSNet
 from s_volsdf_tpu_torch.models.mvs.ucsnet import UCSNet
 from s_volsdf_tpu_torch.models.network import VolSDFParams
+from s_volsdf_tpu_torch.models.network_bg import VolSDFBGParams
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -66,12 +68,17 @@ def _mlp_from(layers_np: List[Dict], device) -> nn.ModuleList:
 
 
 def from_jax_params(np_params: Dict, device=None) -> VolSDFParams:
-    """JAX pytree of numpy arrays -> VolSDFParams."""
+    """JAX pytree of numpy arrays -> VolSDFParams, or VolSDFBGParams for
+    a tree with the background MLPs ("bg_sdf", "bg_rgb")."""
     density = LaplaceDensity(device=device)
     with torch.no_grad():
         density.beta.copy_(_tensor(np_params["density"]["beta"], device))
-    return VolSDFParams(_mlp_from(np_params["sdf"], device),
-                        _mlp_from(np_params["rgb"], device), density)
+    fg = (_mlp_from(np_params["sdf"], device),
+          _mlp_from(np_params["rgb"], device), density)
+    if "bg_sdf" in np_params:
+        return VolSDFBGParams(*fg, _mlp_from(np_params["bg_sdf"], device),
+                              _mlp_from(np_params["bg_rgb"], device))
+    return VolSDFParams(*fg)
 
 
 def _mlp_to(mods: nn.ModuleList) -> List[Dict]:
@@ -81,11 +88,15 @@ def _mlp_to(mods: nn.ModuleList) -> List[Dict]:
 
 def to_jax_params(params: VolSDFParams) -> Dict:
     """VolSDFParams -> the JAX pytree, as numpy arrays."""
-    return {
+    tree = {
         "sdf": _mlp_to(params.sdf),
         "rgb": _mlp_to(params.rgb),
         "density": {"beta": params.density.beta.detach().cpu().numpy().copy()},
     }
+    if isinstance(params, VolSDFBGParams):
+        tree["bg_sdf"] = _mlp_to(params.bg_sdf)
+        tree["bg_rgb"] = _mlp_to(params.bg_rgb)
+    return tree
 
 
 # --------------------------------------------------------------------------

@@ -11,7 +11,8 @@ The seven precision knobs (`train.train_compute_dtype`,
 `train.feedback_render_dtype`, `model.compute_dtype`,
 `model.activation_dtype`, `mvs.compute_dtype`) take "float32" or
 "bfloat16" with the JAX package's defaults and meanings; `check_ported`
-validates them and refuses what the port does not implement yet.
+validates them and refuses what the port does not implement (the orbax
+checkpoint backend).
 """
 
 from __future__ import annotations
@@ -63,7 +64,22 @@ class RaySamplerConfig:
     beta_iters: int = 10
     max_total_iters: int = 5
     inverse_sphere_bg: bool = False
+    N_samples_inverse_sphere: int = 0
     add_tiny: float = 0.0
+
+
+@dataclass(unsafe_hash=True)
+class BGNetworkConfig:
+    """The NeRF++ background networks of a BlendedMVS scene: an SDF MLP
+    over inverted-sphere points (x', y', z', 1/r) and a 'nerf'-mode
+    colour MLP."""
+    feature_vector_size: int = 256
+    implicit: ImplicitNetConfig = field(default_factory=lambda: ImplicitNetConfig(
+        d_in=4, d_out=1, dims=(256,) * 8, geometric_init=False, bias=0.0,
+        skip_in=(4,), weight_norm=False, multires=10))
+    rendering: RenderingNetConfig = field(default_factory=lambda: RenderingNetConfig(
+        mode="nerf", d_in=3, d_out=3, dims=(128,), weight_norm=False,
+        multires_view=4))
 
 
 @dataclass(unsafe_hash=True)
@@ -79,6 +95,7 @@ class ModelConfig:
     rendering: RenderingNetConfig = field(default_factory=RenderingNetConfig)
     density: DensityConfig = field(default_factory=DensityConfig)
     sampler: RaySamplerConfig = field(default_factory=RaySamplerConfig)
+    bg: BGNetworkConfig = field(default_factory=BGNetworkConfig)
 
 
 @dataclass(unsafe_hash=True)
@@ -101,7 +118,12 @@ class LossConfig:
     confi: float = 1e-3
     gce: float = 0.5
     anneal_rgb: int = 200
+    # Gate rescue (off by default): an L1 pull of the rendered depth to
+    # the prior's winner-take-all depth on rays whose GCE gate is closed
+    # and whose prior peaks above gate_rescue_peak.
     gate_rescue: bool = False
+    gate_rescue_weight: float = 0.1
+    gate_rescue_peak: float = 0.02
 
 
 @dataclass(unsafe_hash=True)
@@ -194,15 +216,16 @@ def dtu_config() -> Config:
 
 
 def bmvs_config() -> Config:
-    """Counterpart of `s_volsdf_tpu.config.bmvs_config`, for the fields
-    the port has. It builds; `check_ported` refuses its background
-    model (`with_background`) when a run starts."""
+    """Counterpart of `s_volsdf_tpu.config.bmvs_config`: the NeRF++
+    background model, inverse-sphere background samples, an unclamped
+    foreground SDF."""
     cfg = dtu_config()
     cfg.dataset.data_dir = "BlendedMVS"
     cfg.dataset.scan_id = 1
     cfg.model.with_background = True
     cfg.model.implicit.sphere_scale = 1.0
     cfg.model.sampler.inverse_sphere_bg = True
+    cfg.model.sampler.N_samples_inverse_sphere = 32
     cfg.model.sampler.add_tiny = 1e-6
     return cfg
 
@@ -337,13 +360,10 @@ DTYPES = ("float32", "bfloat16")
 
 
 def check_model_ported(mcfg: ModelConfig) -> ModelConfig:
-    """Validate the model's two precision knobs; raise on the BMVS
-    background model, which is not ported."""
+    """Validate the model's two precision knobs."""
     for name in ("compute_dtype", "activation_dtype"):
         _require(getattr(mcfg, name) in DTYPES,
                  f"model.{name}={getattr(mcfg, name)!r}: want one of {DTYPES}")
-    if mcfg.with_background:
-        raise NotImplementedError("model.with_background (BMVS) is not ported")
     return mcfg
 
 
@@ -362,8 +382,8 @@ def check_mvs_ported(mcfg: MVSConfig) -> MVSConfig:
 def check_ported(cfg: Config) -> Config:
     """Validate the seven precision knobs and the checkpoint backend (as
     s_volsdf_tpu/config.py:416-429 does; ValueError) and raise
-    NotImplementedError on what the port does not implement: the BMVS
-    background model, gate rescue and the orbax checkpoint backend."""
+    NotImplementedError on the orbax checkpoint backend, which the port
+    does not implement."""
     for section, name in PRECISION_KNOBS:
         value = getattr(getattr(cfg, section), name)
         _require(value in DTYPES,
@@ -371,8 +391,6 @@ def check_ported(cfg: Config) -> Config:
     _require(cfg.train.ckpt_backend in ("npz", "orbax"),
              f"train.ckpt_backend={cfg.train.ckpt_backend!r}")
     check_model_ported(cfg.model)
-    if cfg.loss.gate_rescue:
-        raise NotImplementedError("loss.gate_rescue is not ported")
     if cfg.train.ckpt_backend == "orbax":
         raise NotImplementedError("train.ckpt_backend='orbax' is not ported "
                                   "(the card's machine has no orbax): use "

@@ -1,8 +1,8 @@
-"""Write a synthetic scene to disk in the DTU on-disk layout (IDR
-cameras.npz + PNG images + mvs_data pair.txt), so the whole data path —
+"""Write a synthetic scene to disk in the DTU or BlendedMVS on-disk
+layout (IDR cameras.npz + PNG images, and mvs_data pair.txt or the
+BlendedMVS hash directory's cam files), so the whole data path —
 scene_dataset, mvs_dataset, runner — reads the formats real data uses
-(counterpart of s_volsdf_tpu/data/fixtures.py:18-79, 154-200; the
-BlendedMVS fixture is not ported).
+(counterpart of s_volsdf_tpu/data/fixtures.py:18-200).
 
 The files hold the same cameras, pixels and pair lists as the JAX
 package's fixture; the PNGs are encoded by the port's own writer.
@@ -15,8 +15,9 @@ from typing import List, Tuple
 
 import numpy as np
 
-from s_volsdf_tpu_torch.data.io import write_png
-from s_volsdf_tpu_torch.data.splits import get_eval_ids
+from s_volsdf_tpu_torch.data.io import write_cam, write_png
+from s_volsdf_tpu_torch.data.splits import (get_eval_ids, get_trains_ids,
+                                            scan2hash)
 from s_volsdf_tpu_torch.data.synthetic import SyntheticScene, make_sphere_scene
 
 
@@ -74,6 +75,12 @@ def write_pair_file(root: str, scan: str, train_ids: List[int],
     mvs_dir = os.path.join(root, data_dir, "mvs_data", scan)
     os.makedirs(mvs_dir, exist_ok=True)
     path = os.path.join(mvs_dir, "pair.txt")
+    _write_pairs(path, train_ids, n_views)
+    return path
+
+
+def _write_pairs(path: str, train_ids: List[int], n_views: int) -> None:
+    """Every view with the other training views as its sources."""
     with open(path, "w") as f:
         f.write(f"{n_views}\n")
         for ref in range(n_views):
@@ -82,7 +89,59 @@ def write_pair_file(root: str, scan: str, train_ids: List[int],
             f.write(f"{len(srcs)} " +
                     " ".join(f"{s} {100.0 - i}" for i, s in enumerate(srcs))
                     + "\n")
-    return path
+
+
+def write_bmvs_cam_files(root: str, scan: str, scene: SyntheticScene,
+                         view_map, world_scale: float,
+                         depth_min: float, depth_max: float,
+                         n_views: int = 64) -> None:
+    """Per-view MVS cam txt files and pair.txt under the scan's BlendedMVS
+    hash directory, mvs_data/<hash>/cams/. Line 11 of a cam file is
+    'depth_min depth_interval 192 depth_max'."""
+    cams_dir = os.path.join(root, "BlendedMVS", "mvs_data", scan2hash(scan),
+                            "cams")
+    os.makedirs(cams_dir, exist_ok=True)
+    interval = (depth_max - depth_min) / 192
+    for vid in range(n_views):
+        sidx = view_map.get(vid, 0)
+        c2w = scene.poses[sidx].copy()
+        c2w[:3, 3] *= world_scale
+        cam = np.zeros((2, 4, 4), np.float32)
+        cam[0] = np.linalg.inv(c2w)
+        cam[1, :3, :3] = scene.intrinsics[sidx][:3, :3]
+        write_cam(os.path.join(cams_dir, f"{vid:08d}_cam.txt"), cam,
+                  near_far=np.array([depth_min, interval, 192.0, depth_max]))
+    _write_pairs(os.path.join(cams_dir, "pair.txt"), list(view_map.keys()),
+                 n_views)
+
+
+def make_bmvs_fixture(root: str, scan_id: int = 1,
+                      img_res: Tuple[int, int] = (64, 96),
+                      world_scale: float = 200.0) -> str:
+    """BlendedMVS-layout fixture for scan_id: its protocol training ids
+    mapped onto 3 distinct synthetic views (cameras at radius 2.8), the
+    other ids copies of view 0, and cam files whose depth range is the
+    camera distance +- 220."""
+    scene = make_sphere_scene(n_views=3, img_res=img_res, cam_radius=2.8)
+    train_ids = get_trains_ids("BlendedMVS", f"scan{scan_id}", 3)
+    n_views = max(train_ids) + 16
+    write_idr_scene(root, scene, scan_id=scan_id, data_dir="BlendedMVS",
+                    world_scale=world_scale, n_pad_views=n_views)
+    inst = os.path.join(root, "BlendedMVS", f"scan{scan_id}")
+    cams = dict(np.load(os.path.join(inst, "cameras.npz")))
+    view_map = {}
+    for v, tid in enumerate(train_ids):
+        view_map[tid] = v
+        cams[f"world_mat_{tid}"] = _world_mat(scene.poses[v],
+                                              scene.intrinsics[v], world_scale)
+        write_png(os.path.join(inst, "image", f"{tid:06d}.png"),
+                  _to_uint8(scene.images[v]))
+    np.savez(os.path.join(inst, "cameras.npz"), **cams)
+    cam_dist = 2.8 * np.sqrt(1 + 0.35 ** 2) * world_scale
+    write_bmvs_cam_files(root, f"scan{scan_id}", scene, view_map,
+                         world_scale, depth_min=cam_dist - 220,
+                         depth_max=cam_dist + 220, n_views=n_views)
+    return root
 
 
 def make_dtu_fixture(root: str, scan_id: int = 106,

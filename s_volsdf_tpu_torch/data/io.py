@@ -1,5 +1,5 @@
-"""Host-side file IO: PFM, binary PLY, MVS cam files, PNG images
-(counterpart of s_volsdf_tpu/data/io.py:23-106, 137-215). `save_ply`
+"""Host-side file IO: PFM, binary PLY, OBJ meshes, MVS cam files, PNG
+images (counterpart of s_volsdf_tpu/data/io.py:23-215). `save_ply`
 writes the same bytes as the JAX package's.
 
 The JAX package reads and writes images with imageio; the port carries
@@ -108,6 +108,31 @@ def save_ply(filename: str, xyz: np.ndarray,
             frec["n"] = 3
             frec["a"], frec["b"], frec["c"] = faces.T.astype(np.int32)
             frec.tofile(f)
+
+
+def read_obj(filename: str) -> Tuple[np.ndarray, np.ndarray]:
+    """The vertices (N, 3) float64 and triangles (M, 3) int64 of a
+    Wavefront OBJ: `v x y z` lines and `f` lines in any of the v, v/vt,
+    v/vt/vn and v//vn styles (1-based, or negative from the end);
+    polygons are fan-triangulated. Enough for the BlendedMVS textured
+    meshes."""
+    verts: list = []
+    faces: list = []
+    with open(filename, "r", errors="ignore") as f:
+        for line in f:
+            if line.startswith("v "):
+                parts = line.split()
+                verts.append([float(parts[1]), float(parts[2]),
+                              float(parts[3])])
+            elif line.startswith("f "):
+                idx = []
+                for tok in line.split()[1:]:
+                    i = int(tok.split("/")[0])
+                    idx.append(i - 1 if i > 0 else len(verts) + i)
+                for k in range(1, len(idx) - 1):
+                    faces.append([idx[0], idx[k], idx[k + 1]])
+    return (np.asarray(verts, dtype=np.float64),
+            np.asarray(faces, dtype=np.int64).reshape(-1, 3))
 
 
 _PLY_TYPES = {b"float": "<f4", b"float32": "<f4", b"double": "<f8",

@@ -1,8 +1,8 @@
 """The scene that per-scene training and the NVS evaluation read, and
 the IDR-format loader (counterpart of
-s_volsdf_tpu/data/scene_dataset.py:32-183). The BlendedMVS eval masks
-and nearest views are not ported (they come with the BMVS background
-model): such a scene has no masks, and `near_pose` raises for it.
+s_volsdf_tpu/data/scene_dataset.py:32-183), with the DTU and the
+BlendedMVS eval masks and, for BlendedMVS, each view's nearest training
+view (`near_pose`, which the background model's eval renders read).
 
 Host-side numpy: images and cameras are loaded once; the trainer moves
 the training views to the device.
@@ -17,7 +17,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from s_volsdf_tpu_torch.data.io import glob_imgs, read_png
-from s_volsdf_tpu_torch.data.splits import get_eval_ids, get_trains_ids
+from s_volsdf_tpu_torch.data.splits import (get_eval_ids, get_near_id,
+                                            get_trains_ids)
 from s_volsdf_tpu_torch.data.synthetic import SyntheticScene
 from s_volsdf_tpu_torch.utils.cameras import load_K_Rt_from_P
 from s_volsdf_tpu_torch.utils.image import (gaussian_blur, resize,
@@ -33,8 +34,8 @@ class SceneData:
     loaded from disk names its dataset and scan; a synthetic one does
     not, and then every view is a training view and none an eval view.
     masks (V, H*W, 3): 1 on the pixels the NVS metrics count (a DTU
-    eval view's foreground mask, ones elsewhere); None for a BlendedMVS
-    scene."""
+    eval view's foreground mask, a BlendedMVS eval or training view's
+    mask alpha, ones elsewhere); None for a synthetic scene."""
     img_res: Tuple[int, int]
     intrinsics: np.ndarray      # (V, 4, 4)
     poses: np.ndarray           # (V, 4, 4) camera-to-world
@@ -62,8 +63,7 @@ class SceneData:
         """The nearest training view's pose, which the BMVS background
         model reads; None for a DTU or synthetic scene."""
         if self.data_dir == "BlendedMVS":
-            raise NotImplementedError("near_pose: the BlendedMVS background "
-                                      "model is not ported")
+            return self.poses[get_near_id(self.data_dir, self.scan_id, idx)]
         return None
 
 
@@ -98,12 +98,29 @@ def _dtu_mask(root: str, scan_id: int, i: int, img_res) -> Optional[np.ndarray]:
     return (m > 0.5).astype(np.float32).reshape(-1, 3)
 
 
+def _bmvs_mask(root: str, scan_id: int, i: int,
+               img_res) -> Optional[np.ndarray]:
+    """The BlendedMVS mask of view i ((H*W, 3) of 0/1): the alpha of
+    the RGBA <root>/scan{id}/mask/{i:08d}.png, nearest-resized, > 0.5;
+    None when it does not exist."""
+    path = os.path.join(root, f"scan{scan_id}", "mask", f"{i:08d}.png")
+    if not os.path.exists(path):
+        return None
+    m = _load_rgb(path)
+    if m.ndim != 3 or m.shape[2] != 4:
+        raise ValueError(f"{path}: a BlendedMVS mask is RGBA, got shape "
+                         f"{m.shape}")
+    m = resize_nearest(np.stack([m[..., -1]] * 3, -1), img_res)
+    return (m > 0.5).astype(np.float32).reshape(-1, 3)
+
+
 def load_scene(data_dir: str, img_res: Tuple[int, int], scan_id: int,
                num_views: int, data_dir_root: str) -> SceneData:
     """Load an IDR-format scene directory: every image, resized to
     img_res (cubic) if needed, its 31x31 sigma-90 blur (the annealed RGB
     target), the cameras decomposed from world_mat @ scale_mat, and the
-    DTU eval views' foreground masks under <root>/<data_dir>/eval_mask."""
+    masks under <root>/<data_dir>/eval_mask: a DTU eval view's
+    foreground, a BlendedMVS eval or training view's alpha."""
     H, W = img_res
     instance_dir = os.path.join(data_dir_root, data_dir, f"scan{scan_id}")
     image_dir = os.path.join(instance_dir, "image")
@@ -134,6 +151,8 @@ def load_scene(data_dir: str, img_res: Tuple[int, int], scan_id: int,
 
     mask_root = os.path.join(data_dir_root, data_dir, "eval_mask")
     eval_ids = get_eval_ids(data_dir, scan_id)
+    bmvs_ids = eval_ids + get_trains_ids(data_dir, f"scan{scan_id}", 3) \
+        if data_dir == "BlendedMVS" else []
     intrinsics_all, poses, rgbs, smooths, masks = [], [], [], [], []
     for i, path in enumerate(image_paths):
         P = (world_mats[i] @ scale_mats[i])[:3, :4]
@@ -148,12 +167,14 @@ def load_scene(data_dir: str, img_res: Tuple[int, int], scan_id: int,
             img = resize(img, (H, W))
         rgbs.append(img.reshape(-1, 3))
         smooths.append(gaussian_blur(img, 31, 90).reshape(-1, 3))
-        if data_dir == "DTU":
-            mask = None
-            if i in eval_ids and scan_id not in _DTU_NO_MASK:
-                mask = _dtu_mask(mask_root, scan_id, i, img_res)
-            masks.append(np.ones((H * W, 3), np.float32) if mask is None
-                         else mask)
+        mask = None
+        if data_dir == "DTU" and i in eval_ids \
+                and scan_id not in _DTU_NO_MASK:
+            mask = _dtu_mask(mask_root, scan_id, i, img_res)
+        elif i in bmvs_ids:
+            mask = _bmvs_mask(mask_root, scan_id, i, img_res)
+        masks.append(np.ones((H * W, 3), np.float32) if mask is None
+                     else mask)
 
     return SceneData(
         img_res=img_res,
@@ -162,4 +183,4 @@ def load_scene(data_dir: str, img_res: Tuple[int, int], scan_id: int,
         rgb=np.stack(rgbs), rgb_smooth=np.stack(smooths),
         scale_factor=scale_factor, data_dir=data_dir, scan_id=scan_id,
         num_views=num_views, scale_mat=scale_mats[0],
-        masks=np.stack(masks) if masks else None)
+        masks=np.stack(masks))

@@ -13,13 +13,14 @@ downsampler (`csrc/downsample.cpp`, sequential by nature).
 
 A mesh (`mode="mesh"`) is sampled into a cloud first (`mesh_to_pcd`:
 its vertices and area-weighted surface samples, engine/mesh.py).
-Generating the BMVS GT cloud (`save_bmvs_gt`) comes with the BMVS port
-and raises NotImplementedError.
+`save_bmvs_gt` makes a BMVS GT cloud from the scan's textured OBJ
+meshes.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import logging
 import os
 import re
@@ -29,7 +30,8 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 from scipy.spatial import cKDTree
 
-from s_volsdf_tpu_torch.data.io import load_ply, save_ply
+from s_volsdf_tpu_torch.data.io import load_ply, read_obj, save_ply
+from s_volsdf_tpu_torch.data.splits import scan2hash
 from s_volsdf_tpu_torch.engine.mesh import sample_surface, triangle_areas
 from s_volsdf_tpu_torch.ops.build import CSRC_DIR, GXX_FLAGS, build_library, gxx
 
@@ -296,10 +298,37 @@ def save_bmvs_gt(scan: int, dataset_dir: str, data_dir_root: str,
                  n_samples: int = 100000,
                  crop_min_z: Optional[float] = None,
                  rng: Optional[np.random.Generator] = None) -> str:
-    """Generate the BMVS GT cloud from its textured meshes: not ported
-    yet (it comes with BlendedMVS, which reads OBJ meshes)."""
-    raise NotImplementedError("save_bmvs_gt is not ported yet (it comes "
-                              "with the BlendedMVS port)")
+    """The BMVS GT cloud of a scan: every .obj under
+    dataset_dir/<scan hash>/textured_mesh/ merged, `n_samples` points
+    drawn uniformly by area from `rng` (default_rng(0)), written as
+    <data_dir_root>/BlendedMVS/stl/scan{n}.ply. With `crop_min_z`, also
+    scan{n}_crop.ply, the points with z >= crop_min_z (the released crops
+    cut above the ground plane; the plane is an argument here). Returns
+    the path of the last cloud written."""
+    gt_dir = os.path.join(dataset_dir, scan2hash(f"scan{scan}"),
+                          "textured_mesh")
+    obj_files = sorted(glob.glob(os.path.join(gt_dir, "*.obj")))
+    if not obj_files:
+        raise FileNotFoundError(f"no .obj meshes under {gt_dir}")
+    verts_l, faces_l, off = [], [], 0
+    for path in obj_files:
+        v, t = read_obj(path)
+        verts_l.append(v)
+        faces_l.append(t + off)
+        off += v.shape[0]
+    pts = sample_surface(np.concatenate(verts_l), np.concatenate(faces_l),
+                         n_samples, rng=rng or np.random.default_rng(0))
+    stl_dir = os.path.join(data_dir_root, "BlendedMVS", "stl")
+    out = os.path.join(stl_dir, f"scan{scan}.ply")
+    save_ply(out, pts.astype(np.float32))
+    logger.info(f"bmvs scan{scan}: GT cloud {pts.shape[0]} pts -> {out}")
+    if crop_min_z is not None:
+        kept = pts[pts[:, 2] >= crop_min_z]
+        out = os.path.join(stl_dir, f"scan{scan}_crop.ply")
+        save_ply(out, kept.astype(np.float32))
+        logger.info(f"bmvs scan{scan}: cropped z>={crop_min_z} "
+                    f"{kept.shape[0]} pts -> {out}")
+    return out
 
 
 def eval_bmvs_scan(pred_ply: str, scan: int, data_dir_root: str,

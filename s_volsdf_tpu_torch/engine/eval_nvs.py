@@ -3,19 +3,19 @@ s_volsdf_tpu/engine/eval_nvs.py):
 
 - `find_checkpoint`: the newest timestamped run that holds the
   checkpoint (or the run a timestamp or run directory names);
+- `load_trained_params`: its VolSDF parameters, with the background
+  MLPs for a background model;
 - `render_eval_views`: each eval view (and the first three training
-  views) rendered with `render_image`, written as eval_{vid:03d}.png,
-  normal_{vid:03d}.png and depth_est/{vid:08d}.pfm (depth x
-  scale_factor);
+  views) rendered with `render_image` (a background model through the
+  view's nearest training view's directions), written as
+  eval_{vid:03d}.png, normal_{vid:03d}.png and depth_est/{vid:08d}.pfm
+  (depth x scale_factor);
 - `eval_rendered_views`: masked PSNR, SSIM and (with weights) LPIPS of
-  the written renders against the scene's images;
+  the written renders against the scene's images (DTU or BlendedMVS
+  masks);
 - `export_mesh`: the SDF's surface (`engine.mesh`, the fused kernel on
-  the card), its largest component, mapped to world units by the
-  scene's scale_mat, as a PLY with faces.
-
-BlendedMVS scenes (the background model, its masks) are not ported:
-their config is refused (`config.check_ported`), and so is a scene
-without eval masks.
+  the card; unclamped for a background model), its largest component,
+  mapped to world units by the scene's scale_mat, as a PLY with faces.
 """
 
 from __future__ import annotations
@@ -39,6 +39,7 @@ from s_volsdf_tpu_torch.engine.render import render_image
 from s_volsdf_tpu_torch.engine.train_step import init_train_state, make_optimizer
 from s_volsdf_tpu_torch.models.lpips import load_lpips, lpips_distance
 from s_volsdf_tpu_torch.models.network import VolSDFParams, init_volsdf_params
+from s_volsdf_tpu_torch.models.network_bg import init_volsdf_bg_params
 from s_volsdf_tpu_torch.utils import checkpoint as ckpt
 from s_volsdf_tpu_torch.utils.metrics import masked_psnr, ssim
 
@@ -80,10 +81,12 @@ def find_checkpoint(expdir: str, checkpoint: str = "latest",
 
 def load_trained_params(cfg: Config, ckpt_path: str, device) -> VolSDFParams:
     """The VolSDF parameters of a checkpoint (the port's or the JAX
-    package's), on `device`."""
+    package's), on `device`; with the background MLPs for a background
+    model."""
     check_ported(cfg)
-    params = init_volsdf_params(torch.Generator().manual_seed(cfg.seed),
-                                cfg.model, device)
+    init = (init_volsdf_bg_params if cfg.model.with_background
+            else init_volsdf_params)
+    params = init(torch.Generator().manual_seed(cfg.seed), cfg.model, device)
     state = init_train_state(cfg, params, make_optimizer(cfg, params))
     leaves, _, _ = ckpt.load_state(ckpt_path, ckpt.train_state_leaves(state))
     ckpt.restore_train_state(state, leaves)
@@ -108,7 +111,8 @@ def render_eval_views(cfg: Config, scene: SceneData, params: VolSDFParams,
     for vid in test_idx:
         maps = render_image(params, cfg.model, scene.poses[vid],
                             scene.intrinsics[vid], scene.img_res,
-                            chunk=chunk, fast=-1)
+                            chunk=chunk, fast=-1,
+                            near_pose=scene.near_pose(vid))
         write_png(os.path.join(images_dir, f"eval_{vid:03d}.png"),
                   _to_png(maps["rgb"]))
         write_png(os.path.join(images_dir, f"normal_{vid:03d}.png"),
@@ -132,8 +136,8 @@ def eval_rendered_views(cfg: Config, scene: SceneData, images_dir: str,
     runs on `device` (the CPU by default). `seconds`, when given, gets
     each view's host seconds."""
     if scene.masks is None:
-        raise NotImplementedError("eval_rendered_views: the scene has no "
-                                  "eval masks (BlendedMVS is not ported)")
+        raise ValueError("eval_rendered_views: the scene has no masks "
+                         "(a synthetic scene)")
     H, W = scene.img_res
     prefix = "eval_blend_" if result_from == "blend" else "eval_"
     device = torch.device(device or "cpu")
@@ -189,7 +193,8 @@ def export_mesh(cfg: Config, scene: SceneData, params: VolSDFParams,
     extraction over plot.grid_boundary. `stats` gets each part's host
     seconds (`engine.mesh`'s lists, and "component" and "write" of this
     function) and the vertex and face counts."""
-    bounding = 0.0 if cfg.model.white_bkgd else cfg.model.scene_bounding_sphere
+    bounding = 0.0 if (cfg.model.white_bkgd or cfg.model.with_background) \
+        else cfg.model.scene_bounding_sphere
     sdf_fn = mesh_sdf_fn(params, cfg.model, bounding)
     if bbs_file and os.path.exists(bbs_file):
         with np.load(bbs_file) as bbs:

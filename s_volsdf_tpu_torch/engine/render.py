@@ -13,12 +13,17 @@ plain MLP with its spatial gradient (`render_rays(training=False)`),
 since the normals need that gradient and the radiance MLP the
 features, and frees that graph with each chunk. The renders' float32
 arithmetic runs in full float32 on the card
-(`utils.device.full_float32`). The JAX package's `mesh=` sharding of the
-rays has no counterpart: the port renders on one card.
+(`utils.device.full_float32`). With a background model
+(model.with_background) the sweeps are unclamped (bounding sphere 0),
+`render_depth` drops the sampler's last column (the sphere's exit), and
+`render_image` renders through `models.network_bg.render_rays_bg` with
+the nearest training view's directions. The JAX package's `mesh=`
+sharding of the rays has no counterpart: the port renders on one card.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -29,6 +34,7 @@ from s_volsdf_tpu_torch.models.density import get_beta, laplace_density
 from s_volsdf_tpu_torch.models.network import (VolSDFParams, render_rays,
                                                sampler_sdf_fn,
                                                volume_rendering)
+from s_volsdf_tpu_torch.models.network_bg import render_rays_bg
 from s_volsdf_tpu_torch.models.sampler import error_bound_sample
 from s_volsdf_tpu_torch.utils.cameras import (depth_scale_factor,
                                               get_camera_params)
@@ -54,9 +60,14 @@ def _depth_chunk(params: VolSDFParams, uv, pose, intrinsics, gen, sdf_fn, *,
         n_iters=n_iters, training=False,
         scene_bounding_sphere=cfg.scene_bounding_sphere)
     z_vals = s_out.z_vals
+    if cfg.with_background:
+        z_vals = z_vals[:, :-1]     # the last column is the sphere's exit
     pts = cam_loc[:, None, :] + z_vals[..., None] * ray_dirs[:, None, :]
     sdf = sdf_fn(pts.reshape(-1, 3)).reshape(z_vals.shape)
-    weights = volume_rendering(z_vals, laplace_density(sdf, beta0))
+    # With a background model the last sample (1e10 long) reads the
+    # density's tail, where JAX's expm1 rounds one unit above torch's.
+    weights = volume_rendering(z_vals, laplace_density(
+        sdf, beta0, exact_tail=cfg.with_background))
     depth = torch.sum(weights * z_vals, dim=1, keepdim=True) / (
         torch.sum(weights, dim=1, keepdim=True) + 1e-8)
     return {"depth_values": depth * depth_scale,
@@ -102,12 +113,15 @@ def render_depth(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
 def render_image(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
                  img_res: Tuple[int, int], *, chunk: int = 16384,
                  fast: int = -1, gen: Optional[torch.Generator] = None,
-                 device=None) -> Dict[str, np.ndarray]:
+                 device=None, near_pose=None) -> Dict[str, np.ndarray]:
     """Full-image render in chunks of `chunk` rays (the last one
     ragged; rays are independent, so the chunk does not change the
     values). pose/intrinsics: (4, 4) numpy. Returns host maps rgb
     (H, W, 3), depth (H, W), normal (H, W, 3) and acc (H, W); the pixel
-    grid is x = column, y = row."""
+    grid is x = column, y = row. With cfg.with_background the
+    background model renders (`render_rays_bg`, the foreground
+    unclamped) with the view directions of `near_pose` (4, 4), the
+    nearest training view's camera, or of `pose` itself when None."""
     check_model_ported(cfg)
     device = torch.device(device) if device is not None \
         else next(params.parameters()).device
@@ -121,15 +135,21 @@ def render_image(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
     pose_b = torch.as_tensor(np.asarray(pose, np.float32), device=device)[None]
     intr_b = torch.as_tensor(np.asarray(intrinsics, np.float32),
                              device=device)[None]
-    bounding = 0.0 if cfg.white_bkgd else cfg.scene_bounding_sphere
+    bounding = 0.0 if (cfg.white_bkgd or cfg.with_background) \
+        else cfg.scene_bounding_sphere
     sdf_fn = sampler_sdf_fn(params, cfg, bounding)   # route, pack: per image
+    if cfg.with_background:
+        near_b = pose_b if near_pose is None else torch.as_tensor(
+            np.asarray(near_pose, np.float32), device=device)[None]
+        render = functools.partial(render_rays_bg, near_pose=near_b)
+    else:
+        render = render_rays
     keys = ("rgb_values", "depth_values", "normal_map", "acc")
     outs = {k: [] for k in keys}
     with torch.no_grad(), full_float32():
         for i in range(0, uv.shape[0], chunk):
-            o = render_rays(params, cfg, uv[i:i + chunk][None], pose_b,
-                            intr_b, gen, training=False, fast=fast,
-                            sdf_fn=sdf_fn)
+            o = render(params, cfg, uv[i:i + chunk][None], pose_b, intr_b,
+                       gen, training=False, fast=fast, sdf_fn=sdf_fn)
             for k in keys:
                 outs[k].append(getattr(o, k).detach())
             del o

@@ -1,8 +1,10 @@
 """The VolSDF optimisation step (counterpart of
-s_volsdf_tpu/engine/train_step.py:43-217): forward (fast=1 sampler),
-cost_mapping against the MVS probability volumes, loss, backward with
-double backprop for the eikonal term, NaN/Inf guard, global-norm clip,
-Adam.
+s_volsdf_tpu/engine/train_step.py:43-217): forward (fast=1 sampler;
+with model.with_background the NeRF++ background model,
+`models.network_bg.render_rays_bg`), cost_mapping against the MVS
+probability volumes (and, under loss.gate_rescue, the prior's anchor
+depths), loss, backward with double backprop for the eikonal term,
+NaN/Inf guard, global-norm clip, Adam.
 
 The JAX package fuses the step into one XLA program; here it runs
 eagerly, and the state is updated in place (parameters and Adam moments).
@@ -27,8 +29,10 @@ import torch.nn.functional as F
 from s_volsdf_tpu_torch.config import Config, ModelConfig, check_ported
 from s_volsdf_tpu_torch.models.loss import LossOutput, compute_loss
 from s_volsdf_tpu_torch.models.network import VolSDFParams, render_rays
+from s_volsdf_tpu_torch.models.network_bg import render_rays_bg
 from s_volsdf_tpu_torch.ops.cost_mapping import (MVSVolumes, check_volumes,
-                                                 cost_mapping)
+                                                 cost_mapping,
+                                                 prior_depth_anchor)
 from s_volsdf_tpu_torch.utils.device import full_float32
 
 
@@ -113,21 +117,27 @@ def _loss_fn(params: VolSDFParams, cfg: Config, batch: Dict, gen,
              ) -> Tuple[torch.Tensor, LossOutput]:
     # batch["jitter"]: the optional common-random-numbers feed of the
     # sampler and the eikonal points (models/sampler.py).
-    out = render_rays(params, training_model_config(cfg), batch["uv"],
-                      batch["pose"],
-                      batch["intrinsics"], gen, training=True, fast=1,
-                      jitter=batch.get("jitter"))
+    render = render_rays_bg if cfg.model.with_background else render_rays
+    out = render(params, training_model_config(cfg), batch["uv"],
+                 batch["pose"], batch["intrinsics"], gen, training=True,
+                 fast=1, jitter=batch.get("jitter"))
     outputs = {
         "rgb_values": out.rgb_values,
         "depth_values": out.depth_values,
         "weights": out.weights,
         "grad_theta": out.grad_theta,
     }
+    if cfg.model.with_background:
+        outputs["depth_values_all"] = out.depth_values_all
     use_mvs = mvs is not None
     if use_mvs:
         pj, pi, _ = cost_mapping(out.depth_vals.detach(), out.xyz.detach(),
                                  batch["view_onehot"], mvs)
         outputs["pi"], outputs["pj"] = pi, pj
+        if cfg.loss.gate_rescue:
+            outputs["prior_anchor"], outputs["prior_peak"] = \
+                prior_depth_anchor(batch["uv"].reshape(-1, 2),
+                                   batch["view_onehot"], mvs)
     loss_out = compute_loss(
         cfg.loss, outputs, batch["rgb"], batch.get("rgb_smooth", batch["rgb"]),
         iter_step, use_mvs=use_mvs)
@@ -161,7 +171,8 @@ def guarded_update(tx: Optimizer, state: TrainState, grads: List[torch.Tensor],
     if ok:
         tx.apply(grads)
     state.iter_step += 1
-    loss_out = LossOutput(*(x.detach() for x in loss_out[:-1]),
+    loss_out = LossOutput(*(None if x is None else x.detach()
+                            for x in loss_out[:-1]),
                           grad_finite=1.0 if ok else 0.0)
     return state, loss_out
 

@@ -44,6 +44,7 @@ from s_volsdf_tpu_torch.engine.train_step import (Optimizer, TrainState,
                                                   pack_for_chunk)
 from s_volsdf_tpu_torch.models.loss import LossOutput
 from s_volsdf_tpu_torch.models.network import init_volsdf_params
+from s_volsdf_tpu_torch.models.network_bg import init_volsdf_bg_params
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
 from s_volsdf_tpu_torch.utils import checkpoint as ckpt
 from s_volsdf_tpu_torch.utils.tracing import PhaseTimer, TBWriter
@@ -80,7 +81,7 @@ def _put(a, device) -> torch.Tensor:
 
 
 def _host_losses(lo: LossOutput) -> LossOutput:
-    return LossOutput(*(float(x) for x in lo))
+    return LossOutput(*(None if x is None else float(x) for x in lo))
 
 
 class VolTrainer:
@@ -103,8 +104,10 @@ class VolTrainer:
             self._make_run_dir(exps_root, is_continue)
         elif is_continue:
             raise ValueError("is_continue needs a run directory (exps_root)")
-        params = init_volsdf_params(torch.Generator().manual_seed(cfg.seed),
-                                    cfg.model, self.device)
+        init = (init_volsdf_bg_params if cfg.model.with_background
+                else init_volsdf_params)
+        params = init(torch.Generator().manual_seed(cfg.seed), cfg.model,
+                      self.device)
         self.tx = make_optimizer(cfg, params)
         self.state = init_train_state(cfg, params, self.tx)
         self.epoch = 0
@@ -296,7 +299,9 @@ class VolTrainer:
     def render_view(self, view_idx: int, *, res_scale: float = 1.0,
                     fast: int = -1) -> Dict[str, np.ndarray]:
         """rgb, depth, normal and acc of a view (`render_image`) in the
-        model's precision; res_scale < 1 renders a reduced grid."""
+        model's precision, with a background model through the nearest
+        training view's directions; res_scale < 1 renders a reduced
+        grid."""
         H, W = self.scene.img_res
         out_res = (int(H * res_scale), int(W * res_scale))
         intr = np.array(self.scene.intrinsics[view_idx], np.float32)
@@ -304,7 +309,8 @@ class VolTrainer:
         intr[1, :] *= res_scale
         return render_image(self.state.params, self.cfg.model,
                             self.scene.poses[view_idx], intr, out_res,
-                            chunk=16384, fast=fast, device=self.device)
+                            chunk=16384, fast=fast, device=self.device,
+                            near_pose=self.scene.near_pose(view_idx))
 
     def render_mvs(self, view_idx: int, res_scale: float = 1.0,
                    chunk: int = 16384) -> np.ndarray:

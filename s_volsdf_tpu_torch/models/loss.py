@@ -1,6 +1,6 @@
 """VolSDF training loss: RGB L1 + eikonal + MVS GCE + sparsity with the
-RGB anneal (counterpart of s_volsdf_tpu/models/loss.py:19-156, without
-gate_rescue)."""
+RGB anneal, and the optional gate rescue (counterpart of
+s_volsdf_tpu/models/loss.py:19-156)."""
 
 from __future__ import annotations
 
@@ -19,6 +19,8 @@ class LossOutput(NamedTuple):
     mvs_loss: torch.Tensor
     sparse_loss: torch.Tensor
     psnr: torch.Tensor
+    # The gate-rescue term (zero with loss.gate_rescue off).
+    rescue_loss: Optional[torch.Tensor] = None
     # 1.0 when the NaN/Inf guard accepted the update, 0.0 when it
     # skipped it (set by engine.train_step.guarded_update).
     grad_finite: Optional[float] = None
@@ -60,13 +62,26 @@ def _sparse(pi, pj, depth, confi_thresh: float):
     return torch.mean(per_ray * (confi < confi_thresh))
 
 
+def _gate_rescue(pi, pj, depth, anchor, peak, confi_thresh: float,
+                 peak_thresh: float):
+    """L1 of the rendered depth to the prior's winner-take-all depth, on
+    rays whose GCE gate is closed (sum pi*pj <= confi) and whose prior
+    peaks above peak_thresh; zero on every other ray."""
+    conf = torch.sum(pi * pj, dim=-1)
+    closed = (conf <= confi_thresh).to(depth.dtype)
+    informative = (peak > peak_thresh).to(depth.dtype)
+    per_ray = torch.abs(depth.squeeze() - anchor)
+    return torch.mean(closed * informative * per_ray)
+
+
 def compute_loss(cfg: LossConfig, outputs: Dict, rgb_gt, rgb_smooth,
                  iter_step: int, *, use_mvs: bool) -> LossOutput:
     """Total loss. outputs: rgb_values, grad_theta, weights,
-    depth_values and, with use_mvs, pi and pj from cost_mapping.
+    depth_values, with a background model depth_values_all (which the
+    sparse and rescue terms read in place of depth_values), with use_mvs
+    pi and pj from cost_mapping, and with loss.gate_rescue prior_anchor
+    and prior_peak (`ops.cost_mapping.prior_depth_anchor`).
     iter_step: the step count (a Python int) that drives the anneal."""
-    if cfg.gate_rescue:
-        raise NotImplementedError("loss.gate_rescue is not ported")
     rgb_gt = rgb_gt.reshape(-1, 3)
     rgb_values = outputs["rgb_values"]
 
@@ -82,9 +97,9 @@ def compute_loss(cfg: LossConfig, outputs: Dict, rgb_gt, rgb_smooth,
                             cfg.gce, cfg.confi)
 
     anneal_active = (cfg.sparse_weight > 0.0) and (cfg.anneal_rgb > 0)
+    depth = outputs.get("depth_values_all", outputs["depth_values"])
     if use_mvs and anneal_active and iter_step < cfg.anneal_rgb:
-        sparse_loss = _sparse(outputs["pi"], outputs["pj"],
-                              outputs["depth_values"], cfg.confi)
+        sparse_loss = _sparse(outputs["pi"], outputs["pj"], depth, cfg.confi)
         # Linear 1 -> 0 decay over anneal_rgb steps.
         t = torch.tensor(iter_step, dtype=torch.float32) / cfg.anneal_rgb
         anneal_sparse = torch.clamp(1.0 - t, min=0.0).to(rgb_loss.device)
@@ -93,12 +108,23 @@ def compute_loss(cfg: LossConfig, outputs: Dict, rgb_gt, rgb_smooth,
         rgb_loss = _rgb_l1_gated(rgb_values, rgb_smooth.reshape(-1, 3),
                                  outputs["pi"], outputs["pj"], t=1e-8)
 
+    rescue_loss = zero
+    if use_mvs and cfg.gate_rescue:
+        rescue_loss = _gate_rescue(
+            outputs["pi"], outputs["pj"], depth, outputs["prior_anchor"],
+            outputs["prior_peak"], cfg.confi, cfg.gate_rescue_peak)
+
     total = (cfg.rgb_weight * rgb_loss
              + cfg.eikonal_weight * eik_loss
              + cfg.mvs_weight * mvs_loss
              + cfg.sparse_weight * anneal_sparse * sparse_loss)
+    if use_mvs and cfg.gate_rescue:
+        # Added only with the flag on, so the default path's sum is as
+        # without it.
+        total = total + cfg.gate_rescue_weight * rescue_loss
 
     mse = torch.mean((rgb_values - rgb_gt) ** 2)
     psnr = -10.0 * torch.log(mse) / math.log(10.0)
 
-    return LossOutput(total, rgb_loss, eik_loss, mvs_loss, sparse_loss, psnr)
+    return LossOutput(total, rgb_loss, eik_loss, mvs_loss, sparse_loss, psnr,
+                      rescue_loss)

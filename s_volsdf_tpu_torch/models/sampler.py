@@ -14,7 +14,7 @@ iteration (training at fast=1 has none).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -41,6 +41,7 @@ def merge_sorted_pairs(za, sa, zb, sb):
 class SamplerOutput(NamedTuple):
     z_vals: torch.Tensor                # (R, N_final) sorted
     z_samples_eik: torch.Tensor         # (R, 1) random near-surface z
+    z_vals_bg: Optional[torch.Tensor]   # (R, N_bg) inverse depths, or None
     converged_iter: int                 # iteration after which the early exit engaged
 
 
@@ -139,12 +140,18 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
     n_iters: 1 in training (fast=1), max_total_iters in eval.
     jitter: optional feed replacing every random draw — "t_rand"
       (R, N_eval) U[0,1), "u_final" (R, N_samples) U[0,1), "extra_idx"
-      (N_extra,) int column picks, "eik_idx" (R, 1) int — the same seam
-      as the JAX package's; defined for the training fast=1 path.
+      (N_extra,) int column picks, "eik_idx" (R, 1) int and, with
+      inverse_sphere_bg, "t_rand_bg" (R, N_samples_inverse_sphere)
+      U[0,1) — the JAX package's seam, plus the background draw that its
+      seam leaves to the key; defined for the training fast=1 path.
     gen: torch.Generator for the draws that `jitter` does not replace.
+
+    With cfg.inverse_sphere_bg (a background model), the uniform samples
+    end at the bounding sphere's exit (pinned to >= near), the final far
+    column is that exit (not pinned), and `z_vals_bg` holds
+    N_samples_inverse_sphere inverse depths, stratified in [0, 1] and
+    scaled by 1/r.
     """
-    if cfg.inverse_sphere_bg:
-        raise NotImplementedError("inverse_sphere_bg (BMVS) is not ported")
     far = 2.0 * scene_bounding_sphere
     R = ray_dirs.shape[0]
     dev = ray_dirs.device
@@ -250,7 +257,11 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
 
     # Extra samples + near/far.
     near_col = torch.full((R, 1), cfg.near, dtype=z_vals.dtype, device=dev)
-    far_col = torch.full((R, 1), far, dtype=z_vals.dtype, device=dev)
+    if cfg.inverse_sphere_bg:
+        far_col = get_sphere_intersections(
+            cam_loc, ray_dirs, r=scene_bounding_sphere)[:, 1:]
+    else:
+        far_col = torch.full((R, 1), far, dtype=z_vals.dtype, device=dev)
     K = z_vals.shape[1]
     if cfg.N_samples_extra > 0:
         if jitter is not None:
@@ -277,4 +288,13 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
                                 device=dev)
     z_samples_eik = torch.gather(z_final, -1, eik_idx.long())
 
-    return SamplerOutput(z_final, z_samples_eik, conv_iter)
+    z_bg = None
+    if cfg.inverse_sphere_bg:
+        # Inverse depths of the background, uniform in [0, 1] scaled by 1/r.
+        z_bg = uniform_z_vals(
+            gen, RaySamplerConfig(near=0.0), ray_dirs, cam_loc, 1.0,
+            cfg.N_samples_inverse_sphere, training, False, 1.0,
+            t_rand=None if jitter is None else jitter["t_rand_bg"])
+        z_bg = z_bg * (1.0 / scene_bounding_sphere)
+
+    return SamplerOutput(z_final, z_samples_eik, z_bg, conv_iter)

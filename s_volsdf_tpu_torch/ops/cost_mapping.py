@@ -222,6 +222,72 @@ MAX_VIEWS = 48 * 1024 // (18 * 4)
 INT32 = 2 ** 31
 
 
+def prior_depth_anchor(uv, view_onehot, mvs: MVSVolumes):
+    """Per ray, the prior's winner-take-all depth and its peak
+    probability at the ray's own pixel of its own view's volume, the
+    gate rescue's target (counterpart of
+    s_volsdf_tpu/ops/cost_mapping.py:245-322; plain torch, no kernel: it
+    runs only under loss.gate_rescue, off by default).
+
+    uv: (R, 2) pixels of the VolSDF (H, W) grid; view_onehot: (V,).
+    The D-profile and the near/far planes are read bilinearly at the
+    pixel (align_corners=True, zero past the edge, the corner weights of
+    `cost_mapping`); the hypothesis grid between near and far is linear,
+    or uniform in 1/z for inverse-depth volumes. Returns (anchor (R,),
+    peak (R,)) float32, both 0 where the pixel's planes are degenerate."""
+    V, Dv, Hv, Wv = mvs.prob.shape
+    H, W = mvs.img_res
+    view = torch.argmax(view_onehot).reshape(1)
+    prob = torch.index_select(mvs.prob, 0, view)[0].reshape(Dv, -1)
+    slab = torch.index_select(mvs.z_slab, 0, view)[0].reshape(2, -1)
+
+    x = uv[:, 0] * ((Wv - 1) / (W - 1))
+    y = uv[:, 1] * ((Hv - 1) / (H - 1))
+    x0 = torch.floor(x).to(torch.int64)
+    y0 = torch.floor(y).to(torch.int64)
+    xs = torch.clamp(x0, 0, Wv - 1)
+    ys = torch.clamp(y0, 0, Hv - 1)
+    sx = x0 - xs
+    sy = y0 - ys
+    wx = x - x0
+    wy = y - y0
+
+    nfv = 0.0
+    prof = 0.0
+    for by in (0, 1):
+        for bx in (0, 1):
+            yb, xb = ys + by, xs + bx
+            inb = (yb < Hv) & (xb < Wv)
+            pix = torch.clamp(yb, max=Hv - 1) * Wv + torch.clamp(xb, max=Wv - 1)
+            w = _corner_wgt(by - sy, wy) * _corner_wgt(bx - sx, wx)
+            nf = torch.where(inb[:, None], slab[:, pix].T,
+                             torch.zeros((1, 2), dtype=slab.dtype,
+                                         device=slab.device))
+            nfv = nfv + nf * w[..., None]
+            vals = torch.where(inb[:, None], prob[:, pix].T.float(),
+                               torch.zeros((1, Dv), device=prob.device))
+            prof = prof + vals * w[:, None]
+    near, far = nfv[..., 0], nfv[..., 1]
+
+    frac = torch.arange(Dv, dtype=torch.float32,
+                        device=uv.device) / max(Dv - 1, 1)
+    if mvs.inverse_depth:
+        near_s = torch.where(near < 1e-5, torch.full_like(near, 1e-8), near)
+        far_s = torch.where(far < 1e-5, torch.full_like(far, 1e-8), far)
+        inv = (1.0 / near_s)[:, None] + frac[None, :] * (
+            1.0 / far_s - 1.0 / near_s)[:, None]
+        zgrid = 1.0 / inv
+    else:
+        zgrid = near[:, None] + frac[None, :] * (far - near)[:, None]
+
+    dstar = torch.argmax(prof, dim=1)
+    anchor = torch.gather(zgrid, 1, dstar[:, None])[:, 0]
+    peak = torch.max(prof, dim=1).values
+    valid = (near > 1e-5) & (far > 1e-5)
+    zero = torch.zeros_like(anchor)
+    return torch.where(valid, anchor, zero), torch.where(valid, peak, zero)
+
+
 def corner_cubes(t: torch.Tensor) -> torch.Tensor:
     """(V, ..., Hv, Wv) -> (V, ..., Hv, Wv, 2 ** k): at each index, the
     values of its corner block, the last k = t.dim() - 1 axes each at +0

@@ -8,8 +8,8 @@ The port has no pytree, so it keeps the order itself:
 
 - `param_leaves`: the VolSDF parameters in the order
   `jax.tree_util.tree_flatten` gives the JAX parameter dict (keys
-  sorted: density, rgb, sdf; layers in order; each layer's leaves
-  sorted: b, g, v or b, w);
+  sorted: density, rgb, sdf, after bg_rgb and bg_sdf for a background
+  model; layers in order; each layer's leaves sorted: b, g, v or b, w);
 - `train_state_leaves`: the JAX `TrainState` (params, opt_state,
   iter_step) with the optax chain clip + adam: the params, Adam's
   `count`, its `mu` and its `nu` in the params' order, then `iter_step`
@@ -102,12 +102,20 @@ def load_state(path: str, template: Sequence
 
 def param_leaves(params) -> List[torch.nn.Parameter]:
     """The parameters of a `VolSDFParams` in JAX's flatten order of
-    {"density": {"beta"}, "rgb": [...], "sdf": [...]}."""
-    out = [params.density.beta]
-    for mlp in (params.rgb, params.sdf):
-        for layer in mlp:
-            named = dict(layer.named_parameters())
-            out += [named[k] for k in sorted(named)]
+    {"density": {"beta"}, "rgb": [...], "sdf": [...]}; of a
+    `VolSDFBGParams`, of {"bg_rgb", "bg_sdf", "density", "rgb", "sdf"}."""
+    bg = [params.bg_rgb, params.bg_sdf] if hasattr(params, "bg_sdf") else []
+    return ([p for mlp in bg for p in _layer_leaves(mlp)]
+            + [params.density.beta]
+            + [p for mlp in (params.rgb, params.sdf)
+               for p in _layer_leaves(mlp)])
+
+
+def _layer_leaves(mlp) -> List[torch.nn.Parameter]:
+    out = []
+    for layer in mlp:
+        named = dict(layer.named_parameters())
+        out += [named[k] for k in sorted(named)]
     return out
 
 

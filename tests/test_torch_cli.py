@@ -74,17 +74,24 @@ def test_load_config_matches_jax(preset):
 
 
 def test_bmvs_preset_refused_when_run():
+    """The bmvs preset's background model and inverse-sphere sampler run
+    since they were ported: `check_ported` accepts the preset, and gate
+    rescue; only the orbax backend is still refused."""
     cfg = tconfig.load_config("bmvs", overrides=SMALL)
-    assert cfg.model.with_background
-    with pytest.raises(NotImplementedError, match="with_background"):
+    assert cfg.model.with_background and cfg.model.sampler.inverse_sphere_bg
+    tconfig.check_ported(cfg)
+    cfg.loss.gate_rescue = True
+    tconfig.check_ported(cfg)
+    cfg.train.ckpt_backend = "orbax"
+    with pytest.raises(NotImplementedError, match="orbax"):
         tconfig.check_ported(cfg)
 
 
-@pytest.mark.parametrize("key", ["model.bg.feature_vector_size=8",
+@pytest.mark.parametrize("key", ["parallel.mesh_shape=[2]",
                                  "parallel.shard_rays=false",
-                                 "loss.gate_rescue_weight=0.2",
+                                 "parallel.mesh_axes=[rays]",
                                  "parallel.shard_eval=false",
-                                 "model.sampler.N_samples_inverse_sphere=4"])
+                                 "parallel.shard_mvs_views=true"])
 def test_unknown_override_raises(key):
     """A key or section the port lacks raises, naming it; it is never
     dropped."""

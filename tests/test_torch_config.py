@@ -76,6 +76,68 @@ def outside_configs(name):
     return cfgs
 
 
+def shrink_bmvs(cfg):
+    """The small size of the BlendedMVS tests, on a bmvs preset tree
+    (either package's): `shrink`, then 48-wide MLPs as in the JAX
+    package's own background tests (SDF (48,)*4 with skip at 2 and
+    multires 6; radiance (48, 48); features 48; the background colour
+    MLP (48,)), the background SDF (96,)*4 with skip at 2 and the
+    preset's multires 10 (a skip needs the width past the 84 inputs of
+    the 4-D encoding), 8 inverse-sphere samples."""
+    shrink(cfg)
+    m = cfg.model
+    m.implicit.dims, m.implicit.multires = (48,) * 4, 6
+    m.rendering.dims = (48, 48)
+    m.feature_vector_size = 48
+    m.bg.implicit.dims, m.bg.implicit.skip_in = (96,) * 4, (2,)
+    m.bg.feature_vector_size = 48
+    m.bg.rendering.dims = (48,)
+    m.sampler.N_samples_inverse_sphere = 8
+    cfg.mvs.interval_scale = 1.0
+    return cfg
+
+
+def small_bmvs_configs():
+    """(JAX Config, port Config) of the bmvs preset at the small size."""
+    return shrink_bmvs(jconfig.bmvs_config()), shrink_bmvs(tconfig.bmvs_config())
+
+
+def bg_params_pair(jcfg, seed=0):
+    """JAX background-model parameters from a PRNGKey and the same values
+    in the port (a VolSDFBGParams)."""
+    from s_volsdf_tpu.models.network_bg import init_volsdf_bg_params
+    jp = init_volsdf_bg_params(jax.random.PRNGKey(seed), jcfg.model)
+    return jp, from_jax_params(jax.tree.map(np.asarray, jp))
+
+
+def bg_step_draws(key, n_rays, scfg):
+    """The random draws of one JAX training render with the background
+    model at fast=1 (`render_rays_bg` with `key`), derived in its split
+    order: key -> (k_sample, k_eik); k_sample -> (k_uniform, k_final,
+    k_extra, k_eik, k_bg) in `error_bound_sample`. Returns (the JAX
+    sampler's jitter feed, the port's jitter feed: the same draws plus
+    "t_rand_bg" and the eikonal points' U[0,1) "eik_pts")."""
+    k_sample, k_eik_pts = jax.random.split(key)
+    k_uniform, k_final, k_extra, k_eik, k_bg = jax.random.split(k_sample, 5)
+    n_final = scfg.N_samples + 2 + scfg.N_samples_extra
+    jfeed = {
+        "t_rand": jax.random.uniform(k_uniform, (n_rays, scfg.N_samples_eval),
+                                     dtype=jnp.float32),
+        "u_final": jax.random.uniform(k_final, (n_rays, scfg.N_samples)),
+        "extra_idx": jax.random.permutation(
+            k_extra, scfg.N_samples_eval)[: scfg.N_samples_extra],
+        "eik_idx": jax.random.randint(k_eik, (n_rays, 1), 0, n_final),
+    }
+    extra = {
+        "t_rand_bg": jax.random.uniform(
+            k_bg, (n_rays, scfg.N_samples_inverse_sphere), dtype=jnp.float32),
+        "eik_pts": jax.random.uniform(k_eik_pts, (n_rays, 3)),
+    }
+    tfeed = {k: torch.tensor(np.asarray(v))
+             for k, v in {**jfeed, **extra}.items()}
+    return jfeed, tfeed
+
+
 def lively_mvs_tree(tree, rng, gain=6 ** 0.5, offset_gain=4.0):
     """A JAX MVS pytree (numpy leaves) made lively for the comparisons:
     random BN statistics and LayerNorm affines; every conv kernel (ndim
@@ -189,6 +251,23 @@ def test_config_defaults_match_jax():
     assert len(pairs) > 40
     diff = [(p, a, b) for p, a, b in pairs if a != b]
     assert not diff, diff
+
+
+def test_bmvs_config_matches_jax():
+    """Every field of the port's bmvs preset, the background networks
+    (model.bg), N_samples_inverse_sphere and the gate-rescue knobs
+    included, has the JAX preset's value."""
+    pairs = list(_port_fields(tconfig.bmvs_config(), jconfig.bmvs_config()))
+    names = {p for p, _, _ in pairs}
+    assert {"model.bg.implicit.multires", "model.bg.rendering.mode",
+            "model.sampler.N_samples_inverse_sphere",
+            "loss.gate_rescue_weight", "loss.gate_rescue_peak"} <= names
+    diff = [(p, a, b) for p, a, b in pairs if a != b]
+    assert not diff, diff
+    cfg = tconfig.bmvs_config()
+    assert cfg.model.sampler.N_samples_inverse_sphere == 32
+    assert cfg.model.bg.implicit.weight_norm is False
+    tconfig.check_ported(cfg)
 
 
 @pytest.mark.parametrize("section,name", tconfig.PRECISION_KNOBS)

@@ -156,12 +156,15 @@ def _sphere_mesh_ply(path, radius=16.0):
 def test_mesh_paths_name_their_module(call, tmp_path):
     """The mesh paths run through engine/mesh.py now: a mesh PLY's
     cloud and its DTU Chamfer (function and command line) equal the JAX
-    package's; the BMVS GT generator still raises, naming BlendedMVS."""
+    package's; the BMVS GT generator samples a scan's OBJ meshes as the
+    JAX one does (tests/test_torch_bmvs_data.py holds it to JAX's on a
+    written OBJ) and raises, naming the directory, without them."""
     out = str(tmp_path / "pred")
     ply = os.path.join(out, "mvsnet106_l3.ply")
     if call == "save_bmvs_gt":
-        with pytest.raises(NotImplementedError, match="BlendedMVS"):
-            teval.save_bmvs_gt(1, str(tmp_path), str(tmp_path))
+        for mod in (teval, jeval):
+            with pytest.raises(FileNotFoundError, match="textured_mesh"):
+                mod.save_bmvs_gt(1, str(tmp_path), str(tmp_path))
         return
     _sphere_mesh_ply(ply)
     if call == "mesh_to_pcd":

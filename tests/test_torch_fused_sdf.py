@@ -1,7 +1,9 @@
 """The port's fused-SDF wrapper on the CPU (its plain PyTorch version)
 against the JAX package's Pallas kernel in interpret mode and against
 JAX `sdf_values`, at the full dtu width (8x256, skip at 4, multires 6)
-on 700 points (a ragged tail for the kernel's tiles).
+on 700 points (a ragged tail for the kernel's tiles), clamped at the
+bounding sphere and (the background model's sweeps) unclamped out to
+twice its radius.
 
 Tolerance 3e-5 absolute, the bar tests/test_pallas_fused_sdf.py holds
 the Pallas kernel to: float32 sums in another order across 9 layers.
@@ -75,6 +77,20 @@ def test_fused_sdf_plain_matches_jax():
     # The bounding-sphere clamp is live on the far points.
     far = np.linalg.norm(pts, axis=-1) > 3.2
     assert far.sum() > 10 and np.all(got[far] < 0)
+
+    # Unclamped (bounding_sphere 0, the background model's sweeps) on
+    # points out to 2r: the Pallas kernel's clamp-free branch.
+    rng = np.random.default_rng(2)
+    d = rng.normal(size=(700, 3))
+    ball = (d / np.linalg.norm(d, axis=-1, keepdims=True)
+            * 6.0 * rng.uniform(0, 1, (700, 1)) ** (1 / 3)).astype(np.float32)
+    ref0 = np.asarray(jax_fused(jp["sdf"], jcfg.model, ball, 0.0,
+                                interpret=True))
+    got0 = fused_sdf.fused_sdf_values(tp.sdf, tcfg.model,
+                                      torch.tensor(ball), 0.0).numpy()
+    np.testing.assert_allclose(got0, ref0, atol=3e-5)
+    outside = np.linalg.norm(ball, axis=-1) > 3.0
+    assert outside.sum() > 300 and np.all(got0[outside] > 0)
 
 
 @pytest.mark.parametrize("activation", ["float32", "bfloat16"])
