@@ -105,8 +105,10 @@ checks it, in phases that print in order:
      of x2 DTU (Cin 32: 32/32/32 at 288x384, 32/32/16 at 576x768,
      32/32/8 at 1152x1536; random offsets with a 2-pixel spread, masks
      in (0, 1); within 1e-5 (1 + |plain|)), the 1152x1536 32->32 launch
-     timed against the plain version and its FP32-operations bound at
-     the SM clock's maximum; (b) `save_scene_depth` with
+     timed on those inputs (with the share of samples outside their
+     16x16 tile's window) and with zero offsets, against the plain
+     version and its bound (three TF32 products at 495 TFLOP/s; the
+     FP32-pipe bound of the first design beside it); (b) `save_scene_depth` with
      mvs.model_name=ucsnet and transmvsnet on phase 6's fixture at x2
      (1152x1536, D 192/32/8, 20 steps, three feedback renders) at the
      JAX defaults, He-gain convs and random DCN offset convs: stage
@@ -250,12 +252,17 @@ DCN_CIN = 32
 # head's scale and its three DCNs' Cout.
 DCN_HEADS = ((4, (32, 32, 32)), (2, (32, 32, 16)), (1, (32, 32, 8)))
 DCN_PER_VIEW = sum(len(c) for _, c in DCN_HEADS)
+# One kernel launch per DCN call, whatever its batch: the backbone runs a
+# scene's 3 views one at a time (as the reference's orchestrator does),
+# so a TransMVSNet scene or command line launches 9 x 3.
+DCN_LAUNCHES_A_SCENE = DCN_PER_VIEW * 3
 # The DCNs' offset convs are zero at init (a DCN starts as a plain conv):
 # the smoke run puts random ones in place, this many times the uniform
 # +-sqrt(1/fan_in) init, so that offsets of a few pixels (some past the
 # edges) and masks away from 0.5 occur.
 OFFSET_GAIN = 4.0
 FP32_LANES_PER_SM = 128   # the H100's FP32 pipe: 128 FMAs a clock per SM
+TF32_TFLOPS = 495.0       # the H100's dense TF32 tensor-core peak
 # Fusion: the kernel repeats the host C++'s float64 arithmetic
 # (--fmad=false), so it is held to its plain version at these bars.
 FUSION_DEPTH_TOL, FUSION_XY_TOL = 1e-12, 1e-9
@@ -653,9 +660,12 @@ def dcn_inputs(H: int, W: int, cout: int, device, seed: int):
 def check_deform_conv(dev, card: str) -> Dict:
     """Phase 9(a): the deformable-conv kernel against its plain version
     at TransMVSNet's nine head shapes of x2 DTU, bar DCN_TOL (1 +
-    |plain|); the 1152x1536 32 -> 32 launch timed against the plain
-    version and its bound (the larger of its FP32-pipe operations at
-    the SM clock's maximum and its bytes at HBM_TBPS)."""
+    |plain|); the 1152x1536 32 -> 32 launch timed on dcn_inputs (and
+    again with zero offsets) against the plain version and its bound:
+    the largest of its three TF32 products a multiply-add at
+    TF32_TFLOPS, its corner blend on the FP32 pipe and its bytes at
+    HBM_TBPS. The FP32-pipe bound of the first design (the contraction
+    there too, at the SM clock's maximum) is printed beside it."""
     H2, W2 = CASCADE_MVS_RES
     err = worst = 0.0
     for head, (scale, couts) in enumerate(DCN_HEADS):
@@ -672,31 +682,53 @@ def check_deform_conv(dev, card: str) -> Dict:
             err, worst = max(err, diff.max().item()), max(worst, rel)
             del got, ref, args
     args = dcn_inputs(H2, W2, DCN_CIN, dev, 99)
+    share = deform_conv.outside_window_share(args[1])
     kernel_ms = _median_ms(lambda: deform_conv.deform_conv2d(*args),
                            backlog=True)
     plain_ms = _median_ms(lambda: deform_conv.deform_conv2d_plain(*args),
                           reps=5, backlog=True)
+    zero = [args[0], torch.zeros_like(args[1])] + args[2:]
+    zero_ms = _median_ms(lambda: deform_conv.deform_conv2d(*zero),
+                         backlog=True)
+    ref = deform_conv.deform_conv2d_plain(*zero)
+    rel = ((deform_conv.deform_conv2d(*zero) - ref)
+           / (1 + ref.abs())).abs().max().item()
+    _check(rel <= DCN_TOL, f"deform_conv zero offsets: {rel}")
     clock_mhz = _sm_clock_mhz()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    fp32_rate = sms * FP32_LANES_PER_SM * 2 * clock_mhz * 1e6
     flop = deform_conv.flops(H2, W2, DCN_CIN, DCN_CIN)
-    ops_ms = flop / (sms * FP32_LANES_PER_SM * 2 * clock_mhz * 1e6) * 1e3
+    fp32_ms = flop / fp32_rate * 1e3
+    tflop = deform_conv.tensor_flops(H2, W2, DCN_CIN, DCN_CIN)
+    tensor_ms = tflop / (TF32_TFLOPS * 1e12) * 1e3
+    blend_ms = deform_conv.blend_flops(H2, W2, DCN_CIN) / fp32_rate * 1e3
     nbytes = deform_conv.io_bytes(H2, W2, DCN_CIN, DCN_CIN)
     bytes_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
+    ops_ms = max(tensor_ms, blend_ms)
     bound_ms = max(ops_ms, bytes_ms)
     bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     print(f"[dcn] deform_conv vs plain at the nine head shapes (Cin "
           f"{DCN_CIN}; 288x384, 576x768, 1152x1536): max|diff| {err:.3e}, "
           f"{worst:.3e} (1 + |plain|) (tol {DCN_TOL}) [{card}]", flush=True)
     print(f"[dcn] {H2}x{W2} {DCN_CIN}->{DCN_CIN}: kernel {kernel_ms:.4f} ms "
-          f"(device, median of 20), bound {bound_ms:.4f} ms by {bound_by} "
-          f"(operations {ops_ms:.4f} ms: {flop / 1e9:.2f} GFLOP at {sms} x "
-          f"{FP32_LANES_PER_SM} FMAs a clock, {clock_mhz:.0f} MHz; bytes "
+          f"(device, median of 20; offsets with a 2-pixel spread, "
+          f"{100 * share:.2f}% of the samples outside their tile's "
+          f"window), {zero_ms:.4f} ms with zero offsets; bound "
+          f"{bound_ms:.4f} ms by {bound_by} (three TF32 products "
+          f"{tensor_ms:.4f} ms: {tflop / 1e9:.1f} GFLOP at {TF32_TFLOPS} "
+          f"TFLOP/s; corner blend {blend_ms:.4f} ms on the FP32 pipe; bytes "
           f"{bytes_ms:.4f} ms: {nbytes / 1e9:.3f} GB at {HBM_TBPS} TB/s): "
-          f"{100 * bound_ms / kernel_ms:.1f}% of bound; plain "
+          f"{100 * bound_ms / kernel_ms:.1f}% of bound; the FP32-pipe "
+          f"bound of the first design {fp32_ms:.4f} ms ({flop / 1e9:.2f} GFLOP "
+          f"at {sms} x {FP32_LANES_PER_SM} FMAs a clock, {clock_mhz:.0f} "
+          f"MHz): {100 * fp32_ms / kernel_ms:.1f}% of it; plain "
           f"{plain_ms:.3f} ms [{card}]", flush=True)
     return {"max_abs_err": err, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by, "ops_ms": ops_ms,
-            "bytes_ms": bytes_ms, "sm_clock_mhz": clock_mhz}
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "tensor_ms": tensor_ms, "blend_ms": blend_ms,
+            "bytes_ms": bytes_ms, "fp32_bound_ms": fp32_ms,
+            "ms_zero_offsets": zero_ms, "outside_window_share": share,
+            "sm_clock_mhz": clock_mhz}
 
 
 def run_other_cascades(dev, card: str, tmp: str, data_root: str):
@@ -712,7 +744,7 @@ def run_other_cascades(dev, card: str, tmp: str, data_root: str):
         _, res, launches = _scene_run(dev, card, cfg,
                                       os.path.join(tmp, model),
                                       f"{model} defaults")
-        want = DCN_PER_VIEW * 3 if model == "transmvsnet" else 0
+        want = DCN_LAUNCHES_A_SCENE if model == "transmvsnet" else 0
         _check(launches["deform_conv"] == want
                and launches["fused_sdf"]["bfloat16"] == TRAIN_STEPS,
                f"{model} scene: launches {launches}, want deform_conv "
@@ -752,7 +784,7 @@ def run_other_cascades(dev, card: str, tmp: str, data_root: str):
         torch.cuda.synchronize()
         small_s = time.perf_counter() - t0
         launches = _launch_counts()             # ... and ends here
-        want = DCN_PER_VIEW * 3 if model == "transmvsnet" else 0
+        want = DCN_LAUNCHES_A_SCENE if model == "transmvsnet" else 0
         _check(os.path.isfile(plys[0])
                and launches["deform_conv"] == want
                and launches["fused_sdf"]["bfloat16"] == SMALL_CLI_STEPS
@@ -2175,8 +2207,12 @@ def main() -> None:
         "launches": dcn_launches, "max_abs_err": dcn["max_abs_err"],
         "ms": dcn["ms"], "plain_ms": dcn["plain_ms"],
         "bound_ms": dcn["bound_ms"], "bound_by": dcn["bound_by"],
-        "library_ms": None, "ops_ms": dcn["ops_ms"],
-        "bytes_ms": dcn["bytes_ms"], "sm_clock_mhz": dcn["sm_clock_mhz"],
+        "library_ms": None, "tensor_ms": dcn["tensor_ms"],
+        "blend_ms": dcn["blend_ms"], "bytes_ms": dcn["bytes_ms"],
+        "fp32_bound_ms": dcn["fp32_bound_ms"],
+        "ms_zero_offsets": dcn["ms_zero_offsets"],
+        "outside_window_share": dcn["outside_window_share"],
+        "sm_clock_mhz": dcn["sm_clock_mhz"],
         "shape": [DCN_CIN, *CASCADE_MVS_RES, DCN_CIN]})
     print(json.dumps({"kernels": kernels}))
     print(card)

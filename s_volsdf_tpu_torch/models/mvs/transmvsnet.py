@@ -30,7 +30,7 @@ from s_volsdf_tpu_torch.models.mvs.fmt import (FMTWithPathway,
 from s_volsdf_tpu_torch.models.mvs.hypotheses import (
     depth_range_samples, depth_range_samples_inverse)
 from s_volsdf_tpu_torch.models.mvs.warp import homo_warping
-from s_volsdf_tpu_torch.ops.deform_conv import TAPS, deform_conv2d
+from s_volsdf_tpu_torch.ops.deform_conv import TAPS, deform_conv2d_batch
 
 STAGE_SCALES = (4, 2, 1)
 SIMILARITY_CHUNK = 16     # depth planes warped at a time
@@ -50,15 +50,13 @@ class DCN(nn.Module):
         self.b = nn.Parameter(torch.zeros(cout))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x (N, Cin, H, W) -> (N, Cout, H, W); one deformable conv per
-        image."""
+        """x (N, Cin, H, W) -> (N, Cout, H, W): the deformable convs of
+        the N images in one kernel launch on the card."""
         om = self.offset_conv(x)
-        offset = om[:, :2 * TAPS]
-        mask = torch.sigmoid(om[:, 2 * TAPS:])
-        return torch.stack([
-            deform_conv2d(x[n].contiguous(), offset[n].contiguous(),
-                          mask[n].contiguous(), self.w, self.b)
-            for n in range(x.shape[0])])
+        offset = om[:, :2 * TAPS].contiguous()
+        mask = torch.sigmoid(om[:, 2 * TAPS:]).contiguous()
+        return deform_conv2d_batch(x.contiguous(), offset, mask, self.w,
+                                   self.b)
 
 
 class DCNHead(nn.Module):

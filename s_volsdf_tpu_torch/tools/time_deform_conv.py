@@ -15,14 +15,19 @@ time is hidden) TransMVSNet's DCN shapes at x2 DTU (Cin 32; 32 -> 32 at
 288x384, 576x768 and 1152x1536; 32 -> 16 at 576x768; 32 -> 8 at
 1152x1536) on chip_smoke.py's inputs (offsets with a 2-pixel spread,
 masks in (0, 1)), and the 1152x1536 32 -> 32 launch again with zero
-offsets (every sample on a pixel of the image: the gathers coalesced),
-with the max |diff| to the plain version there.
+offsets (every sample on a pixel of the image, none outside its
+tile's window), with the max |diff| to the plain version there. The
+trees' kernels are called through `deform_conv2d`, the single-image
+entry point every tree has.
 
-`--ablate`: also times this checkout's kernel built with
--DDEFORM_CONV_ABLATE=1 (no sampling: the samples are zero) and =2 (the
-contraction over 4 of the 32 input channels) at the 1152x1536 32 -> 32
-shape, in this process: the split of the kernel's time between its two
-phases (they are not overlapped within a block).
+`--ablate`: also times this checkout's kernel at the 1152x1536 32 -> 32
+shape, in this process, built with -DDEFORM_CONV_ABLATE=1 (no window
+filled after the first tile's), =2 (no sampling: constant samples, no
+offset or mask read), =4 (no contraction: the samples summed on the
+FP32 pipe) and =7 (none of the three: what is left is the tile loop and
+the output), beside the full build: what each phase adds to the time
+where the others do not hide it. Prints the share of chip_smoke's
+samples outside their tile's window too.
 
 Prints the card's name and power limit first, one JSON line per turn,
 then each tree's median over its turns.
@@ -91,7 +96,8 @@ def _turn() -> dict:
 
 
 def _ablate() -> dict:
-    """The 1152x1536 32 -> 32 launch of the two timing builds."""
+    """The 1152x1536 32 -> 32 launch of the full build and of the timing
+    builds, and the share of its samples outside the window."""
     import numpy as np
     import torch
     from s_volsdf_tpu_torch.ops import build, deform_conv as D
@@ -103,14 +109,17 @@ def _ablate() -> dict:
             torch.rand((K * 32, 32), generator=gen) / 17.0,
             torch.zeros(32)]
     args = [t.cuda() for t in args]
-    out = {}
+    out = {"outside_window_share": D.outside_window_share(args[1])}
     lib = D._load()
-    for mode in (1, 2):
-        flags = build.NVCC_FLAGS + [f"-DDEFORM_CONV_ABLATE={mode}"]
-        path = build.build_library([build.nvcc()] + flags, D.SOURCE,
-                                   f"libdeform_conv_ablate{mode}.so",
-                                   force=True)
-        D._LIB = D.bind(path)
+    builds = {0: "full", 1: "no window fill", 2: "no sampling",
+              4: "no contraction", 7: "none of the three"}
+    for mode, name in builds.items():
+        if mode:
+            flags = build.NVCC_FLAGS + [f"-DDEFORM_CONV_ABLATE={mode}"]
+            path = build.build_library([build.nvcc()] + flags, D.SOURCE,
+                                       f"libdeform_conv_ablate{mode}.so",
+                                       force=True)
+            D._LIB = D.bind(path)
         for _ in range(3):
             D.deform_conv2d(*args)
         torch.cuda.synchronize()
@@ -124,9 +133,8 @@ def _ablate() -> dict:
             end.record()
             torch.cuda.synchronize()
             times.append(start.elapsed_time(end))
-        out[("no sampling", "4 of 32 channels contracted")[mode - 1]] = \
-            float(np.median(times))
-    D._LIB = lib
+        out[name] = float(np.median(times))
+        D._LIB = lib
     return out
 
 

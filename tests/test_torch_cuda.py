@@ -280,14 +280,115 @@ def test_deform_conv_kernel_matches_plain(cuda, head):
 
 @pytest.mark.parametrize("cout", [8, 16, 32])
 def test_deform_conv_kernel_ragged_tile(cuda, cout):
-    """37 x 53 pixels: the last 256-pixel tile and the last 64-pixel
-    block of the channel-last copy are partial."""
+    """37 x 53 pixels: the last row and column of 16 x 16 tiles are
+    partial, and their windows reach past the image."""
     args = chip_smoke.dcn_inputs(37, 53, cout, cuda, cout)
     got = deform_conv.deform_conv2d(*args)
     ref = deform_conv.deform_conv2d_plain(*args)
     torch.cuda.synchronize()
     rel = ((got - ref) / (1 + ref.abs())).abs().max().item()
     assert rel <= chip_smoke.DCN_TOL, rel
+
+
+def _dcn_rel(args) -> float:
+    """The kernel (one launch) against the plain version: max |diff| /
+    (1 + |plain|)."""
+    before = deform_conv.deform_conv2d.launches
+    got = deform_conv.deform_conv2d(*args)
+    ref = deform_conv.deform_conv2d_plain(*args)
+    torch.cuda.synchronize()
+    assert deform_conv.deform_conv2d.launches == before + 1
+    assert got.shape == ref.shape and bool(torch.isfinite(got).all())
+    return ((got - ref) / (1 + ref.abs())).abs().max().item()
+
+
+def _dcn_with_offsets(H, W, cout, device, seed, offset):
+    """dcn_inputs at H x W with `offset` (18, H, W) in place."""
+    args = chip_smoke.dcn_inputs(H, W, cout, device, seed)
+    args[1] = offset.to(device).contiguous()
+    return args
+
+
+@pytest.mark.parametrize("cout", [8, 16, 32])
+def test_deform_conv_kernel_wide_offsets(cuda, cout):
+    """Offsets with a 16-pixel spread: most samples leave their tile's
+    window and read their corners from device memory."""
+    H, W = 72, 100
+    gen = torch.Generator().manual_seed(cout)
+    offset = 16.0 * torch.randn((2 * deform_conv.TAPS, H, W), generator=gen)
+    assert deform_conv.outside_window_share(offset) > 0.5
+    rel = _dcn_rel(_dcn_with_offsets(H, W, cout, cuda, cout, offset))
+    assert rel <= chip_smoke.DCN_TOL, rel
+
+
+@pytest.mark.parametrize("cout", [8, 16, 32])
+def test_deform_conv_kernel_integer_offsets(cuda, cout):
+    """Whole-pixel offsets in [-4, 4]: every bilinear weight is 0 or 1,
+    some samples on the window's last row and column."""
+    H, W = 50, 70
+    gen = torch.Generator().manual_seed(100 + cout)
+    offset = torch.randint(-4, 5, (2 * deform_conv.TAPS, H, W),
+                           generator=gen).float()
+    rel = _dcn_rel(_dcn_with_offsets(H, W, cout, cuda, cout, offset))
+    assert rel <= chip_smoke.DCN_TOL, rel
+
+
+@pytest.mark.parametrize("cout", [8, 16, 32])
+def test_deform_conv_kernel_edge_bands(cuda, cout):
+    """Samples in (-1, 0) and (H - 1, H) (and (-1, 0), (W - 1, W)) on
+    every edge, where one corner row or column lies outside the image,
+    mixed with samples inside it."""
+    H, W = 40, 56
+    K = deform_conv.TAPS
+    rng = np.random.default_rng(cout)
+
+    def targets(n):
+        band = rng.integers(0, 3, (K, H, W))
+        return np.where(band == 0, rng.uniform(-1, 0, (K, H, W)),
+                        np.where(band == 1, rng.uniform(n - 1, n, (K, H, W)),
+                                 rng.uniform(0, n - 1, (K, H, W))))
+
+    ky = (np.arange(K) // 3 - 1)[:, None, None]
+    kx = (np.arange(K) % 3 - 1)[:, None, None]
+    dy = targets(H) - (np.arange(H)[None, :, None] + ky)
+    dx = targets(W) - (np.arange(W)[None, None, :] + kx)
+    offset = torch.tensor(np.stack([dy, dx], 1).reshape(2 * K, H, W),
+                          dtype=torch.float32)
+    sy = np.arange(H)[None, :, None] + ky + dy
+    assert ((sy > -1) & (sy < 0)).any() and ((sy > H - 1) & (sy < H)).any()
+    rel = _dcn_rel(_dcn_with_offsets(H, W, cout, cuda, cout, offset))
+    assert rel <= chip_smoke.DCN_TOL, rel
+
+
+@pytest.mark.parametrize("hw", [(1, 1), (3, 5), (37, 53)])
+@pytest.mark.parametrize("cout", [8, 16, 32])
+def test_deform_conv_kernel_small_images(cuda, hw, cout):
+    """Images smaller than one 16 x 16 tile, and one that is no multiple
+    of it: pixels of the tile outside the image are neither read nor
+    written."""
+    rel = _dcn_rel(chip_smoke.dcn_inputs(*hw, cout, cuda, 7 * cout))
+    assert rel <= chip_smoke.DCN_TOL, rel
+
+
+@pytest.mark.parametrize("cout", [8, 16, 32])
+def test_deform_conv_kernel_batch(cuda, cout):
+    """Three views in one launch, written into one (3, Cout, H, W)
+    output, each equal to its own plain deformable conv."""
+    H, W = 45, 70
+    views = [chip_smoke.dcn_inputs(H, W, cout, cuda, 30 + v)
+             for v in range(3)]
+    weight, bias = views[0][3], views[0][4]
+    x, offset, mask = (torch.stack([v[i] for v in views]) for i in range(3))
+    before = deform_conv.deform_conv2d.launches
+    got = deform_conv.deform_conv2d_batch(x, offset, mask, weight, bias)
+    torch.cuda.synchronize()
+    assert deform_conv.deform_conv2d.launches == before + 1
+    assert got.shape == (3, cout, H, W)
+    for v in range(3):
+        ref = deform_conv.deform_conv2d_plain(x[v], offset[v], mask[v],
+                                              weight, bias)
+        rel = ((got[v] - ref) / (1 + ref.abs())).abs().max().item()
+        assert rel <= chip_smoke.DCN_TOL, (v, rel)
 
 
 def test_deform_conv_refuses_what_it_does_not_take(cuda):
