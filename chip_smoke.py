@@ -120,7 +120,8 @@ checks it, in phases that print in order:
      apart, and its confidence); (d) `cli.run.main` at 64x96 with each
      model;
  11. (run before 10's results) BlendedMVS, the NeRF++ background model
-     of the bmvs preset at its full widths: (a) the fused SDF kernel at
+     of the bmvs preset at its full widths, on a scene of JPEG images
+     (12(a)): (a) the fused SDF kernel at
      bounding_sphere 0 in both modes on 65,536 points in a ball of
      radius 2r against its plain version (1e-4; 2^-7 (|sdf| + 1)), the
      clamped call (bounding_sphere r) differing on the points outside
@@ -140,6 +141,27 @@ checks it, in phases that print in order:
      BlendedMVS/stl/scan1.ply (printed: at scan1's relative scale its 20
      mm bound is 0.02 fixture units, so it is NaN) and against itself
      (0);
+ 12. (run before 10's results) the image path: (a) phase 11's scene
+     was written as JPEGs (quality 95, 4:2:0, `make_bmvs_fixture(
+     image_format="jpg")`), so its data path read them through
+     csrc/jpeg.cpp; the host milliseconds to decode one 576x768 image
+     and its PSNR against the fixture's source (at least 35 dB); (b)
+     `image_based_render` on the card at 576x768 with GT depths
+     (tests/test_ibr.py's sphere scene: three training views, the eval
+     view under each of the 25 DTU eval ids): seconds per eval view, the
+     blend's PSNR against the GT eval image (above 20 dB, the JAX test's
+     bar); then, outside the counted run, on the first eval view: the
+     geometric-consistency kernel against its plain version at IBR's
+     inputs (576x768, filter_dist 2.0, with x/y; masks equal, x/y within
+     1e-9), the share of the eval view's sphere pixels that some training
+     view passes (at least 0.9) and the warped training images' PSNR
+     against the GT view on their passing pixels (at least 40 dB each),
+     and the blend on the card against the CPU's (1e-5); (c) the
+     command-line chain at 64x96: `cli.run create_scene=
+     true` on phase 7(d)'s fixture, `cli.ibr` on phase 8(e)'s
+     rendering_<epoch> folder, `cli.eval_vsdf --result_from blend`
+     (25 blends, finite metrics). The geometric-consistency kernel
+     (with its x/y outputs) launches three times a blended view;
  10. a JSON line with the kernels' numbers (the fused kernel's
      `unclamped_launches`: its launches on phase 11's paths, all at
      bounding_sphere 0), the card's name and power limit, and the last
@@ -178,20 +200,26 @@ from s_volsdf_tpu_torch.bridge import from_jax_mvs_params, to_jax_mvs_params
 from s_volsdf_tpu_torch.cli import eval_bmvs as cli_eval_bmvs
 from s_volsdf_tpu_torch.cli import eval_dtu as cli_eval_dtu
 from s_volsdf_tpu_torch.cli import eval_vsdf as cli_eval_vsdf
+from s_volsdf_tpu_torch.cli import ibr as cli_ibr
 from s_volsdf_tpu_torch.cli import run as cli_run
 from s_volsdf_tpu_torch.config import (Config, bmvs_config, dtu_config,
                                        per_scene_overrides)
 from s_volsdf_tpu_torch.data.fixtures import make_bmvs_fixture, make_dtu_fixture
-from s_volsdf_tpu_torch.data.io import load_ply, read_pfm, save_ply, write_png
+from s_volsdf_tpu_torch.data.io import (load_ply, read_img, read_pfm,
+                                        save_pfm, save_ply, write_cam,
+                                        write_png)
+from s_volsdf_tpu_torch.data.jpeg import decode_jpeg
 from s_volsdf_tpu_torch.data.mvs_dataset import MVSDataset
 from s_volsdf_tpu_torch.data.scene_dataset import scene_from_synthetic
-from s_volsdf_tpu_torch.data.splits import get_trains_ids
+from s_volsdf_tpu_torch.data.splits import get_eval_ids, get_trains_ids
 from s_volsdf_tpu_torch.data.synthetic import gt_prob_volume, make_sphere_scene
 from s_volsdf_tpu_torch.engine import eval_geo
 from s_volsdf_tpu_torch.engine import mesh as mesh_mod
 from s_volsdf_tpu_torch.engine.eval_nvs import eval_rendered_views, export_mesh
 from s_volsdf_tpu_torch.engine.fusion import (filter_depth, fuse_views,
                                               load_views)
+from s_volsdf_tpu_torch.engine import ibr as ibr_mod
+from s_volsdf_tpu_torch.engine.ibr import image_based_render
 from s_volsdf_tpu_torch.engine.mesh import mesh_sdf_fn
 from s_volsdf_tpu_torch.engine.render import render_depth, render_image
 from s_volsdf_tpu_torch.engine.runner import (MVSEngine, pcd_filter,
@@ -209,6 +237,7 @@ from s_volsdf_tpu_torch.tools.fp64_count import fp64_instructions
 from s_volsdf_tpu_torch.tools.time_cost_mapping import (cold_ms, sample_sets,
                                                         samples)
 from s_volsdf_tpu_torch.utils import checkpoint as ckpt
+from s_volsdf_tpu_torch.utils.image import remap_cubic
 
 # The kernel's bf16 x 3 split (about 2^-16 of each product) and f32 sums
 # in another order across 9 layers.
@@ -282,6 +311,7 @@ GT_POINTS = 1_000_000
 TRUTH_ACC_TOL = 1.0
 SMALL_CLI_STEPS = 3
 SMALL_VSDF = "small_vsdf"   # phase 7(d)'s exps_folder under the temp dir
+SMALL_EVALS = "small_evals"   # phase 8(e)'s evals_folder under the temp dir
 # SDF MLPs outside the fused kernel's family (`fused_sdf.supported`), run
 # through the sampler's plain route: two skip junctions, and a hidden
 # width past the kernel's 256.
@@ -768,18 +798,12 @@ def run_other_cascades(dev, card: str, tmp: str, data_root: str):
               + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
               + f" (tol prob {PROB_TOL}, depth rel {DEPTH_RTOL})", flush=True)
     # (d) The command line at 64x96 with each model, no precision override.
-    small = os.path.join(tmp, "small")
     for model in OTHER_MODELS:
         out = os.path.join(tmp, f"small_{model}")
         _reset_counts()                         # this path starts
         t0 = time.perf_counter()
-        plys = cli_run.main([
-            f"testlist={SCAN}", f"outdir={out}", f"data_dir_root={small}",
+        plys = cli_run.main(small_run_args(tmp, out) + [
             f"exps_folder={os.path.join(tmp, f'vsdf_{model}')}",
-            f"dataset.data_dir_root={small}", f"max_h={SMALL_RES[0]}",
-            f"max_w={SMALL_RES[1]}", f"dataset.img_res=[{SMALL_RES[0]},"
-            f"{SMALL_RES[1]}]", f"mvs.ndepths={list(SMALL_NDEPTHS)}",
-            f"mvs.numdepth={SMALL_NDEPTHS[0]}", "mvs.x2_mvsres=false",
             f"mvs.model_name={model}", f"opt_stepNs=[{SMALL_CLI_STEPS},0,0]"])
         torch.cuda.synchronize()
         small_s = time.perf_counter() - t0
@@ -889,6 +913,17 @@ def score_cloud(what: str, xyz: np.ndarray, gt: np.ndarray, card: str):
           f"{down.shape[0]} points {down_s:.3f} s, NN queries {nn_s:.3f} s "
           f"[{card}]", flush=True)
     return ch
+
+
+def small_run_args(tmp: str, outdir: str):
+    """cli.run's arguments for the 64x96 fixture under tmp/small."""
+    small = os.path.join(tmp, "small")
+    return [f"testlist={SCAN}", f"outdir={outdir}", f"data_dir_root={small}",
+            f"dataset.data_dir_root={small}", f"max_h={SMALL_RES[0]}",
+            f"max_w={SMALL_RES[1]}",
+            f"dataset.img_res=[{SMALL_RES[0]},{SMALL_RES[1]}]",
+            f"mvs.ndepths={list(SMALL_NDEPTHS)}",
+            f"mvs.numdepth={SMALL_NDEPTHS[0]}", "mvs.x2_mvsres=false"]
 
 
 def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
@@ -1017,16 +1052,10 @@ def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
 
     # (d) The command line end to end at 64x96 on the card, with no
     # precision override (the JAX defaults).
-    small = os.path.join(tmp, "small")
     out = os.path.join(tmp, "small_exps")
     t0 = time.perf_counter()
-    plys = cli_run.main([
-        f"testlist={SCAN}", f"outdir={out}", f"data_dir_root={small}",
+    plys = cli_run.main(small_run_args(tmp, out) + [
         f"exps_folder={os.path.join(tmp, SMALL_VSDF)}",
-        f"dataset.data_dir_root={small}", f"max_h={SMALL_RES[0]}",
-        f"max_w={SMALL_RES[1]}", f"dataset.img_res=[{SMALL_RES[0]},"
-        f"{SMALL_RES[1]}]", f"mvs.ndepths={list(SMALL_NDEPTHS)}",
-        f"mvs.numdepth={SMALL_NDEPTHS[0]}", "mvs.x2_mvsres=false",
         f"opt_stepNs=[{SMALL_CLI_STEPS},0,0]"])
     torch.cuda.synchronize()
     small_s = time.perf_counter() - t0
@@ -1786,16 +1815,21 @@ def write_sphere_gt(root: str) -> None:
              sphere_points(GT_POINTS))
 
 
+def small_eval_args(tmp: str):
+    """cli.eval_vsdf's arguments for phase 7(d)'s run at 64x96."""
+    return ["--conf", "dtu", "--scan_ids", SCAN[4:], "--exps_folder",
+            os.path.join(tmp, SMALL_VSDF), "--evals_folder",
+            os.path.join(tmp, SMALL_EVALS), "--data_dir_root",
+            os.path.join(tmp, "small"), "--override",
+            f"dataset.img_res=[{SMALL_RES[0]},{SMALL_RES[1]}]"]
+
+
 def eval_command_lines(dev, card: str, tmp: str) -> Dict:
     """Phase 8(e): cli.eval_vsdf on phase 7(d)'s checkpoint at 64x96
     (renders and mesh, then the metrics), then cli.eval_dtu --mode mesh
     of that mesh against the fixture's sphere points."""
-    small = os.path.join(tmp, "small")
-    evals = os.path.join(tmp, "small_evals")
-    common = ["--conf", "dtu", "--scan_ids", SCAN[4:], "--exps_folder",
-              os.path.join(tmp, SMALL_VSDF), "--evals_folder", evals,
-              "--data_dir_root", small, "--override",
-              f"dataset.img_res=[{SMALL_RES[0]},{SMALL_RES[1]}]"]
+    evals = os.path.join(tmp, SMALL_EVALS)
+    common = small_eval_args(tmp)
     t0 = time.perf_counter()
     cli_eval_vsdf.main(["--eval_rendering", "--eval_mesh", "--resolution",
                         str(EVAL_CLI_RES)] + common)
@@ -1956,10 +1990,11 @@ def bmvs_scene_config(data_root: str) -> Config:
 
 def run_bmvs_scene(dev, card: str, tmp: str) -> Dict:
     """Phase 11(c) and (d): save_scene_depth and pcd_filter on a 576x768
-    BMVS fixture, then the background eval render of one eval view and
-    cli.eval_bmvs on a sphere GT cloud. Returns the launches of (c)."""
+    BMVS fixture of JPEG images, then the background eval render of one
+    eval view and cli.eval_bmvs on a sphere GT cloud. Returns the
+    launches of (c)."""
     data_root = os.path.join(tmp, "bmvs")
-    make_bmvs_fixture(data_root, img_res=CASCADE_RES)
+    make_bmvs_fixture(data_root, img_res=CASCADE_RES, image_format="jpg")
     cfg = bmvs_scene_config(data_root)
     _check(cfg.inverse_depth, "scan1 runs stage 0 in inverse depth")
     engine = MVSEngine(cfg, device=dev)
@@ -2046,7 +2081,207 @@ def run_bmvs_scene(dev, card: str, tmp: str) -> Dict:
     return launches
 
 
+# --------------------------------------------------------------------------
+# 12. The image path: JPEG scenes and image-based rendering
+# --------------------------------------------------------------------------
+
+JPEG_PSNR_MIN = 35.0   # phase 11's fixture decoded, against its source (dB)
+IBR_PSNR_MIN = 20.0    # the blend against the GT eval view (tests/test_ibr.py)
+IBR_TRAIN_IDS = (25, 22, 28)   # DTU's training views (scan106)
+IBR_GEO_LAUNCHES = 3   # geometric checks a blended view: one a training view
+# The warps at 576x768 with GT depths: the share of the eval view's sphere
+# pixels that pass some training view's check (0.932 measured on the
+# CPU) and the warped images' PSNR on their passing pixels (51.9-53.3
+# dB; the render alone, a uint8 copy of the GT view, gives 52.6).
+IBR_COVER_MIN, IBR_WARP_PSNR_MIN = 0.9, 40.0
+IBR_BLEND_TOL = 1e-5   # the blend on the card against the CPU's
+DECODE_REPS = 20
+
+
+def _uint8(img: np.ndarray) -> np.ndarray:
+    return (np.clip(img, 0, 1) * 255).astype(np.uint8)
+
+
+def _psnr(a: np.ndarray, b: np.ndarray, peak: float) -> float:
+    mse = np.mean((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2)
+    return float(10 * np.log10(peak ** 2 / mse))
+
+
+def check_jpeg_scene(card: str, tmp: str) -> Dict:
+    """Phase 12(a): phase 11's scene is JPEGs only; one 576x768 training
+    image's decode, timed on the host, against the fixture's source."""
+    image_dir = os.path.join(tmp, "bmvs", "BlendedMVS", BMVS_SCAN, "image")
+    names = sorted(os.listdir(image_dir))
+    _check(len(names) > 0 and all(n.endswith(".jpg") for n in names),
+           f"phase 11's images are JPEGs: {names[:3]}")
+    tid = get_trains_ids("BlendedMVS", BMVS_SCAN, 3)[0]   # the scene's view 0
+    path = os.path.join(image_dir, f"{tid:06d}.jpg")
+    with open(path, "rb") as f:
+        data = f.read()
+    times = []
+    for _ in range(DECODE_REPS):
+        t0 = time.perf_counter()
+        img = decode_jpeg(data, path)
+        times.append(time.perf_counter() - t0)
+    src = _uint8(make_sphere_scene(n_views=3, img_res=CASCADE_RES,
+                                   cam_radius=2.8).images[0])
+    _check(img.shape == src.shape, f"decoded {img.shape}, source {src.shape}")
+    psnr = _psnr(img, src, 255.0)
+    _check(psnr >= JPEG_PSNR_MIN, f"JPEG decode PSNR {psnr} dB")
+    ms = 1e3 * float(np.median(times))
+    print(f"[image] phase 11's {BMVS_SCAN} scene read {len(names)} JPEG "
+          f"images (quality 95, 4:2:0); decode of {os.path.basename(path)} "
+          f"({CASCADE_RES[0]}x{CASCADE_RES[1]}, {len(data)} bytes): "
+          f"{ms:.3f} ms on the host (median of {DECODE_REPS}); PSNR against "
+          f"the fixture's source {psnr:.2f} dB (at least {JPEG_PSNR_MIN}) "
+          f"[{card}]", flush=True)
+    return {"decode_ms": ms, "psnr": psnr}
+
+
+def write_ibr_scene(root: str, img_res):
+    """tests/test_ibr.py's scene at img_res: three training views and one
+    eval view of the sphere (GT depths, the background at twice the
+    farthest depth), the eval view under every DTU eval id, with its GT
+    image as the render. Returns (scene, scan folder, out folder)."""
+    scene = make_sphere_scene(n_views=4, img_res=img_res, cam_radius=2.5)
+    scan_folder, out_folder = (os.path.join(root, d) for d in (SCAN, "out"))
+    views = [(v, i) for i, v in enumerate(IBR_TRAIN_IDS)]
+    views += [(v, 3) for v in get_eval_ids("DTU", int(SCAN[4:]))]
+    for vid, i in views:
+        cam = np.zeros((2, 4, 4), np.float32)
+        cam[0] = np.linalg.inv(scene.poses[i])
+        cam[1, :3, :3] = scene.intrinsics[i][:3, :3]
+        write_cam(os.path.join(scan_folder, f"cams/{vid:08d}_cam.txt"), cam)
+        depth = scene.depths[i].copy()
+        depth[~np.isfinite(depth)] = depth[np.isfinite(depth)].max() * 2
+        save_pfm(os.path.join(out_folder, f"depth_est/{vid:08d}.pfm"),
+                 depth.astype(np.float32))
+        write_png(os.path.join(out_folder, f"eval_{vid:03d}.png") if i == 3
+                  else os.path.join(scan_folder, f"images/{vid:08d}.png"),
+                  _uint8(scene.images[i]))
+    return scene, scan_folder, out_folder
+
+
+def run_ibr(dev, card: str, tmp: str) -> Dict:
+    """Phase 12(b): image_based_render on the card at 576x768."""
+    scene, scan_folder, out_folder = write_ibr_scene(
+        os.path.join(tmp, "ibr"), CASCADE_RES)
+    n_evals = len(get_eval_ids("DTU", int(SCAN[4:])))
+    t0 = time.perf_counter()
+    written = image_based_render(scan_folder, out_folder, "DTU", 3,
+                                 device=dev)
+    torch.cuda.synchronize()
+    ibr_s = time.perf_counter() - t0
+    _check(len(written) == n_evals and all(map(os.path.isfile, written)),
+           f"IBR wrote {len(written)} of {n_evals} blends")
+    blend = read_img(written[0])
+    _check(blend.shape == CASCADE_RES + (3,), f"blend {blend.shape}")
+    psnr = _psnr(blend, scene.images[3], 1.0)
+    _check(psnr > IBR_PSNR_MIN, f"IBR blend PSNR {psnr} dB")
+    print(f"[image] image_based_render at {CASCADE_RES[0]}x{CASCADE_RES[1]} "
+          f"(GT depths, 3 training views, {n_evals} eval views): {ibr_s:.2f} "
+          f"s, {ibr_s / n_evals:.4f} s/view (PNG reads and writes included); "
+          f"blend PSNR against the GT eval view {psnr:.2f} dB (above "
+          f"{IBR_PSNR_MIN}) [{card}]", flush=True)
+    return {"s_per_view": ibr_s / n_evals, "psnr": psnr, "views": n_evals,
+            "scene": scene, "scan_folder": scan_folder,
+            "out_folder": out_folder}
+
+
+def check_ibr_view(dev, card: str, run: Dict) -> None:
+    """Phase 12(b), outside the counted run: on run_ibr's first eval
+    view, the geometric check's kernel against its plain version at
+    IBR's inputs, the warps' coverage and PSNR, and the blend on the
+    card against the CPU's."""
+    scan_folder, out_folder = run["scan_folder"], run["out_folder"]
+    vid = get_eval_ids("DTU", int(SCAN[4:]))[0]
+    on = {d: ([ibr_mod.view_inputs(scan_folder, out_folder, v, d, image=True)
+               for v in IBR_TRAIN_IDS],
+              ibr_mod.view_inputs(scan_folder, out_folder, vid, d,
+                                  image=False)) for d in (dev, "cpu")}
+    srcs, ref = on[dev]
+    gt = torch.as_tensor(read_img(os.path.join(out_folder,
+                                               f"eval_{vid:03d}.png")))
+    sphere = torch.isfinite(torch.as_tensor(run["scene"].depths[3]))
+    covered = torch.zeros_like(sphere)
+    mask_diff, depth_err, xy_err, warp_psnr = 0, 0.0, 0.0, []
+    for src in srcs:
+        mats = geo_consistency.pair_matrices(ref["intr"], ref["extr"],
+                                             src["intr"], src["extr"])
+        args = (ref["depth"], src["depth"], mats, ibr_mod.FILTER_DIST,
+                ibr_mod.FILTER_DIFF)
+        got = geo_consistency.geo_consistency(*args, xy=True)
+        want = geo_consistency.geo_consistency_plain(*args, xy=True)
+        mask_diff += int((got[0] != want[0]).sum())
+        depth_err = max(depth_err, (got[1] - want[1]).abs().max().item())
+        xy_err = max(xy_err, (got[2] - want[2]).abs().max().item(),
+                     (got[3] - want[3]).abs().max().item())
+        mask = got[0].cpu()
+        covered |= mask
+        warped = remap_cubic(src["image"], got[2].float(), got[3].float())
+        warp_psnr.append(_psnr(warped.cpu()[mask], gt[mask], 1.0))
+    _check(mask_diff == 0 and depth_err <= FUSION_DEPTH_TOL
+           and xy_err <= FUSION_XY_TOL,
+           f"IBR geo_consistency vs plain: {mask_diff} mask pixels differ, "
+           f"depth {depth_err}, x/y {xy_err}")
+    cover = int((covered & sphere).sum()) / int(sphere.sum())
+    _check(cover >= IBR_COVER_MIN and min(warp_psnr) >= IBR_WARP_PSNR_MIN,
+           f"IBR warps: {cover} of the sphere covered, PSNR {warp_psnr}")
+    blends = [ibr_mod.blend_view(r, gt.to(r["depth"].device), s).cpu()
+              for s, r in on.values()]
+    blend_err = (blends[0] - blends[1]).abs().max().item()
+    _check(blend_err <= IBR_BLEND_TOL, f"IBR blend card vs CPU {blend_err}")
+    print(f"[image] IBR eval view {vid}, {len(srcs)} training views at "
+          f"{CASCADE_RES[0]}x{CASCADE_RES[1]}: geo_consistency (filter_dist "
+          f"{ibr_mod.FILTER_DIST}, x/y) vs plain: mask pixels differing "
+          f"{mask_diff}, depth max|diff| {depth_err:.3e}, x/y max|diff| "
+          f"{xy_err:.3e} (tol {FUSION_XY_TOL}); sphere pixels passing some "
+          f"training view {cover:.4f} (at least {IBR_COVER_MIN}); warped "
+          f"PSNR on passing pixels " + ", ".join(f"{p:.2f}" for p in warp_psnr)
+          + f" dB (at least {IBR_WARP_PSNR_MIN}); blend card vs CPU "
+          f"max|diff| {blend_err:.3e} (tol {IBR_BLEND_TOL}) [{card}]",
+          flush=True)
+
+
+def ibr_command_lines(dev, card: str, tmp: str) -> Dict:
+    """Phase 12(c): create_scene=true on phase 7(d)'s fixture, cli.ibr on
+    phase 8(e)'s rendering_<epoch> folder, the blends' metrics."""
+    outdir = os.path.join(tmp, "small_ibr")
+    t0 = time.perf_counter()
+    _check(cli_run.main(small_run_args(tmp, outdir) + ["create_scene=true"])
+           == [], "create_scene=true fuses nothing")
+    create_s = time.perf_counter() - t0
+    scan_dir = os.path.join(outdir, SCAN)
+    n_evals = len(get_eval_ids("DTU", int(SCAN[4:])))
+    n_cams, n_images = (len(os.listdir(os.path.join(scan_dir, d)))
+                        for d in ("cams", "images"))
+    _check(n_images == 3 and n_cams == 3 + n_evals,
+           f"create_scene wrote {n_cams} cams and {n_images} images")
+    t0 = time.perf_counter()
+    blends = cli_ibr.main([f"evals_folder={os.path.join(tmp, SMALL_EVALS)}",
+                           f"outdir={outdir}", f"testlist={SCAN}"])
+    torch.cuda.synchronize()
+    ibr_s = time.perf_counter() - t0
+    _check(len(blends) == n_evals and all(map(os.path.isfile, blends)),
+           f"cli.ibr wrote {len(blends)} of {n_evals} blends")
+    t0 = time.perf_counter()
+    (m,) = cli_eval_vsdf.main(["--eval_rendering", "--result_from", "blend"]
+                              + small_eval_args(tmp))
+    metric_s = time.perf_counter() - t0
+    _check(m["n_views"] == n_evals and np.isfinite(m["psnr_mean"])
+           and 0 < m["ssim_mean"] <= 1, f"blend metrics {m}")
+    print(f"[image] cli.run create_scene=true {SCAN} at {SMALL_RES[0]}x"
+          f"{SMALL_RES[1]}: {create_s:.2f} s ({n_cams} cams, {n_images} "
+          f"images); cli.ibr on {os.path.basename(os.path.dirname(blends[0]))}"
+          f": {ibr_s:.2f} s, {len(blends)} blends; cli.eval_vsdf "
+          f"--result_from blend {metric_s:.2f} s: PSNR {m['psnr_mean']:.3f}, "
+          f"SSIM {m['ssim_mean']:.4f} over {m['n_views']} views [{card}]",
+          flush=True)
+    return {"views": len(blends)}
+
+
 def main() -> None:
+    start = time.perf_counter()
     # 1. Environment.
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on a GPU only",
@@ -2135,12 +2370,29 @@ def main() -> None:
         print(f"[bmvs] fused SDF launches at bounding_sphere 0 on the "
               f"BlendedMVS paths: {bmvs_sdf}", flush=True)
 
+        # 12. The image path: the JPEG scene phase 11 read, IBR at full
+        # size, the command-line chain at 64x96.
+        t0 = time.perf_counter()
+        jpeg = check_jpeg_scene(card, tmp)
+        _reset_counts()                         # the IBR paths start
+        ibr = run_ibr(dev, card, tmp)
+        ibr_cli = ibr_command_lines(dev, card, tmp)
+        ibr_launches = _launch_counts()         # ... and end here
+        check_ibr_view(dev, card, ibr)
+        want = IBR_GEO_LAUNCHES * (ibr["views"] + ibr_cli["views"])
+        _check(ibr_launches["geo_consistency"] == want,
+               f"IBR geo_consistency launches {ibr_launches}, want {want}")
+        print(f"[image] phase 12 in {time.perf_counter() - t0:.2f} s: JPEG "
+              f"decode {jpeg['decode_ms']:.3f} ms/image, IBR "
+              f"{ibr['s_per_view']:.4f} s/view; launches on the IBR paths "
+              f"{ibr_launches} [{card}]", flush=True)
+
     # 10. Results. Launches are summed over the paths, each counted from 0.
     paths = [launches, outside, scene_launches["float32"],
              scene_launches["defaults"],
              {"fused_sdf": fusion["sdf_launches"],
               "cost_mapping": fusion["cost_launches"]}, eval_field,
-             eval_cli] + other + bmvs
+             eval_cli] + other + bmvs + [ibr_launches]
     sdf_launches = {m: sum(p["fused_sdf"][m] for p in paths)
                     for m in fused_sdf.MODES}
     cost_launches = sum(p["cost_mapping"] for p in paths)
@@ -2214,6 +2466,8 @@ def main() -> None:
         "outside_window_share": dcn["outside_window_share"],
         "sm_clock_mhz": dcn["sm_clock_mhz"],
         "shape": [DCN_CIN, *CASCADE_MVS_RES, DCN_CIN]})
+    print(f"[env] chip_smoke.py in {time.perf_counter() - start:.2f} s "
+          f"[{card}]", flush=True)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,11 +3,14 @@
 
     python -m s_volsdf_tpu_torch.cli.run testlist=scan106
     python -m s_volsdf_tpu_torch.cli.run testlist=scan106 filter_only=true
+    python -m s_volsdf_tpu_torch.cli.run testlist=scan106 create_scene=true
 
 Each scene of `testlist` (a comma list, or a .txt file of scan names) runs
 the cascade with VolSDF feedback and writes its depth maps
 (`save_depth`, skipped with filter_only=true); then fusion writes
-<outdir>/mvsnet{id:03d}_l3.ply (`pcd_filter`). `+key=value` works like
+<outdir>/mvsnet{id:03d}_l3.ply (`pcd_filter`). create_scene=true only
+writes each scene's cams and training images for image-based rendering
+(`engine.ibr.create_scene`, then `cli.ibr`). `+key=value` works like
 `key=value`; `preset=` (or the hydra group `vol=`) picks the dtu, bmvs
 or default preset; `mvs_weights=` names a converted cascade checkpoint.
 Precision follows the JAX package's knobs and defaults (bf16 training
@@ -19,9 +22,10 @@ from __future__ import annotations
 
 import logging
 import sys
-from typing import List
+from typing import Dict, List, Tuple
 
 from s_volsdf_tpu_torch.config import load_config, validate_config
+from s_volsdf_tpu_torch.engine import ibr
 from s_volsdf_tpu_torch.engine.runner import pcd_filter, save_depth
 
 logger = logging.getLogger("s_volsdf_tpu_torch")
@@ -37,20 +41,26 @@ def parse_testlist(testlist: str) -> List[str]:
     return [x for x in testlist.replace(" ", "").split(",") if x]
 
 
-def main(argv: List[str], *, device=None) -> List[str]:
-    """Run the pipeline for argv's overrides on `device` ("cuda" by
-    default; device="cpu" runs it on the CPU). Returns the fused PLYs'
-    paths."""
-    overrides = [a for a in argv if "=" in a]
+def parse_overrides(argv: List[str]) -> Tuple[str, Dict[str, str]]:
+    """argv's `key=value` overrides (`+key=value` alike) as a dict, and
+    the preset that `preset=` or the hydra group `vol=` picks ("dtu" by
+    default)."""
     extra = {k.lstrip("+"): v
-             for k, v in (o.split("=", 1) for o in overrides)}
+             for k, v in (o.split("=", 1) for o in argv if "=" in o)}
     # Pop 'vol' on its own line: a default argument of pop() would be
     # evaluated eagerly and swallow 'vol=' whenever 'preset=' is given.
     vol = extra.pop("vol", None)
     preset = extra.pop("preset", None)
     if preset and vol and preset != vol:
         raise SystemExit(f"conflicting preset={preset} and vol={vol}")
-    preset = preset or vol or "dtu"
+    return preset or vol or "dtu", extra
+
+
+def main(argv: List[str], *, device=None) -> List[str]:
+    """Run the pipeline for argv's overrides on `device` ("cuda" by
+    default; device="cpu" runs it on the CPU). Returns the fused PLYs'
+    paths (none with create_scene=true)."""
+    preset, extra = parse_overrides(argv)
     create_scene = extra.pop("create_scene", "false").lower() in _TRUE
     multiscene = extra.pop("multiscene", "false").lower() in _TRUE
     mvs_weights = extra.pop("mvs_weights", None)
@@ -62,9 +72,9 @@ def main(argv: List[str], *, device=None) -> List[str]:
                 f"exps={cfg.exps_folder}")
 
     if create_scene:
-        raise NotImplementedError(
-            "create_scene=true: image-based rendering (engine/ibr.py) is "
-            "not ported yet (ROADMAP queue 1, 'IBR')")
+        for scene in testlist:
+            ibr.create_scene(cfg, scene)
+        return []
     if not cfg.filter_only:
         if multiscene and len(testlist) > 1:
             raise NotImplementedError(

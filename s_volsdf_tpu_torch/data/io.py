@@ -6,7 +6,8 @@ The JAX package reads and writes images with imageio; the port carries
 its own PNG codec on zlib and numpy, so it needs no image library: 8-bit
 gray, gray+alpha, RGB and RGBA, non-interlaced, all five row filters on
 read, filter 0 (none) on write. DTU/IDR images and the fixtures are such
-PNGs.
+PNGs. JPEGs (real BlendedMVS scans) are read by `data.jpeg`'s decoder;
+`read_image` picks the reader by the file's signature.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import zlib
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from s_volsdf_tpu_torch.data.jpeg import decode_jpeg
 
 
 # --------------------------------------------------------------------------
@@ -318,13 +321,29 @@ def write_png(path: str, img: np.ndarray, level: int = 6) -> None:
         f.write(chunk(b"IEND", b""))
 
 
+_JPEG_SIG = b"\xff\xd8\xff"
+
+
+def read_image(path: str) -> np.ndarray:
+    """The uint8 pixels of a PNG (`read_png`) or a JPEG (`data.jpeg`,
+    equal to imageio's), picked by the file's signature, not its name:
+    (H, W) for grey, (H, W, C) otherwise. Any other file is refused,
+    naming it."""
+    with open(path, "rb") as f:
+        head = f.read(8)
+    if head == _PNG_SIG:
+        return read_png(path)
+    if head[:3] == _JPEG_SIG:
+        with open(path, "rb") as f:
+            return decode_jpeg(f.read(), path)
+    raise ValueError(f"{path}: neither a PNG nor a JPEG file (signature "
+                     f"{head[:4]!r})")
+
+
 def read_img(path: str) -> np.ndarray:
-    """Float32 in [0, 1] (the JAX `read_img`: raw 8-bit values / 255).
-    PNG only."""
-    if not path.lower().endswith(".png"):
-        raise NotImplementedError(
-            f"{path}: the port reads PNG images only")
-    return read_png(path).astype(np.float32) / 255.0
+    """Float32 in [0, 1] (the JAX `read_img`: raw 8-bit values / 255)
+    of a PNG or a JPEG (`read_image`)."""
+    return read_image(path).astype(np.float32) / 255.0
 
 
 def glob_imgs(path: str) -> List[str]:

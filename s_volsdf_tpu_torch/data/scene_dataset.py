@@ -16,7 +16,7 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 
-from s_volsdf_tpu_torch.data.io import glob_imgs, read_png
+from s_volsdf_tpu_torch.data.io import glob_imgs, read_image
 from s_volsdf_tpu_torch.data.splits import (get_eval_ids, get_near_id,
                                             get_trains_ids)
 from s_volsdf_tpu_torch.data.synthetic import SyntheticScene
@@ -78,7 +78,7 @@ def scene_from_synthetic(scene: SyntheticScene) -> SceneData:
 
 
 def _load_rgb(path: str) -> np.ndarray:
-    img = read_png(path).astype(np.float32)
+    img = read_image(path).astype(np.float32)
     if img.max() > 1.5:
         img = img / 255.0
     return img

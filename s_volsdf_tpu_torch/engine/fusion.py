@@ -6,8 +6,8 @@ the per-pair check is the kernel `csrc/fusion.cu`
 (`ops.geo_consistency`); on the CPU, its plain version. The averaging,
 the masks and the back-projection of the kept pixels are torch float64
 ops on the same device, cast to float32 at the end as in the JAX
-package. Images are read as `images/{v:08d}.png`: the port writes its
-image copies as PNG (the card's machine has no JPEG codec).
+package. Images are read as `images/{v:08d}.png`, the port's own
+lossless copies, else as `images/{v:08d}.jpg`, the JAX package's.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from s_volsdf_tpu_torch.data.io import (read_camera_parameters, read_img,
-                                        read_pfm, read_png, save_ply)
+from s_volsdf_tpu_torch.data.io import (read_camera_parameters, read_image,
+                                        read_img, read_pfm, save_ply)
 from s_volsdf_tpu_torch.ops.geo_consistency import (geo_consistency,
                                                     pair_matrices,
                                                     reproject_plain)
@@ -138,7 +138,7 @@ def eval_mask_for(eval_mask_dir: str, v: int, shape_hw, device
     for pattern in (f"mask/{v:08d}.png", f"mask/{v:03d}.png", f"{v:03d}.png"):
         p = os.path.join(eval_mask_dir, pattern)
         if os.path.exists(p):
-            m = read_png(p)
+            m = read_image(p)
             if m.ndim == 3:
                 m = m[..., -1]
             m = dilate_binary(torch.as_tensor(m, device=device) > 0,
@@ -151,18 +151,22 @@ def load_views(scan_folder: str, out_folder: str, trains_i: List[int], *,
                eval_mask_dir: Optional[str] = None, device=None
                ) -> Tuple[List[Dict], List[Optional[torch.Tensor]]]:
     """The inputs of `fuse_views` from a scene's output directory: the
-    depth and confidence PFMs under out_folder, cams/*_cam.txt and
-    images/*.png under scan_folder, and the eval masks (on `device`,
-    "cuda" by default). A missing image raises naming the file."""
+    depth and confidence PFMs under out_folder, cams/*_cam.txt and the
+    images under scan_folder (images/*.png, the port's copies, else
+    images/*.jpg, the JAX package's), and the eval masks (on `device`,
+    "cuda" by default). A missing image raises naming both files."""
     dev = resolve_device(device, "load_views")
     views, eval_masks = [], []
     for v in trains_i:
         intr, extr = read_camera_parameters(
             os.path.join(scan_folder, f"cams/{v:08d}_cam.txt"))
-        img_path = os.path.join(scan_folder, f"images/{v:08d}.png")
-        if not os.path.exists(img_path):
+        paths = [os.path.join(scan_folder, f"images/{v:08d}.{ext}")
+                 for ext in ("png", "jpg")]
+        img_path = next((p for p in paths if os.path.exists(p)), None)
+        if img_path is None:
             raise FileNotFoundError(f"fusion reads the view's image from "
-                                    f"{img_path}, which does not exist")
+                                    f"{paths[0]} or {paths[1]}, neither of "
+                                    f"which exists")
         img = read_img(img_path)
         depth = read_pfm(os.path.join(out_folder, f"depth_est/{v:08d}.pfm"))[0]
         conf = read_pfm(os.path.join(out_folder, f"confidence/{v:08d}.pfm"))[0]

@@ -9,6 +9,13 @@ runner's linear resize of the feedback depth is
 `resize` and `gaussian_blur` take and return float32 numpy (H, W) or
 (H, W, C) on the host; `dilate_binary` and `resize_linear` take and
 return (H, W) tensors on any device.
+
+Image-based rendering (s_volsdf_tpu/engine/ibr.py) calls cv2's pyrDown,
+pyrUp, remap with INTER_CUBIC, erode, subtract and add; their
+counterparts (`pyr_down`, `pyr_up`, `remap_cubic`, `erode5`,
+`subtract`, `add`) take tensors whose last three dims are (H, W, C) on
+any device, keep float64 as float64, and follow OpenCV 5's behaviour
+(see `remap_cubic`).
 """
 
 from __future__ import annotations
@@ -132,3 +139,125 @@ def resize_linear(img: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
     sy, sy1, fy = (torch.as_tensor(a, device=dev) for a in _linear_taps(h, H))
     rows = img[:, sx] * (1.0 - fx) + img[:, sx1] * fx
     return rows[sy] * (1.0 - fy)[:, None] + rows[sy1] * fy[:, None]
+
+
+# --------------------------------------------------------------------------
+# cv2's pyramids, cubic remap and erosion (image-based rendering)
+# --------------------------------------------------------------------------
+
+def _reflect101(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """cv2.borderInterpolate(i, n, BORDER_REFLECT_101), 1 for n == 1."""
+    if n == 1:
+        return torch.zeros_like(idx)
+    period = 2 * n - 2
+    idx = torch.remainder(idx, period)
+    return torch.where(idx >= n, period - idx, idx)
+
+
+def _taps(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    return torch.index_select(x, dim, idx.to(x.device))
+
+
+def pyr_down(x: torch.Tensor) -> torch.Tensor:
+    """cv2.pyrDown of (..., H, W, C): the 5-tap [1 4 6 4 1] / 16 filter
+    along W, then H, with the BORDER_REFLECT_101 border, keeping every
+    other sample: ((H + 1) // 2, (W + 1) // 2). Summed in cv2's order,
+    scaled by 1 / 256 at the end."""
+    for dim in (-2, -3):
+        n = x.shape[dim]
+        centre = 2 * torch.arange((n + 1) // 2)
+        t = [_taps(x, dim, _reflect101(centre + k, n)) for k in (-2, -1, 0, 1, 2)]
+        x = t[2] * 6 + (t[1] + t[3]) * 4 + t[0] + t[4]
+    return x * (1.0 / 256)
+
+
+def pyr_up(x: torch.Tensor) -> torch.Tensor:
+    """cv2.pyrUp of (..., H, W, C) to (2H, 2W): even outputs (x[i-1] +
+    6 x[i] + x[i+1]) / 8, odd ones (x[i] + x[i+1]) / 2, along W, then
+    H. At the near edge x[-1] = x[1] (reflect-101); at the far edge x[n]
+    = x[n-1], so the last two outputs are (x[n-2] + 7 x[n-1]) / 8 and
+    x[n-1], as cv2 computes them."""
+    for dim in (-2, -3):
+        n = x.shape[dim]
+        i = torch.arange(n)
+        prev = _taps(x, dim, torch.where(i > 0, i - 1, min(1, n - 1)))
+        nxt = _taps(x, dim, torch.clamp(i + 1, max=n - 1))
+        even, odd = prev + x * 6 + nxt, (x + nxt) * 4
+        shape = list(x.shape)
+        shape[dim] = 2 * n
+        x = torch.stack([even, odd], dim=dim).reshape(shape)
+    return x * (1.0 / 64)
+
+
+def _same_size(a: torch.Tensor, b: torch.Tensor, op: str) -> None:
+    if a.shape != b.shape:
+        raise ValueError(f"cv2.{op}: the arrays' sizes differ "
+                         f"({tuple(a.shape)} and {tuple(b.shape)})")
+
+
+def subtract(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cv2.subtract of float arrays: a - b, refusing arrays of different
+    sizes as cv2 does."""
+    _same_size(a, b, "subtract")
+    return a - b
+
+
+def add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """cv2.add of float arrays: a + b, refusing arrays of different
+    sizes as cv2 does."""
+    _same_size(a, b, "add")
+    return a + b
+
+
+def _cubic_weights(t: torch.Tensor):
+    """cv2's interpolateCubic at fraction t: Keys' kernel with a = -0.75
+    at distances 1 + t, t, 1 - t, 2 - t (the last as 1 minus the
+    others)."""
+    a = -0.75
+    w0 = ((a * (t + 1) - 5 * a) * (t + 1) + 8 * a) * (t + 1) - 4 * a
+    w1 = ((a + 2) * t - (a + 3)) * t * t + 1
+    w2 = ((a + 2) * (1 - t) - (a + 3)) * (1 - t) * (1 - t) + 1
+    return w0, w1, w2, 1 - w0 - w1 - w2
+
+
+def remap_cubic(img: torch.Tensor, map_x: torch.Tensor,
+                map_y: torch.Tensor) -> torch.Tensor:
+    """cv2.remap(img, map_x, map_y, INTER_CUBIC) with the default
+    BORDER_CONSTANT of 0, for img (H, W, C) float32 and float32 maps
+    (Ho, Wo): the 4x4 taps around each coordinate weighted by Keys'
+    cubic (a = -0.75) at the exact coordinate, summed in float64 and
+    returned as float32 (Ho, Wo, C). Taps outside the image count as 0,
+    so a coordinate up to two pixels outside still reads the edge; NaN
+    and coordinates far outside give 0. This is OpenCV 5's remap: 4.x
+    rounds float maps to 1/32 pixel first."""
+    H, W, C = img.shape
+    src = img.to(torch.float64).reshape(H * W, C)
+    x, y = map_x.to(torch.float64), map_y.to(torch.float64)
+    finite = torch.isfinite(x) & torch.isfinite(y)
+    x = torch.where(finite, x, -8.0).clamp(-8.0, W + 8.0)
+    y = torch.where(finite, y, -8.0).clamp(-8.0, H + 8.0)
+    ix, iy = torch.floor(x), torch.floor(y)
+    wx, wy = _cubic_weights(x - ix), _cubic_weights(y - iy)
+    ix, iy = ix.to(torch.int64), iy.to(torch.int64)
+    out = torch.zeros(x.shape + (C,), dtype=torch.float64, device=img.device)
+    for i in range(4):
+        yy = iy + (i - 1)
+        row = torch.zeros_like(out)
+        for j in range(4):
+            xx = ix + (j - 1)
+            ok = (xx >= 0) & (xx < W) & (yy >= 0) & (yy < H)
+            v = src[torch.where(ok, yy * W + xx, 0)]
+            row = row + torch.where(ok[..., None], v, 0.0) * wx[j][..., None]
+        out = out + row * wy[i][..., None]
+    return torch.where(finite[..., None], out, 0.0).to(torch.float32)
+
+
+def erode5(x: torch.Tensor) -> torch.Tensor:
+    """cv2.erode(x, np.ones((5, 5))) of (..., H, W, C) with cv2's default
+    border, +max: the minimum over each 5x5 window, pixels outside the
+    image never winning. Exact (a minimum of the inputs)."""
+    lead = x.shape[:-3]
+    H, W, C = x.shape[-3:]
+    t = x.reshape(-1, H, W, C).permute(0, 3, 1, 2)
+    t = -F.max_pool2d(-t, 5, stride=1, padding=2)
+    return t.permute(0, 2, 3, 1).reshape(lead + (H, W, C))

@@ -138,8 +138,7 @@ def test_cli_defaults_to_cuda(scan_outputs, monkeypatch):
                    f"data_dir_root={data}", "filter_only=true"])
 
 
-@pytest.mark.parametrize("arg,item", [("create_scene=true", "IBR"),
-                                      ("multiscene=true", "Multi-scene")])
+@pytest.mark.parametrize("arg,item", [("multiscene=true", "Multi-scene")])
 def test_unported_modes_raise(arg, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
         trun.main([arg, "testlist=scan24,scan37", f"outdir={tmp_path}"],

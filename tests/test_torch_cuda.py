@@ -530,3 +530,58 @@ def test_checkpoint_round_trip_on_card(cuda, tmp_path):
     for x, y in zip(ckpt.train_state_leaves(a.state),
                     ckpt.train_state_leaves(b.state)):
         np.testing.assert_array_equal(x, y)
+
+
+# -- image-based rendering ----------------------------------------------------
+
+@pytest.mark.parametrize("hw", [(64, 96), (75, 33), (576, 768)])
+def test_ibr_image_ops_card_match_cpu(cuda, hw):
+    """utils/image.py's cv2 counterparts on the card against the CPU:
+    pyr_down, pyr_up (float64, 1e-12), remap_cubic (float32 result of
+    float64 sums, 1e-6, zeros equal), erode5 (equal)."""
+    from s_volsdf_tpu_torch.utils import image
+    rng = np.random.default_rng(0)
+    a = torch.as_tensor(rng.random((2,) + hw + (3,)))
+    for op in (image.pyr_down, image.pyr_up):
+        got, want = op(a.to(cuda)).cpu(), op(a)
+        assert got.shape == want.shape
+        assert (got - want).abs().max().item() <= 1e-12
+    img = a[0].to(torch.float32)
+    mx = torch.as_tensor(rng.uniform(-4, hw[1] + 4, hw), dtype=torch.float32)
+    my = torch.as_tensor(rng.uniform(-4, hw[0] + 4, hw), dtype=torch.float32)
+    mx[0, :3] = torch.tensor([float("nan"), 1e9, -1.2])
+    got = image.remap_cubic(img.to(cuda), mx.to(cuda), my.to(cuda)).cpu()
+    want = image.remap_cubic(img, mx, my)
+    assert (got - want).abs().max().item() <= 1e-6
+    assert torch.equal(got == 0, want == 0)
+    m = (a > 0.2).to(torch.float64)
+    assert torch.equal(image.erode5(m.to(cuda)).cpu(), image.erode5(m))
+
+
+def test_image_based_render_card_matches_cpu(cuda, tmp_path):
+    """The blend of one eval view at 64x96 (tests/test_ibr.py's scene)
+    on the card against the CPU: the geometric check's kernel (with its
+    x/y) and the torch ops: float blends within 1e-5, three kernel
+    launches."""
+    from s_volsdf_tpu_torch.engine import ibr
+    _, scan_folder, out_folder = chip_smoke.write_ibr_scene(str(tmp_path),
+                                                            (64, 96))
+    blends = []
+    blend = ibr.laplacian_blending
+
+    def recording(*args, **kwargs):
+        out = blend(*args, **kwargs)
+        blends.append(out.cpu())
+        return out
+    eval_ids = ibr.get_eval_ids
+    try:
+        ibr.laplacian_blending = recording
+        ibr.get_eval_ids = lambda *a, **k: [eval_ids("DTU", 106)[0]]
+        before = geo_consistency.geo_consistency.launches
+        ibr.image_based_render(scan_folder, out_folder, "DTU", 3, device=cuda)
+        assert geo_consistency.geo_consistency.launches == before + 3
+        ibr.image_based_render(scan_folder, out_folder, "DTU", 3,
+                               device="cpu")
+    finally:
+        ibr.laplacian_blending, ibr.get_eval_ids = blend, eval_ids
+    assert (blends[0] - blends[1]).abs().max().item() <= 1e-5
