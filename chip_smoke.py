@@ -162,10 +162,36 @@ checks it, in phases that print in order:
      rendering_<epoch> folder, `cli.eval_vsdf --result_from blend`
      (25 blends, finite metrics). The geometric-consistency kernel
      (with its x/y outputs) launches three times a blended view;
+ 13. (run before 10's results) multi-scene training in lockstep: (a)
+     with 4 scenes of SDF weights from 4 seeds, the fused kernel at 4 x
+     65,536 points in each mode in one launch, equal to 4 single
+     launches bit for bit and within the bars of phase 3 of its plain
+     version, and the cost-mapping kernel at 4 x (512 x 96) samples on 4
+     scenes' 192x288x384 volumes (bf16 and float32) in one launch, equal
+     to 4 single launches bit for bit in pj, pi and valid; the batched
+     launch's ms beside the 4 single launches' (cold and warm for the
+     cost mapping) and its bound; (b) the lockstep step (`run_joint`) at
+     full width on 576x768 sphere scenes of per-scene radius with
+     bench.py's volumes, S = 1, 2 and 4, 20 steps each at the defaults
+     and at float32: finite losses, one fused-SDF launch of S scenes and
+     one cost-mapping launch a step; at float32, S = 1 and 2 against
+     serial trainers of the same seeds (step 1 within 1e-4 relative, 20
+     steps within 1%); the median step, device ms, busy share, launches
+     a step (torch.profiler, 5 more steps), peak GiB and training rays/s
+     beside S serial steps' total; then NaN in scene 1's RGB for one
+     step: its grad_finite 0, its parameters and Adam state equal to the
+     bit, scene 0 stepping; (c) `cli.run multiscene=true` on two 64x96
+     DTU fixtures (scan106, scan114; 30 float32 steps) against a serial
+     `cli.run` of the same scans: every view's depth PFM within 1e-3 on
+     at least 99.5% of its pixels, each scene's "latest" checkpoint
+     resuming at step 30;
  10. a JSON line with the kernels' numbers (the fused kernel's
      `unclamped_launches`: its launches on phase 11's paths, all at
-     bounding_sphere 0), the card's name and power limit, and the last
-     line {"ok": true, "device": {...}}.
+     bounding_sphere 0; both kernels' `scene_launches`, their launches
+     on phase 13's paths by number of scenes, and `lockstep_launches`,
+     those of more than one scene, with `scenes_*` times from 13(a)),
+     the card's name and power limit, and the last line {"ok": true,
+     "device": {...}}.
 
 Any failed check raises, so the script exits non-zero and prints no
 result; so does a machine without a CUDA device. Weights are random,
@@ -181,6 +207,7 @@ tests/test_torch_cuda.py.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import os
@@ -210,7 +237,8 @@ from s_volsdf_tpu_torch.data.io import (load_ply, read_img, read_pfm,
                                         write_png)
 from s_volsdf_tpu_torch.data.jpeg import decode_jpeg
 from s_volsdf_tpu_torch.data.mvs_dataset import MVSDataset
-from s_volsdf_tpu_torch.data.scene_dataset import scene_from_synthetic
+from s_volsdf_tpu_torch.data.scene_dataset import (load_scene,
+                                                   scene_from_synthetic)
 from s_volsdf_tpu_torch.data.splits import get_eval_ids, get_trains_ids
 from s_volsdf_tpu_torch.data.synthetic import gt_prob_volume, make_sphere_scene
 from s_volsdf_tpu_torch.engine import eval_geo
@@ -225,9 +253,11 @@ from s_volsdf_tpu_torch.engine.render import render_depth, render_image
 from s_volsdf_tpu_torch.engine.runner import (MVSEngine, pcd_filter,
                                               save_scene_depth)
 from s_volsdf_tpu_torch.engine.train_step import training_model_config
-from s_volsdf_tpu_torch.engine.trainer import VolTrainer
+from s_volsdf_tpu_torch.engine.multiscene import run_joint
+from s_volsdf_tpu_torch.engine.trainer import VolTrainer, stack_states
 from s_volsdf_tpu_torch.models.lpips import init_lpips_params, lpips_leaves
-from s_volsdf_tpu_torch.models.network import init_volsdf_params, render_rays
+from s_volsdf_tpu_torch.models.network import (init_volsdf_params,
+                                               render_rays, stack_params)
 from s_volsdf_tpu_torch.models.mvs import blocks as B
 from s_volsdf_tpu_torch.models.mvs.transmvsnet import DCN
 from s_volsdf_tpu_torch.ops import (cost_mapping, deform_conv, fused_sdf,
@@ -1012,7 +1042,7 @@ def run_fusion(dev, card: str, tmp: str, res, data_root: str) -> Dict:
     mask_dir = write_train_eval_masks(data_root)
     geo_consistency.geo_consistency.launches = 0   # this slice's path starts
     fused_sdf.reset_launches()
-    cost_mapping.cost_mapping.launches = 0
+    cost_mapping.reset_launches()
     t0 = time.perf_counter()
     plys = cli_run.main([f"outdir={res['outdir']}", f"testlist={SCAN}",
                          f"data_dir_root={data_root}", "filter_only=true"])
@@ -1336,7 +1366,7 @@ def run_training(dev, card: str, exps_root: str):
     print(f"[train] two scenes + volumes set up in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
     fused_sdf.reset_launches()                  # the main path starts here
-    cost_mapping.cost_mapping.launches = 0
+    cost_mapping.reset_launches()
     for what, trainer in trainers.items():
         before = dict(fused_sdf.fused_sdf_values.mode_launches)
         cost_before = cost_mapping.cost_mapping.launches
@@ -1412,7 +1442,7 @@ def run_outside_family(dev, card: str, base: VolTrainer) -> Dict:
     launch and no pack, the plain sweeps rising, and one cost-mapping
     launch a step. Returns the launches."""
     fused_sdf.reset_launches()                  # this path starts
-    cost_mapping.cost_mapping.launches = 0
+    cost_mapping.reset_launches()
     builds = fused_sdf.pack_sdf.builds
     scene = base.scene
     intr = np.array(scene.intrinsics[0], np.float32)
@@ -1563,12 +1593,15 @@ def _launch_counts() -> Dict:
     return {"fused_sdf": dict(fused_sdf.fused_sdf_values.mode_launches),
             "cost_mapping": cost_mapping.cost_mapping.launches,
             "deform_conv": deform_conv.deform_conv2d.launches,
-            "geo_consistency": geo_consistency.geo_consistency.launches}
+            "geo_consistency": geo_consistency.geo_consistency.launches,
+            "fused_sdf_scenes": dict(fused_sdf.fused_sdf_values.scene_launches),
+            "cost_mapping_scenes": dict(
+                cost_mapping.cost_mapping.scene_launches)}
 
 
 def _reset_counts() -> None:
     fused_sdf.reset_launches()
-    cost_mapping.cost_mapping.launches = 0
+    cost_mapping.reset_launches()
     deform_conv.deform_conv2d.launches = 0
     geo_consistency.geo_consistency.launches = 0
 
@@ -2280,6 +2313,362 @@ def ibr_command_lines(dev, card: str, tmp: str) -> Dict:
     return {"views": len(blends)}
 
 
+# Phase 13: multi-scene training in lockstep.
+MS_SCENES = 4               # scenes of 13(a) and the largest S of 13(b)
+MS_SIZES = (1, 2, 4)        # S of the lockstep step
+MS_RADII = (0.8, 0.7, 0.6, 0.5)   # each scene's sphere
+MS_PROFILE_STEPS = 5
+# S = 2 against two serial trainers, at float32: after one step each
+# scene's loss within 1e-4 relative (cuBLAS's batched and single
+# products may sum in other orders, so not to the bit); after 20 steps
+# within 1% (test_five_steps_track_jax's bar).
+MS_STEP1_RTOL = 1e-4
+MS_TRACK_RTOL = 1e-2
+MS_SCANS = ("scan106", "scan114")
+MS_CLI_STEPS = 30
+MS_DEPTH_TOL, MS_DEPTH_SHARE = 1e-3, 0.995   # tests/test_multiscene_pipeline.py
+
+
+def ms_scenes(device, n: int = MS_SCENES):
+    """n 3-view 576x768 sphere scenes, scene s of radius MS_RADII[s],
+    each with bench.py's float32 volumes (`make_volumes`)."""
+    out = []
+    for s in range(n):
+        scene = make_sphere_scene(3, CASCADE_RES, sphere_radius=MS_RADII[s])
+        out.append((scene, make_volumes(scene, BENCH_VOLUMES, device)))
+    return out
+
+
+def ms_trainers(cfg: Config, scenes, device):
+    """A VolTrainer a scene, scene s's weights and generator from seed
+    s, its volumes those of `scenes` (one step a chunk)."""
+    trainers = []
+    for s, (scene, mvs) in enumerate(scenes):
+        c = copy.deepcopy(cfg)
+        c.seed = s
+        t = VolTrainer(c, scene_from_synthetic(scene), None, device=device,
+                       chunk_steps=1)
+        t.mvs = mvs
+        trainers.append(t)
+    return trainers
+
+
+def check_scene_axis(dev, card: str, scenes) -> Dict:
+    """Phase 13(a): the fused SDF kernel and the cost-mapping kernel each
+    take MS_SCENES scenes in one launch, equal to that many single
+    launches bit for bit, timed against them."""
+    S = len(scenes)
+    cfg = dtu_config()
+    params = [init_volsdf_params(torch.Generator().manual_seed(s), cfg.model,
+                                 dev) for s in range(S)]
+    stacked = stack_params(params)
+    pts = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(S, KERNEL_SWEEP, 3)).astype(np.float32), device=dev)
+    flop = sdf_flops_per_point(params[0].sdf)
+    out = {}
+    for mode, mcfg in (("float32", cfg.model),
+                       ("bfloat16", training_model_config(cfg))):
+        pack = fused_sdf.pack_sdf_scenes(stacked.sdf, mcfg)
+        packs = [fused_sdf.pack_sdf(p.sdf, mcfg) for p in params]
+        got = fused_sdf.fused_sdf_values(stacked.sdf, mcfg, pts, 3.0,
+                                         pack=pack)
+        singles = [fused_sdf.fused_sdf_values(p.sdf, mcfg, pts[s], 3.0,
+                                              pack=k)
+                   for s, (p, k) in enumerate(zip(params, packs))]
+        ref = fused_sdf.sdf_values_plain(stacked.sdf, mcfg, pts, 3.0)
+        torch.cuda.synchronize()
+        _check(all(torch.equal(got[s], singles[s]) for s in range(S)),
+               f"fused_sdf {mode}: the {S}-scene launch differs from {S} "
+               f"single launches")
+        if mode == "float32":
+            err = (got - ref).abs().max().item()
+            _check(err <= KERNEL_TOL, f"fused_sdf {S} scenes vs plain: {err}")
+        else:
+            err = _bf16_within(got, ref)
+        batched_ms = _median_ms(lambda: fused_sdf.fused_sdf_values(
+            stacked.sdf, mcfg, pts, 3.0, pack=pack))
+        singles_ms = _median_ms(lambda: [fused_sdf.fused_sdf_values(
+            p.sdf, mcfg, pts[s], 3.0, pack=k)
+            for s, (p, k) in enumerate(zip(params, packs))])
+        products = 3 if mode == "float32" else 1
+        bound_ms = products * S * KERNEL_SWEEP * flop / (BF16_TFLOPS * 1e12) * 1e3
+        print(f"[multiscene] fused_sdf {mode} mode, {S} scenes x "
+              f"{KERNEL_SWEEP} pts: one launch equals {S} single launches "
+              f"bit for bit; vs plain max|diff| {err:.3e}; one launch "
+              f"{batched_ms:.4f} ms, {S} single launches {singles_ms:.4f} "
+              f"ms (medians of 20), bound {bound_ms:.4f} ms: "
+              f"{100 * bound_ms / batched_ms:.1f}% of bound [{card}]",
+              flush=True)
+        out[f"fused_sdf_{mode}"] = {"err": err, "ms": batched_ms,
+                                    "singles_ms": singles_ms,
+                                    "bound_ms": bound_ms}
+        del pack, packs, got, singles, ref
+    del params, stacked, pts
+
+    xyz = torch.stack([cost_mapping_samples(sc, s % 3, dev)
+                       for s, (sc, _) in enumerate(scenes)])
+    onehot = torch.eye(3, device=dev)[[s % 3 for s in range(S)]]
+    for dtype in (torch.bfloat16, torch.float32):
+        vols = [dataclasses.replace(m, prob=m.prob.to(dtype))
+                for _, m in scenes]
+        t0 = time.perf_counter()
+        stacked_vols = cost_mapping.check_volumes_scenes(vols)
+        torch.cuda.synchronize()
+        pack_ms = 1e3 * (time.perf_counter() - t0)
+        single_vols = [cost_mapping.check_volumes(m) for m in vols]
+        got = cost_mapping.cost_mapping(None, xyz, onehot, stacked_vols)
+        singles = [cost_mapping.cost_mapping(None, xyz[s], onehot[s], m)
+                   for s, m in enumerate(single_vols)]
+        torch.cuda.synchronize()
+        for s in range(S):
+            for a, b in zip(got, singles[s]):
+                _check(torch.equal(a[s], b), f"cost_mapping {dtype}: scene "
+                       f"{s} of the {S}-scene launch differs from its "
+                       f"single launch")
+
+        def batched():
+            cost_mapping.cost_mapping(None, xyz, onehot, stacked_vols)
+
+        def single_launches():
+            for s, m in enumerate(single_vols):
+                cost_mapping.cost_mapping(None, xyz[s], onehot[s], m)
+        warm = _median_ms(batched, backlog=True)
+        warm_singles = _median_ms(single_launches, backlog=True)
+        cold = float(np.median(cold_ms([batched] * 20)))
+        cold_singles = float(np.median(cold_ms([single_launches] * 20)))
+        nbytes = sum(min(cost_mapping.packed_bytes(xyz[s], m),
+                         cost_mapping.touched_bytes(xyz[s], m))
+                     for s, m in enumerate(single_vols))
+        bound_ms = nbytes / (HBM_TBPS * 1e12) * 1e3
+        name = str(dtype).replace("torch.", "")
+        print(f"[multiscene] cost_mapping {name} volumes, {S} scenes x "
+              f"{COST_RAYS}x{COST_SAMPLES} samples x 3 views of "
+              f"{BENCH_VOLUMES}: one launch equals {S} single launches bit "
+              f"for bit (pj, pi, valid); one launch cold {cold:.4f} ms, "
+              f"warm {warm:.4f} ms; {S} single launches cold "
+              f"{cold_singles:.4f} ms, warm {warm_singles:.4f} ms (device, "
+              f"medians of 20); bound {bound_ms:.4f} ms ({nbytes} bytes at "
+              f"{HBM_TBPS} TB/s); the stacked corner-block copy made in "
+              f"{pack_ms:.1f} ms (host clock) [{card}]", flush=True)
+        out[f"cost_mapping_{name}"] = {
+            "ms_cold": cold, "ms_warm": warm, "singles_ms_cold": cold_singles,
+            "singles_ms_warm": warm_singles, "bound_ms": bound_ms,
+            "pack_ms": pack_ms}
+        del stacked_vols, single_vols, vols, got, singles
+        torch.cuda.empty_cache()
+    return out
+
+
+def _profile_joint(trainers, n: int) -> Dict:
+    """torch.profiler over n more lockstep steps: device ms a step,
+    kernels and copies launched a step."""
+    from torch.profiler import ProfilerActivity
+    from s_volsdf_tpu_torch.tools.time_step import _device_time
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        run_joint(trainers, n)
+        torch.cuda.synchronize()
+    busy, launches = _device_time(prof)
+    return {"device_ms": 1e3 * busy / n, "launches": launches / n}
+
+
+def check_nan_scene(dev, trainers) -> None:
+    """Phase 13(b), last: one lockstep step of two scenes with NaN in
+    scene 1's RGB: scene 1's grad_finite is 0 and its parameters and
+    Adam state stay equal to the bit; scene 0 steps."""
+    from s_volsdf_tpu_torch.engine.train_step import make_multiscene_one_step
+    from s_volsdf_tpu_torch.engine.multiscene import _pack_stacked
+    cfg = trainers[0].cfg
+    state = stack_states([t.state for t in trainers])
+    step = make_multiscene_one_step(cfg, state.opt_state, use_mvs=True,
+                                    n_views=3, img_res=trainers[0].scene.img_res)
+    scenes = [t.scene_tensors() for t in trainers]
+    scenes[1]["rgb"] = scenes[1]["rgb"] * float("nan")
+    scenes[1]["rgb_smooth"] = scenes[1]["rgb_smooth"] * float("nan")
+    before = [{n: p[s].detach().clone() for n, p in
+               state.params.named_parameters()} for s in range(2)]
+    moments = [m.detach().clone() for m in
+               state.opt_state.exp_avg + state.opt_state.exp_avg_sq]
+    counts = [state.opt_state.count(s) for s in range(2)]
+    state, lo = step(scenes, _pack_stacked(cfg, trainers), state,
+                     [t.gen for t in trainers])
+    torch.cuda.synchronize()
+    _check(lo.grad_finite == (1.0, 0.0), f"NaN scene: grad_finite "
+           f"{lo.grad_finite}, want (1.0, 0.0)")
+    same1 = all(torch.equal(p[1], before[1][n])
+                for n, p in state.params.named_parameters())
+    same1 = same1 and all(torch.equal(m[1], b[1]) for m, b in zip(
+        state.opt_state.exp_avg + state.opt_state.exp_avg_sq, moments))
+    moved0 = any(not torch.equal(p[0], before[0][n])
+                 for n, p in state.params.named_parameters())
+    _check(same1 and moved0 and state.opt_state.count(1) == counts[1]
+           and state.opt_state.count(0) == counts[0] + 1,
+           f"NaN scene: scene 1 unchanged {same1}, scene 0 moved {moved0}, "
+           f"counts {counts} -> {[state.opt_state.count(s) for s in (0, 1)]}")
+
+
+def run_lockstep(dev, card: str, scenes) -> Dict:
+    """Phase 13(b): the lockstep step at full width, S in MS_SIZES, at
+    the defaults and at float32, against serial trainers of the same
+    seeds. Returns the numbers per precision and S."""
+    out = {}
+    for precision, base in (("defaults", dtu_config),
+                            ("float32", float32_dtu_config)):
+        cfg = base()
+        serial = ms_trainers(cfg, scenes, dev)
+        for t in serial:
+            t.run(TRAIN_STEPS)
+        torch.cuda.synchronize()
+        serial_ms = [1e3 * float(np.median(t.chunk_seconds)) for t in serial]
+        serial_losses = np.array([[lo.loss for lo in t.losses]
+                                  for t in serial])
+        prof = _profile_steps(serial[0], MS_PROFILE_STEPS)
+        print(f"[multiscene] serial {precision}: medians "
+              + ", ".join(f"{m:.2f}" for m in serial_ms) + " ms/step; scene "
+              f"0 device {prof['device_ms']:.2f} ms/step, busy "
+              f"{100 * prof['device_ms'] / serial_ms[0]:.1f}%, "
+              f"{prof['launches']:.0f} launches/step [{card}]", flush=True)
+        for S in MS_SIZES:
+            trainers = ms_trainers(cfg, scenes[:S], dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            before = _launch_counts()
+            run_joint(trainers, TRAIN_STEPS, chunk_steps=TRAIN_STEPS)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            after = _launch_counts()
+            sdf_n = sum(after["fused_sdf"].values()) - sum(
+                before["fused_sdf"].values())
+            cost_n = after["cost_mapping"] - before["cost_mapping"]
+            scene_sdf = (after["fused_sdf_scenes"].get(S, 0)
+                         - before["fused_sdf_scenes"].get(S, 0))
+            _check(sdf_n == TRAIN_STEPS and cost_n == TRAIN_STEPS
+                   and scene_sdf == TRAIN_STEPS,
+                   f"{precision} S={S}: {TRAIN_STEPS} steps launched the "
+                   f"fused SDF kernel {sdf_n} times ({scene_sdf} of {S} "
+                   f"scenes) and the cost mapping {cost_n} times")
+            losses = np.array([[lo.loss for lo in t.losses]
+                               for t in trainers])
+            _check(losses.shape == (S, TRAIN_STEPS)
+                   and np.isfinite(losses).all()
+                   and all(t.last_guard_trips == 0 for t in trainers),
+                   f"{precision} S={S}: finite losses {losses}")
+            step_ms = 1e3 * float(np.median(trainers[0].step_seconds))
+            if precision == "float32" and S <= 2:
+                ref = serial_losses[:S]
+                rel = np.abs(losses - ref) / np.abs(ref)
+                _check(rel[:, 0].max() <= MS_STEP1_RTOL
+                       and rel.max() <= MS_TRACK_RTOL,
+                       f"S={S} vs serial: step-1 {rel[:, 0].max()} (bar "
+                       f"{MS_STEP1_RTOL}), all steps {rel.max()} (bar "
+                       f"{MS_TRACK_RTOL})")
+                track = (f"; vs serial: step 1 {rel[:, 0].max():.2e}, "
+                         f"all {TRAIN_STEPS} steps {rel.max():.2e} relative")
+            else:
+                track = ""
+            prof = _profile_joint(trainers, MS_PROFILE_STEPS)
+            row = {"median_ms": step_ms, "device_ms": prof["device_ms"],
+                   "busy": prof["device_ms"] / step_ms,
+                   "launches": prof["launches"], "peak_gib": peak,
+                   "rays_s": S * trainers[0].cfg.train.num_pixels
+                   / (step_ms / 1e3),
+                   "serial_total_ms": sum(serial_ms[:S])}
+            out[(precision, S)] = row
+            print(f"[multiscene] lockstep {precision} S={S}: loss "
+                  + ", ".join(f"{a:.5f} -> {b:.5f}" for a, b in
+                              zip(losses[:, 0], losses[:, -1]))
+                  + f"; median {step_ms:.2f} ms/step, device "
+                  f"{row['device_ms']:.2f} ms/step, busy "
+                  f"{100 * row['busy']:.1f}%, {row['launches']:.0f} "
+                  f"launches/step, peak {peak:.2f} GiB, "
+                  f"{row['rays_s']:.1f} training rays/s; {S} serial steps "
+                  f"{row['serial_total_ms']:.2f} ms ("
+                  + " + ".join(f"{m:.2f}" for m in serial_ms[:S])
+                  + f"){track} [{card}]", flush=True)
+            if precision == "float32" and S == 2:
+                check_nan_scene(dev, trainers)
+                print("[multiscene] NaN in scene 1's RGB for one step: its "
+                      "grad_finite 0, its parameters and Adam state equal "
+                      "to the bit; scene 0 stepped", flush=True)
+            del trainers
+            torch.cuda.empty_cache()
+        del serial
+        torch.cuda.empty_cache()
+    return out
+
+
+def ms_cli_args(root: str, run: str):
+    """cli.run's arguments for the two 64x96 fixtures under root, 30
+    float32 steps at stage 0, the run's own folders."""
+    return [f"testlist={','.join(MS_SCANS)}",
+            f"outdir={os.path.join(root, run, 'out')}",
+            f"exps_folder={os.path.join(root, run, 'exps')}",
+            f"data_dir_root={root}", f"dataset.data_dir_root={root}",
+            f"max_h={SMALL_RES[0]}", f"max_w={SMALL_RES[1]}",
+            f"dataset.img_res=[{SMALL_RES[0]},{SMALL_RES[1]}]",
+            f"mvs.ndepths={list(SMALL_NDEPTHS)}",
+            f"mvs.numdepth={SMALL_NDEPTHS[0]}", "mvs.x2_mvsres=false",
+            f"opt_stepNs=[{MS_CLI_STEPS},0,0]",
+            "train.train_compute_dtype=float32",
+            "train.train_activation_dtype=float32",
+            "train.mvs_pack_dtype=float32", "mvs.compute_dtype=float32"]
+
+
+def ms_command_line(dev, card: str, tmp: str) -> Dict:
+    """Phase 13(c): cli.run multiscene=true on two 64x96 DTU fixtures,
+    then a serial cli.run of the same scans; every view's depth PFM
+    within MS_DEPTH_TOL on at least MS_DEPTH_SHARE of its pixels; each
+    scene's "latest" checkpoint resumes with is_continue."""
+    root = os.path.join(tmp, "ms_small")
+    for scan in MS_SCANS:
+        make_dtu_fixture(root, scan_id=int(scan[4:]), img_res=SMALL_RES)
+    seconds = {}
+    for run, extra in (("joint", ["multiscene=true"]), ("serial", [])):
+        t0 = time.perf_counter()
+        plys = cli_run.main(ms_cli_args(root, run) + extra)
+        torch.cuda.synchronize()
+        seconds[run] = time.perf_counter() - t0
+        _check(len(plys) == 2 and all(os.path.isfile(p) for p in plys),
+               f"{run}: fused clouds {plys}")
+    worst = 1.0
+    cfg = validate_cli_config(root)
+    for scan in MS_SCANS:
+        for v in get_trains_ids(cfg.dataset.data_dir, scan, cfg.num_view):
+            d = [read_pfm(os.path.join(root, run, "out", scan,
+                                       f"depth_est/{v:08d}.pfm"))[0]
+                 for run in ("joint", "serial")]
+            share = float(np.isclose(d[0], d[1], rtol=MS_DEPTH_TOL,
+                                     atol=MS_DEPTH_TOL).mean())
+            _check(np.isfinite(d[0]).all() and share >= MS_DEPTH_SHARE,
+                   f"{scan} view {v}: {share} of the depth pixels within "
+                   f"{MS_DEPTH_TOL} of the serial run's")
+            worst = min(worst, share)
+        scene = load_scene(cfg.dataset.data_dir, tuple(cfg.dataset.img_res),
+                           int(scan[4:]), cfg.num_view, cfg.data_dir_root)
+        c = copy.deepcopy(cfg)
+        c.exps_folder = os.path.join(root, "joint", "exps")
+        resumed = VolTrainer(c, scene, scan, device=dev, exps_root=".",
+                             is_continue=True)
+        _check(resumed.state.iter_step == MS_CLI_STEPS,
+               f"{scan}: the joint run's checkpoint resumed at step "
+               f"{resumed.state.iter_step}")
+    print(f"[multiscene] cli.run multiscene=true {','.join(MS_SCANS)} at "
+          f"{SMALL_RES[0]}x{SMALL_RES[1]}, {MS_CLI_STEPS} float32 steps: "
+          f"{seconds['joint']:.2f} s, serial {seconds['serial']:.2f} s; the "
+          f"worst view's depth pixels within {MS_DEPTH_TOL} of the serial "
+          f"run's: {100 * worst:.2f}% (bar {100 * MS_DEPTH_SHARE}%); both "
+          f"scenes' latest checkpoints resume at step {MS_CLI_STEPS} "
+          f"[{card}]", flush=True)
+    return {"seconds": seconds, "worst_share": worst}
+
+
+def validate_cli_config(root: str) -> Config:
+    """The config cli.run builds from ms_cli_args (the joint run's)."""
+    from s_volsdf_tpu_torch.config import load_config, validate_config
+    preset, extra = cli_run.parse_overrides(ms_cli_args(root, "joint"))
+    return validate_config(load_config(
+        preset, overrides=[f"{k}={v}" for k, v in extra.items()]))
+
+
 def main() -> None:
     start = time.perf_counter()
     # 1. Environment.
@@ -2387,12 +2776,27 @@ def main() -> None:
               f"{ibr['s_per_view']:.4f} s/view; launches on the IBR paths "
               f"{ibr_launches} [{card}]", flush=True)
 
+        # 13. Multi-scene training in lockstep: the scene axis of both
+        # kernels, the lockstep step at full width, the command line.
+        t0 = time.perf_counter()
+        ms_data = ms_scenes(dev)
+        axis = check_scene_axis(dev, card, ms_data)
+        _reset_counts()                         # the multi-scene paths start
+        run_lockstep(dev, card, ms_data)
+        ms_command_line(dev, card, tmp)
+        ms_launches = _launch_counts()          # ... and end here
+        del ms_data
+        torch.cuda.empty_cache()
+        print(f"[multiscene] phase 13 in {time.perf_counter() - t0:.2f} s; "
+              f"launches on the multi-scene paths {ms_launches} [{card}]",
+              flush=True)
+
     # 10. Results. Launches are summed over the paths, each counted from 0.
     paths = [launches, outside, scene_launches["float32"],
              scene_launches["defaults"],
              {"fused_sdf": fusion["sdf_launches"],
               "cost_mapping": fusion["cost_launches"]}, eval_field,
-             eval_cli] + other + bmvs + [ibr_launches]
+             eval_cli] + other + bmvs + [ibr_launches, ms_launches]
     sdf_launches = {m: sum(p["fused_sdf"][m] for p in paths)
                     for m in fused_sdf.MODES}
     cost_launches = sum(p["cost_mapping"] for p in paths)
@@ -2401,6 +2805,13 @@ def main() -> None:
                                             for p in paths)
     grid_launches = sum(g["launches"] for k in ("high_res", "by_grid")
                         for g in mesh[k]["stats"]["grids"])
+    def by_scenes(key):
+        counts = ms_launches[key]
+        return {str(k): counts[k] for k in sorted(counts)}
+    lockstep_sdf = sum(n for k, n in ms_launches["fused_sdf_scenes"].items()
+                       if k > 1)
+    lockstep_cost = sum(n for k, n in
+                        ms_launches["cost_mapping_scenes"].items() if k > 1)
     print(f"[kernels] launches on the paths driven: fused SDF {sdf_launches}, "
           f"cost_mapping {cost_launches}, geo_consistency {geo_launches}, "
           f"deform_conv {dcn_launches}", flush=True)
@@ -2417,6 +2828,11 @@ def main() -> None:
             "bound_ms": m["bound_ms"][KERNEL_SWEEP],
             "bound_by": "operations", "library_ms": None,
             "unclamped_launches": bmvs_sdf[mode],
+            "scene_launches": by_scenes("fused_sdf_scenes"),
+            "lockstep_launches": lockstep_sdf,
+            "scenes_ms": axis[f"fused_sdf_{mode}"]["ms"],
+            "scenes_singles_ms": axis[f"fused_sdf_{mode}"]["singles_ms"],
+            "scenes_bound_ms": axis[f"fused_sdf_{mode}"]["bound_ms"],
             "unclamped_ms": unclamped[mode]["ms"],
             "tflops": m["tflops"][KERNEL_SWEEP],
             f"ms_at_{KERNEL_RENDER}": m["kernel_ms"][KERNEL_RENDER],
@@ -2439,6 +2855,15 @@ def main() -> None:
         "ms_cold_float32_volumes": cost["float32"]["ms_cold"],
         "ms_warm_float32_volumes": cost["float32"]["ms_warm"],
         "bound_ms_float32_volumes": cost["float32"]["bound_ms"],
+        "scene_launches": by_scenes("cost_mapping_scenes"),
+        "lockstep_launches": lockstep_cost,
+        "scenes_ms_cold": axis["cost_mapping_bfloat16"]["ms_cold"],
+        "scenes_ms_warm": axis["cost_mapping_bfloat16"]["ms_warm"],
+        "scenes_singles_ms_cold":
+            axis["cost_mapping_bfloat16"]["singles_ms_cold"],
+        "scenes_singles_ms_warm":
+            axis["cost_mapping_bfloat16"]["singles_ms_warm"],
+        "scenes_bound_ms": axis["cost_mapping_bfloat16"]["bound_ms"],
         "shape": [COST_RAYS, COST_SAMPLES, 3, *BENCH_VOLUMES]})
     kernels.append({
         "name": "geo_consistency", "route": "cuda",

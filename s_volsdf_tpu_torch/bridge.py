@@ -25,6 +25,13 @@ pytree's leaves in JAX's flatten order).
 The JAX LPIPS weights ({"features": [[{"b", "w"}]], "lins": [{"w"}]},
 HWIO kernels) become `models.lpips.LPIPS` (OIHW) with `lpips_from_jax`.
 
+Stacked trees (every leaf with a leading scene axis S, the JAX
+package's `vmap`ped multi-scene state) convert the same way, to the
+port's stacked parameters (`models.network.stack_params`);
+`from_jax_stacked_state` and `to_jax_stacked_state` also carry the
+optax Adam state (count (S,), mu, nu) to the port's `StackedOptimizer`
+and back.
+
 All functions take and give numpy arrays; none imports JAX.
 """
 
@@ -46,7 +53,7 @@ from s_volsdf_tpu_torch.models.mvs.casmvsnet import CasMVSNet
 from s_volsdf_tpu_torch.models.mvs.fmt import Dense, LayerNorm
 from s_volsdf_tpu_torch.models.mvs.transmvsnet import DCN, TransMVSNet
 from s_volsdf_tpu_torch.models.mvs.ucsnet import UCSNet
-from s_volsdf_tpu_torch.models.network import VolSDFParams
+from s_volsdf_tpu_torch.models.network import VolSDFParams, map_leaves
 from s_volsdf_tpu_torch.models.network_bg import VolSDFBGParams
 
 
@@ -71,8 +78,7 @@ def from_jax_params(np_params: Dict, device=None) -> VolSDFParams:
     """JAX pytree of numpy arrays -> VolSDFParams, or VolSDFBGParams for
     a tree with the background MLPs ("bg_sdf", "bg_rgb")."""
     density = LaplaceDensity(device=device)
-    with torch.no_grad():
-        density.beta.copy_(_tensor(np_params["density"]["beta"], device))
+    density.beta = nn.Parameter(_tensor(np_params["density"]["beta"], device))
     fg = (_mlp_from(np_params["sdf"], device),
           _mlp_from(np_params["rgb"], device), density)
     if "bg_sdf" in np_params:
@@ -97,6 +103,64 @@ def to_jax_params(params: VolSDFParams) -> Dict:
         tree["bg_sdf"] = _mlp_to(params.bg_sdf)
         tree["bg_rgb"] = _mlp_to(params.bg_rgb)
     return tree
+
+
+def _adam_state(opt_state):
+    """The optax ScaleByAdamState (count, mu, nu) inside an optax state
+    (adam alone, or chained after the clip)."""
+    if hasattr(opt_state, "mu") and hasattr(opt_state, "nu"):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def from_jax_stacked_state(state, cfg, device=None):
+    """A JAX TrainState of S scenes (params, opt_state, iter_step with a
+    leading scene axis, as numpy arrays: the state the JAX package's
+    multi-scene loop vmaps over) -> the port's stacked TrainState: the
+    stacked parameters, a StackedOptimizer holding each scene's Adam
+    count and moments, and the common iter_step (scenes at different
+    steps raise)."""
+    from s_volsdf_tpu_torch.engine.train_step import (TrainState,
+                                                      make_stacked_optimizer)
+    params = from_jax_params(state.params, device)
+    tx = make_stacked_optimizer(cfg, params)
+    adam = _adam_state(state.opt_state)
+    counts = np.asarray(adam.count).reshape(-1)
+    with torch.no_grad():
+        for l, (m, v) in enumerate(zip(
+                from_jax_params(adam.mu, device).parameters(),
+                from_jax_params(adam.nu, device).parameters())):
+            tx.exp_avg[l].copy_(m)
+            tx.exp_avg_sq[l].copy_(v)
+            for s, c in enumerate(counts):
+                tx.steps[s][l] = torch.tensor(float(c))
+    steps = set(np.asarray(state.iter_step).reshape(-1).tolist())
+    if len(steps) != 1:
+        raise ValueError(f"from_jax_stacked_state: scenes at steps {steps}")
+    return TrainState(params, tx, int(steps.pop()))
+
+
+def to_jax_stacked_state(state) -> Dict:
+    """The port's stacked TrainState -> {"params", "mu", "nu"} JAX trees,
+    "count" (S,) int32 and "iter_step", as numpy arrays."""
+    tx = state.opt_state
+
+    def tree(leaves):
+        with torch.no_grad():
+            out = map_leaves(state.params, lambda name, p: leaves[name])
+        return to_jax_params(out)
+
+    names = [n for n, _ in state.params.named_parameters()]
+    return {"params": to_jax_params(state.params),
+            "mu": tree(dict(zip(names, tx.exp_avg))),
+            "nu": tree(dict(zip(names, tx.exp_avg_sq))),
+            "count": np.array([tx.count(s) for s in range(tx.S)], np.int32),
+            "iter_step": np.int32(state.iter_step)}
 
 
 # --------------------------------------------------------------------------

@@ -7,7 +7,9 @@
 
 Each scene of `testlist` (a comma list, or a .txt file of scan names) runs
 the cascade with VolSDF feedback and writes its depth maps
-(`save_depth`, skipped with filter_only=true); then fusion writes
+(`save_depth`, skipped with filter_only=true; with multiscene=true and
+more than one scene, `engine.multiscene.save_depth_multiscene`, whose
+VolSDF optimisations of a stage run in lockstep); then fusion writes
 <outdir>/mvsnet{id:03d}_l3.ply (`pcd_filter`). create_scene=true only
 writes each scene's cams and training images for image-based rendering
 (`engine.ibr.create_scene`, then `cli.ibr`). `+key=value` works like
@@ -26,6 +28,7 @@ from typing import Dict, List, Tuple
 
 from s_volsdf_tpu_torch.config import load_config, validate_config
 from s_volsdf_tpu_torch.engine import ibr
+from s_volsdf_tpu_torch.engine.multiscene import save_depth_multiscene
 from s_volsdf_tpu_torch.engine.runner import pcd_filter, save_depth
 
 logger = logging.getLogger("s_volsdf_tpu_torch")
@@ -77,11 +80,10 @@ def main(argv: List[str], *, device=None) -> List[str]:
         return []
     if not cfg.filter_only:
         if multiscene and len(testlist) > 1:
-            raise NotImplementedError(
-                "multiscene=true: joint multi-scene training "
-                "(engine/multiscene.py) is not ported yet (ROADMAP queue 1, "
-                "'Multi-scene and multi-device')")
-        save_depth(cfg, testlist, mvs_weights=mvs_weights, device=device)
+            save_depth_multiscene(cfg, testlist, mvs_weights=mvs_weights,
+                                  device=device)
+        else:
+            save_depth(cfg, testlist, mvs_weights=mvs_weights, device=device)
     return pcd_filter(cfg, testlist, device=device)
 
 

@@ -76,6 +76,14 @@
 // slower), blocks of 128 or 512 threads and cameras read from global
 // memory (no change).
 //
+// The scene axis (cost_mapping_launch_scenes): S scenes' corner-block
+// packs, cameras, one-hots, samples and outputs laid out one scene after
+// another, all of one shape; one launch with blockIdx.y the scene. Each
+// block moves its pointers to its scene's (and loads its scene's
+// cameras into shared memory) and does what a single launch's block
+// does, so the batched launch equals S single launches bit for bit (the
+// lockstep multi-scene step, s_volsdf_tpu_torch/engine/multiscene.py).
+//
 // -DCOST_MAPPING_TRACE: each block's thread 0 records %globaltimer at its
 // start and end and clock64() after its point and cameras and after its
 // slab (tools/time_cost_mapping.py --trace reads them back), to show
@@ -270,11 +278,23 @@ __device__ __forceinline__ float finish_volume(const Vol& C) {
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
-cost_mapping_kernel(const CostArgs a, const float* __restrict__ xyz,
+cost_mapping_kernel(CostArgs a, const float* __restrict__ xyz,
                     const float* __restrict__ onehot, int n,
                     float* __restrict__ pj_out, float* __restrict__ pi_out,
                     unsigned char* __restrict__ valid_out) {
   extern __shared__ float cams[];   // V x CAM
+  if (blockIdx.y > 0) {             // this block's scene
+    const size_t sc = blockIdx.y, cubes = (size_t)a.V * a.Hv * a.Wv;
+    a.prob8 = static_cast<const T*>(a.prob8) + sc * cubes * a.D * 8;
+    a.slab8 += sc * cubes * 8;
+    a.intr += sc * a.V * 16;
+    a.c2w += sc * a.V * 16;
+    onehot += sc * a.V;
+    xyz += sc * n * 3;
+    pj_out += sc * n;
+    pi_out += sc * n;
+    valid_out += sc * n;
+  }
 #ifdef COST_MAPPING_TRACE
   long long t0 = clock64(), t_slab = 0;
   const long long ns0 = global_ns();
@@ -358,16 +378,19 @@ cost_mapping_kernel(const CostArgs a, const float* __restrict__ xyz,
 
 extern "C" {
 
-// Launches on `stream`; valid is written as bytes 0/1. Returns
+// Launches on `stream` for `scenes` scenes of n samples each (args'
+// packs and cameras, xyz, onehot, pj, pi and valid each the scenes' one
+// after another); valid is written as bytes 0/1. Returns
 // cudaGetLastError() (0 on success).
-int cost_mapping_launch(const CostArgs* args, const float* xyz,
-                        const float* onehot, int n, float* pj, float* pi,
-                        unsigned char* valid, cudaStream_t stream) {
-  if (n > 0) {
+int cost_mapping_launch_scenes(const CostArgs* args, const float* xyz,
+                               const float* onehot, int n, int scenes,
+                               float* pj, float* pi, unsigned char* valid,
+                               cudaStream_t stream) {
+  if (n > 0 && scenes > 0) {
     const CostArgs a = *args;
     const long long per_warp = 32 / a.group;
     const long long warps = ((long long)n + per_warp - 1) / per_warp;
-    const int blocks = (int)((warps * 32 + THREADS - 1) / THREADS);
+    const dim3 blocks((int)((warps * 32 + THREADS - 1) / THREADS), scenes);
     const size_t smem = sizeof(float) * CAM * a.V;
     if (a.prob_bf16)
       cost_mapping_kernel<unsigned short><<<blocks, THREADS, smem, stream>>>(
@@ -377,6 +400,14 @@ int cost_mapping_launch(const CostArgs* args, const float* xyz,
           a, xyz, onehot, n, pj, pi, valid);
   }
   return (int)cudaGetLastError();
+}
+
+// One scene.
+int cost_mapping_launch(const CostArgs* args, const float* xyz,
+                        const float* onehot, int n, float* pj, float* pi,
+                        unsigned char* valid, cudaStream_t stream) {
+  return cost_mapping_launch_scenes(args, xyz, onehot, n, 1, pj, pi, valid,
+                                    stream);
 }
 
 const char* cost_mapping_error_string(int code) {

@@ -88,6 +88,15 @@
 // x3 mode already does not overlap (32.5% of a block's cycles there),
 // likely sets its pace.
 //
+// The scene axis (fused_sdf_forward_scenes): S scenes' points, weight
+// streams and vectors laid out one scene after another, one launch with
+// blockIdx.y the scene. Each block moves its pointers to its scene's
+// and does what a single launch's block does, so the batched launch
+// equals S single launches bit for bit (the lockstep multi-scene step's
+// sweep, s_volsdf_tpu_torch/engine/multiscene.py; the counterpart of
+// the leading grid axis JAX's batching rule gives a vmapped
+// pallas_call).
+//
 // Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
 // (see s_volsdf_tpu_torch/ops/fused_sdf.py); plain C entry points, bound
 // with ctypes.
@@ -415,8 +424,13 @@ template <bool kSplit, bool kAct>
 __global__ void __launch_bounds__(N_THREADS, 1)
 fused_sdf_kernel(const float* __restrict__ pts, const char* __restrict__ wts,
                  const float* __restrict__ vec, float* __restrict__ out,
-                 int n_pts, SdfMeta meta) {
+                 int n_pts, int vec_stride, SdfMeta meta) {
   extern __shared__ char smem_raw[];
+  // This block's scene: its points, weight stream, vector and outputs.
+  pts += (size_t)blockIdx.y * n_pts * 3;
+  wts += (size_t)blockIdx.y * meta.n_stages * STAGE_BYTES;
+  vec += (size_t)blockIdx.y * vec_stride;
+  out += (size_t)blockIdx.y * n_pts;
   const uint32_t raw = smem_u32(smem_raw);
   char* smem = smem_raw + ((SMEM_ALIGN - (raw & (SMEM_ALIGN - 1)))
                            & (SMEM_ALIGN - 1));
@@ -661,11 +675,15 @@ extern "C" {
 size_t fused_sdf_smem_bytes(void) { return SMEM_BYTES; }
 
 // Launches the instantiation of meta.mode and meta.act_bf16 on
-// `stream`; returns cudaGetLastError() (0 on success).
-int fused_sdf_forward(const float* pts, const void* wts, const float* vec,
-                      float* out, int n_pts, SdfMeta meta,
-                      cudaStream_t stream) {
-  void (*kernel)(const float*, const char*, const float*, float*, int,
+// `stream` for n_scenes scenes: points (n_scenes, n_pts, 3), weight
+// streams of meta.n_stages stages each, vectors vec_stride floats apart
+// (even), outputs (n_scenes, n_pts). Returns cudaGetLastError() (0 on
+// success).
+int fused_sdf_forward_scenes(const float* pts, const void* wts,
+                             const float* vec, float* out, int n_pts,
+                             int n_scenes, int vec_stride, SdfMeta meta,
+                             cudaStream_t stream) {
+  void (*kernel)(const float*, const char*, const float*, float*, int, int,
                  SdfMeta) =
       !meta.mode ? fused_sdf_kernel<true, false>
       : meta.act_bf16 ? fused_sdf_kernel<false, true>
@@ -673,12 +691,22 @@ int fused_sdf_forward(const float* pts, const void* wts, const float* vec,
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
   if (err != cudaSuccess) return (int)err;
-  if (n_pts > 0) {
-    const int blocks = (n_pts + TILE_P - 1) / TILE_P;
+  if (n_scenes > 1 && (vec_stride & 1)) return (int)cudaErrorInvalidValue;
+  if (n_pts > 0 && n_scenes > 0) {
+    const dim3 blocks((n_pts + TILE_P - 1) / TILE_P, n_scenes);
     kernel<<<blocks, N_THREADS, SMEM_BYTES, stream>>>(
-        pts, static_cast<const char*>(wts), vec, out, n_pts, meta);
+        pts, static_cast<const char*>(wts), vec, out, n_pts, vec_stride,
+        meta);
   }
   return (int)cudaGetLastError();
+}
+
+// One scene: points (n_pts, 3).
+int fused_sdf_forward(const float* pts, const void* wts, const float* vec,
+                      float* out, int n_pts, SdfMeta meta,
+                      cudaStream_t stream) {
+  return fused_sdf_forward_scenes(pts, wts, vec, out, n_pts, 1, 0, meta,
+                                  stream);
 }
 
 const char* fused_sdf_error_string(int code) {

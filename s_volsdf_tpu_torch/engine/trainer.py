@@ -19,6 +19,12 @@ takes the newest timestamp and resumes from its "latest": parameters,
 Adam, iter_step, epoch, and the pixel/sampler generator
 (`utils/checkpoint.py`; a JAX checkpoint, which has no torch generator,
 reseeds it). Without a run directory nothing is written.
+
+Lockstep multi-scene training (engine/multiscene.py) runs S trainers'
+states as one stacked state (`stack_states`) through
+`make_multiscene_train_fn`'s loop, each scene drawing from its own
+trainer's generator, and hands each trainer its scene back
+(`VolTrainer.take_scene`).
 """
 
 from __future__ import annotations
@@ -37,13 +43,17 @@ from s_volsdf_tpu_torch.config import Config, check_ported, save_config
 from s_volsdf_tpu_torch.data.io import write_png
 from s_volsdf_tpu_torch.data.scene_dataset import SceneData
 from s_volsdf_tpu_torch.engine.render import render_depth, render_image
-from s_volsdf_tpu_torch.engine.train_step import (Optimizer, TrainState,
+from s_volsdf_tpu_torch.engine.train_step import (Optimizer,
+                                                  StackedOptimizer,
+                                                  TrainState,
                                                   init_train_state,
+                                                  make_multiscene_one_step,
                                                   make_one_step,
                                                   make_optimizer,
                                                   pack_for_chunk)
 from s_volsdf_tpu_torch.models.loss import LossOutput
-from s_volsdf_tpu_torch.models.network import init_volsdf_params
+from s_volsdf_tpu_torch.models.network import (init_volsdf_params,
+                                               stack_params)
 from s_volsdf_tpu_torch.models.network_bg import init_volsdf_bg_params
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
 from s_volsdf_tpu_torch.utils import checkpoint as ckpt
@@ -74,6 +84,48 @@ def make_scan_train_fn(cfg: Config, tx: Optimizer, *, use_mvs: bool,
         return state, losses, seconds
 
     return run_chunk
+
+
+def make_multiscene_train_fn(cfg: Config, tx: StackedOptimizer, *,
+                             use_mvs: bool, n_views: int,
+                             img_res: Tuple[int, int]):
+    """`make_scan_train_fn` for S scenes in lockstep (counterpart of
+    s_volsdf_tpu/engine/trainer.py:80-115, which vmaps the scan over a
+    leading scene axis): a function running `n_steps` lockstep steps of
+    a stacked state (`stack_states`) on the S scenes' tensors
+    (`VolTrainer.scene_tensors`) and SceneVolumes, each scene drawing
+    from its own generator; returns the state, each step's LossOutput
+    ((S,) fields) and each step's host seconds."""
+    one_step = make_multiscene_one_step(cfg, tx, use_mvs=use_mvs,
+                                        n_views=n_views, img_res=img_res)
+
+    def run_chunk(state: TrainState, n_steps: int, scenes: List[Dict],
+                  mvs, gens: List[torch.Generator]
+                  ) -> Tuple[TrainState, List[LossOutput], List[float]]:
+        losses, seconds = [], []
+        for _ in range(n_steps):
+            t0 = time.perf_counter()
+            state, lo = one_step(scenes, mvs, state, gens)
+            seconds.append(time.perf_counter() - t0)
+            losses.append(lo)
+        return state, losses, seconds
+
+    return run_chunk
+
+
+def stack_states(states: List[TrainState]) -> TrainState:
+    """S scenes' TrainStates as one: the parameters stacked
+    (`stack_params`), their Adam states in a StackedOptimizer, and the
+    common iter_step (the scenes advance in lockstep; states at
+    different steps raise)."""
+    steps = {st.iter_step for st in states}
+    if len(steps) != 1:
+        raise ValueError(f"stack_states: the scenes are at steps {steps}; "
+                         f"lockstep training takes scenes at one step")
+    params = stack_params([st.params for st in states])
+    tx = StackedOptimizer.from_optimizers(
+        list(params.parameters()), [st.opt_state for st in states])
+    return TrainState(params, tx, steps.pop())
 
 
 def _put(a, device) -> torch.Tensor:
@@ -203,6 +255,24 @@ class VolTrainer:
             inverse_depth=bool(self.cfg.inverse_depth) and self.stg == 0)
         return self.mvs
 
+    def scene_tensors(self) -> Dict[str, torch.Tensor]:
+        """The training views' rgb, rgb_smooth (V, H*W, 3), poses and
+        intrinsics (V, 4, 4) on the trainer's device."""
+        ti = self.trains_i
+        return {k: _put(getattr(self.scene, k)[ti], self.device)
+                for k in ("rgb", "rgb_smooth", "poses", "intrinsics")}
+
+    def take_scene(self, stacked: TrainState, s: int) -> None:
+        """Scene s of a lockstep run's stacked state into this trainer:
+        its parameters (copied into the trainer's own), its Adam moments
+        and count (`StackedOptimizer.write_back`) and iter_step."""
+        with torch.no_grad():
+            for mine, p in zip(self.state.params.parameters(),
+                               stacked.params.parameters()):
+                mine.copy_(p[s])
+        stacked.opt_state.write_back(s, self.tx)
+        self.state.iter_step = stacked.iter_step
+
     def _get_loop(self, use_mvs: bool):
         return make_scan_train_fn(self.cfg, self.tx, use_mvs=use_mvs,
                                   n_views=len(self.trains_i),
@@ -222,8 +292,7 @@ class VolTrainer:
         ti = self.trains_i
         n_views = max(len(ti), 1)
         run_chunk = self._get_loop(use_mvs)
-        scene_dev = {k: _put(getattr(self.scene, k)[ti], self.device)
-                     for k in ("rgb", "rgb_smooth", "poses", "intrinsics")}
+        scene_dev = self.scene_tensors()
         start = self.state.iter_step
         done = 0
         guard_trips = 0

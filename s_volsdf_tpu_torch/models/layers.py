@@ -12,6 +12,16 @@ like the JAX layer's.
 bfloat16, both operands are rounded to bf16 and the product is
 accumulated and returned in float32 (JAX's `preferred_element_type`),
 then the float32 bias is added.
+
+A layer's leaves may carry a leading scene axis (`v` (S, in, out), `g`
+and `b` (S, out)): S scenes' independent layers, the port's counterpart
+of a `jax.vmap` over stacked parameters (the lockstep multi-scene step,
+engine/multiscene.py). The norm is over the `in` axis and the bias is
+added per scene, so the same code serves both: with 2-D leaves it is
+the arithmetic it always was; with 3-D leaves x is (S, M, in) and the
+product is one batched matmul for the S scenes. `n_scenes` tells the two
+apart, `by_scene` / `flat` move points between the flat (S*M, d) layout
+of the render and the (S, M, d) layout of a stacked product.
 """
 
 from __future__ import annotations
@@ -24,7 +34,8 @@ from torch import nn
 
 
 class WeightNormLinear(nn.Module):
-    """W = g * v / ||v||_0 (norm over axis 0 of v (in, out))."""
+    """W = g * v / ||v||_0 (norm over the `in` axis of v (in, out), or of
+    v (S, in, out) with a leading scene axis)."""
 
     def __init__(self, v: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
         super().__init__()
@@ -33,7 +44,8 @@ class WeightNormLinear(nn.Module):
         self.b = nn.Parameter(b)
 
     def weight(self) -> torch.Tensor:
-        return self.g * self.v / torch.linalg.norm(self.v, dim=0, keepdim=True)
+        return self.g[..., None, :] * self.v / torch.linalg.norm(
+            self.v, dim=-2, keepdim=True)
 
 
 class Linear(nn.Module):
@@ -63,10 +75,53 @@ def apply_linear(p: nn.Module, x: torch.Tensor,
     differentiates through these layers twice. The callers keep TF32 off
     (`utils.device.full_float32`), so the sums are float32."""
     w = p.weight()
+    b = p.b[..., None, :]
+    mm = _scene_matmul if w.dim() == 3 else torch.matmul
     if compute_dtype is None:
-        return x @ w + p.b
+        return mm(x, w) + b
     xq = x.to(compute_dtype).float()
-    return xq @ w.to(compute_dtype).float() + p.b
+    return mm(xq, w.to(compute_dtype).float()) + b
+
+
+# Row blocks of a stacked product (see `_scene_matmul`).
+ROW_SPLIT = 16
+
+
+def _scene_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (S, M, in) @ w (S, in, out); on the card, for S > 1, with each
+    scene's M rows in ROW_SPLIT blocks (when they divide M), a batched
+    product of S * ROW_SPLIT entries. Its weight gradient, x^T g,
+    reduces over the M rows; as S products cuBLAS runs it on S x (output
+    tiles) blocks with the whole reduction in each (a single product
+    splits the reduction across the card), so the blocks give it
+    ROW_SPLIT times the parallelism, and autograd sums their gradients
+    (an (S, ROW_SPLIT, in, out) sum, small). On an H100 that cuts the
+    lockstep step's device time by about a third at S = 2 and a fifth
+    at S = 4 (PERF.md; `tools/time_step.py --scenes 2 4 --row-split 16
+    1`). At S = 1 the
+    product is a single one already. On the CPU the S products as they
+    are: there each equals the single product to the bit."""
+    S, M, k = x.shape
+    c = ROW_SPLIT if x.is_cuda and S > 1 and M % ROW_SPLIT == 0 else 1
+    if c == 1:
+        return x @ w
+    return (x.reshape(S, c, M // c, k) @ w[:, None]).reshape(S, M, -1)
+
+
+def n_scenes(mlp) -> int:
+    """S for an MLP whose leaves carry a leading scene axis, else 0."""
+    return mlp[0].b.shape[0] if mlp[0].b.dim() == 2 else 0
+
+
+def by_scene(x: torch.Tensor, S: int) -> torch.Tensor:
+    """Flat points (S*M, d), each scene's M contiguous, as (S, M, d) for a
+    stacked MLP; x itself when S is 0."""
+    return x.reshape(S, -1, x.shape[-1]) if S else x
+
+
+def flat(h: torch.Tensor, S: int) -> torch.Tensor:
+    """The inverse of `by_scene`."""
+    return h.reshape(-1, h.shape[-1]) if S else h
 
 
 def softplus_b(x: torch.Tensor, beta: float = 100.0) -> torch.Tensor:

@@ -13,11 +13,27 @@ The gradient-carrying SDF evaluations (`sdf_feat_grad`,
 `sdf_gradient`) run the plain MLP and take the spatial gradient with
 `torch.autograd.grad(..., create_graph=True)`, so the eikonal term and
 the normals fed to the radiance MLP train the SDF (double backprop).
+
+Stacked parameters (`stack_params`: every leaf with a leading scene axis
+S) are S scenes' independent models, the counterpart of the JAX
+package's `vmap` over stacked states (engine/multiscene.py). The
+training render takes them at B = S (scene s's N rays are batch entry
+s): each MLP moves its flat points to (S, R/S*K, d) for batched
+products (`layers.by_scene`), the density takes each scene's beta and
+the sampler a per-ray beta0 (each scene's repeated for its N rays), the
+eikonal points are concatenated within each scene, the
+sampler's sweep is one kernel launch for the S scenes, and the random
+draws come from the `jitter` feed (each scene's from its own generator,
+engine/train_step.draw_step_inputs). Only the training sampler at
+fast=1 takes S > 1: at fast > 1 the global early exit would tie the
+scenes together. Renders for feedback and eval run per scene
+(`unstack_params`).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+import copy
+from typing import List, NamedTuple, Optional
 
 import torch
 from torch import nn
@@ -30,7 +46,7 @@ from s_volsdf_tpu_torch.models.embedder import embed_dim, positional_encoding
 from s_volsdf_tpu_torch.models.sampler import error_bound_sample
 from s_volsdf_tpu_torch.ops import fused_sdf
 from s_volsdf_tpu_torch.ops.fused_sdf import (fused_sdf_values, pack_sdf,
-                                              supported)
+                                              pack_sdf_scenes, supported)
 from s_volsdf_tpu_torch.utils.cameras import (depth_scale_factor,
                                               get_camera_params)
 
@@ -65,6 +81,38 @@ def init_volsdf_params(gen: torch.Generator, cfg: ModelConfig,
     return VolSDFParams(sdf, rgb, density)
 
 
+def map_leaves(params: nn.Module, fn) -> nn.Module:
+    """A copy of a parameter tree with each leaf p (named as in
+    named_parameters) replaced by nn.Parameter(fn(name, p))."""
+    out = copy.deepcopy(params)
+    mods = dict(out.named_modules())
+    for name, p in list(out.named_parameters()):
+        mod, _, leaf = name.rpartition(".")
+        setattr(mods[mod], leaf, nn.Parameter(fn(name, p)))
+    return out
+
+
+def stack_params(params_list: List[nn.Module]) -> nn.Module:
+    """S scenes' parameter trees (VolSDFParams or VolSDFBGParams of one
+    config) as one tree of the same type whose every leaf carries a
+    leading scene axis: v (S, in, out), g and b (S, out), beta (S,)."""
+    leaves = [dict(p.named_parameters()) for p in params_list]
+    with torch.no_grad():
+        return map_leaves(params_list[0], lambda name, _: torch.stack(
+            [lv[name].detach() for lv in leaves]))
+
+
+def unstack_params(stacked: nn.Module, s: int) -> nn.Module:
+    """Scene s of stacked parameters, as a tree of its own (copies)."""
+    with torch.no_grad():
+        return map_leaves(stacked, lambda _, p: p.detach()[s].clone())
+
+
+def n_scenes(params: nn.Module) -> int:
+    """S for stacked parameters (`stack_params`), else 0."""
+    return layers.n_scenes(params.sdf)
+
+
 def compute_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
     """torch.bfloat16 for bf16 products, else None (float32)."""
     return torch.bfloat16 if cfg.compute_dtype == "bfloat16" else None
@@ -86,10 +134,12 @@ def activation_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
 def sdf_mlp_raw(params: nn.ModuleList, cfg: ModelConfig,
                 x: torch.Tensor) -> torch.Tensor:
     """Raw MLP output (N, 1 + feature_size), float32. The skip junction
-    is [h, pe] * 1/sqrt(2), in that order, in the activations' dtype."""
+    is [h, pe] * 1/sqrt(2), in that order, in the activations' dtype.
+    Stacked parameters of S scenes take x (N, 3) as S runs of N/S."""
     imp = cfg.implicit
     dt, act_dt = compute_dtype(cfg), activation_dtype(cfg)
-    inp = positional_encoding(x, imp.multires)
+    S = layers.n_scenes(params)
+    inp = positional_encoding(layers.by_scene(x, S), imp.multires)
     h = inp
     n_layers = len(params)
     inv_sqrt2 = 0.7071067811865475
@@ -102,7 +152,7 @@ def sdf_mlp_raw(params: nn.ModuleList, cfg: ModelConfig,
             if act_dt is not None:
                 h = h.to(act_dt)
             h = layers.softplus_b(h, beta=100.0)
-    return h
+    return layers.flat(h, S)
 
 
 def _clamp_sdf(sdf, x, cfg: ModelConfig, bounding_sphere: float):
@@ -160,6 +210,8 @@ def rgb_mlp(params: nn.ModuleList, cfg: ModelConfig, points, normals,
     else:
         raise ValueError(ren.mode)
     dt, act_dt = compute_dtype(cfg), activation_dtype(cfg)
+    S = layers.n_scenes(params)
+    h = layers.by_scene(h, S)
     n_layers = len(params)
     for l, p in enumerate(params):
         h = layers.apply_linear(p, h, dt)
@@ -167,7 +219,7 @@ def rgb_mlp(params: nn.ModuleList, cfg: ModelConfig, points, normals,
             if act_dt is not None:
                 h = h.to(act_dt)
             h = torch.relu(h)
-    return torch.sigmoid(h)
+    return layers.flat(torch.sigmoid(h), S)
 
 
 def volume_rendering(z_vals, density):
@@ -210,21 +262,53 @@ def sampler_sdf_fn(params: VolSDFParams, cfg: ModelConfig,
     kernel; in any other case (the CPU, or a config outside the family,
     which the JAX package also runs through its plain `sdf_values`)
     every sweep is `sdf_values_plain`, counted in
-    `fused_sdf.plain_sweeps`, and nothing is packed."""
+    `fused_sdf.plain_sweeps`, and nothing is packed. Stacked parameters
+    of S scenes take flat points (M, 3) as S runs of M/S: one pack
+    (`pack_sdf_scenes`) and one launch a sweep for the S scenes."""
+    S = n_scenes(params)
+
+    def scenes(pts):
+        return pts.reshape(S, -1, 3) if S else pts
+
     if not uses_kernel(params, cfg):
         def plain_fn(pts):
             fused_sdf.plain_sweeps += 1
-            return fused_sdf.sdf_values_plain(params.sdf, cfg, pts,
-                                              bounding_sphere)
+            return fused_sdf.sdf_values_plain(
+                params.sdf, cfg, scenes(pts), bounding_sphere).reshape(-1)
         return plain_fn
 
-    pack = pack_sdf(params.sdf, cfg)
+    pack = (pack_sdf_scenes if S else pack_sdf)(params.sdf, cfg)
 
     def sdf_fn(pts):
         with torch.no_grad():
-            return fused_sdf_values(params.sdf, cfg, pts, bounding_sphere,
-                                    pack=pack)
+            return fused_sdf_values(params.sdf, cfg, scenes(pts),
+                                    bounding_sphere, pack=pack).reshape(-1)
     return sdf_fn
+
+
+def per_ray(beta: torch.Tensor, n_rays: int) -> torch.Tensor:
+    """A scalar beta as it is; S scenes' betas (S,) as (R,), each
+    scene's repeated for its R/S rays."""
+    return beta if beta.dim() == 0 else beta.repeat_interleave(
+        n_rays // beta.shape[0])
+
+
+def check_scenes(params: VolSDFParams, B: int, *, training: bool,
+                 fast: int, jitter) -> int:
+    """S for stacked parameters, after checking what a stacked render
+    takes: B = S batch entries (one per scene), the training sampler at
+    fast=1 and the `jitter` feed; 0 for parameters without a scene
+    axis."""
+    S = n_scenes(params)
+    if S and (B != S or not training or fast != 1 or jitter is None):
+        raise ValueError(
+            f"a render of {S} scenes' stacked parameters takes one batch "
+            f"entry a scene (got {B}), training=True and fast=1 (got "
+            f"{training}, {fast}; at fast > 1 the sampler's global early "
+            f"exit would tie the scenes together) and the scenes' jitter "
+            f"feed (engine.train_step.draw_step_inputs); render a scene "
+            f"at a time with unstack_params")
+    return S
 
 
 def render_rays(params: VolSDFParams, cfg: ModelConfig, uv, pose, intrinsics,
@@ -243,12 +327,15 @@ def render_rays(params: VolSDFParams, cfg: ModelConfig, uv, pose, intrinsics,
 
     B, N, _ = ray_dirs.shape
     R = B * N
+    S_scenes = check_scenes(params, B, training=training, fast=fast,
+                            jitter=jitter)
     ray_dirs = ray_dirs.reshape(R, 3)
     cam_loc = cam_loc[:, None, :].expand(B, N, 3).reshape(R, 3)
     depth_scale = depth_scale.reshape(R, 1)
 
     n_iters = fast if fast >= 0 else cfg.sampler.max_total_iters
-    beta0 = get_beta(params.density, cfg.density.beta_min).detach()
+    beta = get_beta(params.density, cfg.density.beta_min)
+    beta0 = per_ray(beta.detach(), R)
     with torch.no_grad():
         s_out = error_bound_sample(
             gen, cfg.sampler, ray_dirs, cam_loc,
@@ -267,8 +354,11 @@ def render_rays(params: VolSDFParams, cfg: ModelConfig, uv, pose, intrinsics,
     rgb = rgb_mlp(params.rgb, cfg, points_flat, grads, dirs_flat,
                   feats).reshape(R, S, 3)
 
-    beta = get_beta(params.density, cfg.density.beta_min)
-    density = laplace_density(sdf[..., 0], beta).reshape(R, S)
+    if S_scenes:   # each scene's samples against its beta
+        density = laplace_density(sdf[..., 0].reshape(S_scenes, -1),
+                                  beta[:, None]).reshape(R, S)
+    else:
+        density = laplace_density(sdf[..., 0], beta).reshape(R, S)
     weights = volume_rendering(z_vals, density)
 
     rgb_values = torch.sum(weights[..., None] * rgb, dim=1)
@@ -294,7 +384,12 @@ def render_rays(params: VolSDFParams, cfg: ModelConfig, uv, pose, intrinsics,
                                device=ray_dirs.device)
         eik_uniform = -r + 2.0 * r * eik_u
         eik_near = cam_loc + s_out.z_samples_eik * ray_dirs
-        eik_points = torch.cat([eik_uniform, eik_near], dim=0)
+        if S_scenes:    # each scene's 2N points together
+            eik_points = torch.cat([eik_uniform.reshape(B, N, 3),
+                                    eik_near.reshape(B, N, 3)],
+                                   dim=1).reshape(2 * R, 3)
+        else:
+            eik_points = torch.cat([eik_uniform, eik_near], dim=0)
         grad_theta = sdf_gradient(params.sdf, cfg, eik_points, bounding_sphere)
     else:
         g = grads.detach()

@@ -16,6 +16,11 @@ The background MLPs are trained (autograd through
 their products are float32 whatever the precision knobs say: JAX's
 `bg_mlp_raw` and `bg_rgb_mlp` call `apply_linear` without a compute
 dtype. The foreground's MLPs follow the knobs as on the DTU path.
+
+Stacked parameters of S scenes (the lockstep multi-scene step) render
+at B = S as `models.network.render_rays` does: every MLP, the background
+ones too, takes its flat points as S runs (`layers.by_scene`), beta is
+each scene's, and the eikonal points are concatenated within each scene.
 """
 
 from __future__ import annotations
@@ -30,10 +35,10 @@ from s_volsdf_tpu_torch.models import layers
 from s_volsdf_tpu_torch.models.density import (abs_density, get_beta,
                                                laplace_density)
 from s_volsdf_tpu_torch.models.embedder import embed_dim, positional_encoding
-from s_volsdf_tpu_torch.models.network import (VolSDFParams,
-                                               init_volsdf_params, rgb_mlp,
-                                               sampler_sdf_fn, sdf_feat_grad,
-                                               sdf_gradient)
+from s_volsdf_tpu_torch.models.network import (VolSDFParams, check_scenes,
+                                               init_volsdf_params, per_ray,
+                                               rgb_mlp, sampler_sdf_fn,
+                                               sdf_feat_grad, sdf_gradient)
 from s_volsdf_tpu_torch.models.sampler import error_bound_sample
 from s_volsdf_tpu_torch.utils.cameras import (depth_scale_factor,
                                               get_camera_params)
@@ -86,7 +91,8 @@ def bg_mlp_raw(params: nn.ModuleList, cfg: ModelConfig,
     """The background SDF MLP on (N, 4) inverted-sphere points: (N, 1 +
     bg feature size), float32 products."""
     imp = cfg.bg.implicit
-    inp = positional_encoding(x, imp.multires)
+    S = layers.n_scenes(params)
+    inp = positional_encoding(layers.by_scene(x, S), imp.multires)
     h = inp
     n_layers = len(params)
     inv_sqrt2 = 0.7071067811865475
@@ -96,20 +102,21 @@ def bg_mlp_raw(params: nn.ModuleList, cfg: ModelConfig,
         h = layers.apply_linear(p, h)
         if l < n_layers - 1:
             h = layers.softplus_b(h, beta=100.0)
-    return h
+    return layers.flat(h, S)
 
 
 def bg_rgb_mlp(params: nn.ModuleList, cfg: ModelConfig, view_dirs,
                feats) -> torch.Tensor:
     """The background colour MLP in 'nerf' mode: [PE(view), features]."""
     view_pe = positional_encoding(view_dirs, cfg.bg.rendering.multires_view)
-    h = torch.cat([view_pe, feats], dim=-1)
+    S = layers.n_scenes(params)
+    h = layers.by_scene(torch.cat([view_pe, feats], dim=-1), S)
     n_layers = len(params)
     for l, p in enumerate(params):
         h = layers.apply_linear(p, h)
         if l < n_layers - 1:
             h = torch.relu(h)
-    return torch.sigmoid(h)
+    return layers.flat(torch.sigmoid(h), S)
 
 
 def depth2pts_outside(ray_o, ray_d, depth, r: float):
@@ -188,12 +195,15 @@ def render_rays_bg(params: VolSDFBGParams, cfg: ModelConfig, uv, pose,
 
     B, N, _ = ray_dirs.shape
     R = B * N
+    S_scenes = check_scenes(params, B, training=training, fast=fast,
+                            jitter=jitter)
     ray_dirs = ray_dirs.reshape(R, 3)
     cam_loc = cam_loc[:, None, :].expand(B, N, 3).reshape(R, 3)
     depth_scale = depth_scale.reshape(R, 1)
 
     n_iters = fast if fast >= 0 else cfg.sampler.max_total_iters
-    beta0 = get_beta(params.density, cfg.density.beta_min).detach()
+    beta = get_beta(params.density, cfg.density.beta_min)
+    beta0 = per_ray(beta.detach(), R)
     with torch.no_grad():
         s_out = error_bound_sample(
             gen, cfg.sampler, ray_dirs, cam_loc,
@@ -222,8 +232,11 @@ def render_rays_bg(params: VolSDFBGParams, cfg: ModelConfig, uv, pose,
     rgb = rgb_mlp(params.rgb, cfg, points_flat, grads, dirs_flat,
                   feats).reshape(R, S, 3)
 
-    beta = get_beta(params.density, cfg.density.beta_min)
-    density = laplace_density(sdf[..., 0], beta).reshape(R, S)
+    if S_scenes:   # each scene's samples against its beta
+        density = laplace_density(sdf[..., 0].reshape(S_scenes, -1),
+                                  beta[:, None]).reshape(R, S)
+    else:
+        density = laplace_density(sdf[..., 0], beta).reshape(R, S)
     weights, bg_transmittance = _fg_volume_rendering(z_vals, z_max, density)
     fg_rgb_values = torch.sum(weights[..., None] * rgb, dim=1)
 
@@ -272,7 +285,12 @@ def render_rays_bg(params: VolSDFBGParams, cfg: ModelConfig, uv, pose,
                                device=ray_dirs.device)
         eik_uniform = -r + 2.0 * r * eik_u
         eik_near = cam_loc + s_out.z_samples_eik * ray_dirs
-        eik_points = torch.cat([eik_uniform, eik_near], dim=0)
+        if S_scenes:    # each scene's 2N points together
+            eik_points = torch.cat([eik_uniform.reshape(B, N, 3),
+                                    eik_near.reshape(B, N, 3)],
+                                   dim=1).reshape(2 * R, 3)
+        else:
+            eik_points = torch.cat([eik_uniform, eik_near], dim=0)
         grad_theta = sdf_gradient(params.sdf, cfg, eik_points, 0.0)
     else:
         g = grads.detach()

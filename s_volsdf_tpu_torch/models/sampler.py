@@ -136,7 +136,11 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
     """ErrorBoundSampler.get_z_vals with the static iteration schedule.
 
     sdf_fn: points (M, 3) -> sdf (M,), no gradient needed.
-    beta0: scalar tensor, the current density beta (detached).
+    beta0: scalar tensor, the current density beta (detached); or, for
+      S scenes in lockstep (stacked parameters, models/network.py), an
+      (R,) tensor of each ray's scene's beta, with n_iters 1 (the
+      training fast=1 path, where no early exit ties the rays together)
+      and "extra_idx" (S, N_extra), each scene's column picks.
     n_iters: 1 in training (fast=1), max_total_iters in eval.
     jitter: optional feed replacing every random draw — "t_rand"
       (R, N_eval) U[0,1), "u_final" (R, N_samples) U[0,1), "extra_idx"
@@ -158,6 +162,11 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
     if jitter is not None and not (n_iters == 1 and training):
         raise ValueError("jitter injection is defined for the training "
                          "fast=1 path")
+    if beta0.dim() == 1 and n_iters != 1:
+        raise ValueError("a per-ray beta0 (scenes in lockstep) is defined "
+                         "for n_iters 1")
+    # beta0 against (R, K) per-sample tensors.
+    beta0_col = beta0[:, None] if beta0.dim() == 1 else beta0
 
     def eval_sdf(z):
         pts = cam_loc[:, None, :] + z[..., None] * ray_dirs[:, None, :]
@@ -176,7 +185,7 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
 
     def bisect_beta(z_vals, sdf, beta, d_star, dists):
         """Bisection for the minimal beta with error <= eps."""
-        curr_error = _error_bound(beta0, sdf, z_vals, dists, d_star)
+        curr_error = _error_bound(beta0_col, sdf, z_vals, dists, d_star)
         beta = torch.where(curr_error <= cfg.eps, beta0, beta)
         beta_lo = beta0.expand_as(beta)
         beta_hi = beta
@@ -266,6 +275,8 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
     if cfg.N_samples_extra > 0:
         if jitter is not None:
             idx = jitter["extra_idx"]
+            if idx.dim() == 2:   # each scene's columns for its R/S rays
+                idx = idx.long().repeat_interleave(R // idx.shape[0], dim=0)
         elif training:
             idx = torch.randperm(K, generator=gen, device=dev)[: cfg.N_samples_extra]
         else:
@@ -274,7 +285,9 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
             idx = torch.as_tensor(
                 np.linspace(0, K - 1, cfg.N_samples_extra).astype(np.int64),
                 device=dev)
-        z_extra = torch.cat([near_col, far_col, z_vals[:, idx.long()]], dim=-1)
+        picked = (torch.gather(z_vals, 1, idx) if idx.dim() == 2
+                  else z_vals[:, idx.long()])
+        z_extra = torch.cat([near_col, far_col, picked], dim=-1)
     else:
         z_extra = torch.cat([near_col, far_col], dim=-1)
 

@@ -42,6 +42,19 @@ any number of views. The kernel library is built with nvcc
 A call checks only `xyz` and `view_onehot`, that the volumes carry a
 kernel copy made from their own tensors (else it raises, naming
 `check_volumes`), and makes two allocations for its three outputs.
+
+The scene axis (the lockstep multi-scene step, engine/multiscene.py):
+`check_volumes_scenes` takes S scenes' volumes of one shape (an
+override group shares D, Hv, Wv, the views, the image size and
+inverse_depth; other shapes raise) and writes their corner-block copies
+into one (S, V, D, Hv, Wv, 8) tensor and one (S, V, Hv, Wv, 8) tensor,
+one scene at a time (so the transient is one scene's), with the cameras
+stacked (S, V, 4, 4): a `SceneVolumes`. `cost_mapping` on it takes xyz
+(S, N, K, 3) and the one-hots (S, V) and returns (S, N, K) outputs from
+ONE launch, `blockIdx.y` the scene; a sample's arithmetic is the single
+launch's, so it equals S single launches bit for bit. Its plain version
+is `cost_mapping_plain` looped over the scenes. `cost_mapping.
+scene_launches` counts every launch by its number of scenes.
 """
 
 from __future__ import annotations
@@ -202,9 +215,14 @@ def _sample_all_views(xyz, mvs: MVSVolumes,
     return cost.reshape(shape), ~invalid_f.reshape(shape)
 
 
-def cost_mapping_plain(xyz, view_onehot, mvs: MVSVolumes):
+def cost_mapping_plain(xyz, view_onehot, mvs):
     """What the kernel computes, as eager torch ops: (pj, pi, valid) of
-    xyz (R, S, 3) (see `cost_mapping`)."""
+    xyz (R, S, 3) (see `cost_mapping`); for `SceneVolumes`, of xyz
+    (S, N, K, 3) and view_onehot (S, V), one scene after another."""
+    if isinstance(mvs, SceneVolumes):
+        outs = [cost_mapping_plain(xyz[s], view_onehot[s], m)
+                for s, m in enumerate(mvs.scenes)]
+        return tuple(torch.stack(o) for o in zip(*outs))
     costs, valids = _sample_all_views(xyz, mvs)    # (V, R, S)
     pi = pj = 0.0
     valid = torch.zeros_like(valids[0])
@@ -369,6 +387,39 @@ def check_volumes(mvs: MVSVolumes) -> MVSVolumes:
     does not take."""
     if mvs.kernel is not None and mvs.kernel.made_from(mvs):
         return mvs
+    _validate(mvs)
+    with torch.no_grad():
+        packed = (corner_cubes(mvs.prob), slab_cubes(mvs.z_slab))
+    return replace(mvs, kernel=_kernel_copy(
+        _tensors(mvs), packed, mvs.intrinsics, mvs.c2w, mvs))
+
+
+@dataclass
+class SceneVolumes:
+    """S scenes' volumes for the lockstep step: `scenes` as each scene's
+    trainer holds them (the plain version reads these), and `kernel`,
+    the kernel's stacked copy (`check_volumes_scenes`)."""
+    scenes: Tuple[MVSVolumes, ...]
+    kernel: Optional["KernelVolumes"] = field(default=None, repr=False,
+                                              compare=False)
+
+    def copy_is_current(self) -> bool:
+        """Whether `kernel` was made from these scenes' tensors."""
+        k = self.kernel
+        return k is not None and len(k.source) == 4 * len(self.scenes) and \
+            all(a is b for a, b in zip(
+                k.source, (t for m in self.scenes for t in _tensors(m)))) \
+            and all(tuple(m.img_res) == k.img_res
+                    and bool(m.inverse_depth) == k.inverse_depth
+                    for m in self.scenes)
+
+
+def _tensors(mvs: MVSVolumes) -> Tuple[torch.Tensor, ...]:
+    return (mvs.prob, mvs.z_slab, mvs.intrinsics, mvs.c2w)
+
+
+def _validate(mvs: MVSVolumes) -> None:
+    """Raises ValueError naming what the kernel does not take."""
     if mvs.prob.dim() != 4:
         raise ValueError(f"cost_mapping: prob must be (V, D, Hc, Wc), got "
                          f"{tuple(mvs.prob.shape)}")
@@ -400,17 +451,65 @@ def check_volumes(mvs: MVSVolumes) -> MVSVolumes:
     H, W = mvs.img_res
     if H < 2 or W < 2:
         raise ValueError(f"cost_mapping: img_res {mvs.img_res}")
+
+
+def check_volumes_scenes(scenes) -> SceneVolumes:
+    """S scenes' volumes (each as `check_volumes` takes it, of one shape
+    and dtype, one image size and one inverse_depth) as a SceneVolumes
+    with the kernel's stacked copy: every scene's corner-block copies
+    written into one tensor, one scene at a time, and the cameras
+    stacked. Raises ValueError for volumes the kernel does not take or
+    whose shapes or settings differ between scenes."""
+    scenes = tuple(scenes)
+    if not scenes:
+        raise ValueError("cost_mapping: no scenes")
+    first = scenes[0]
+    for s, m in enumerate(scenes):
+        _validate(m)
+        if not (m.prob.shape == first.prob.shape
+                and m.prob.dtype == first.prob.dtype
+                and m.prob.device == first.prob.device
+                and tuple(m.img_res) == tuple(first.img_res)
+                and bool(m.inverse_depth) == bool(first.inverse_depth)):
+            raise ValueError(
+                f"cost_mapping: scene {s}'s volumes {tuple(m.prob.shape)} "
+                f"{m.prob.dtype} (img_res {m.img_res}, inverse_depth "
+                f"{m.inverse_depth}) differ from scene 0's "
+                f"{tuple(first.prob.shape)} {first.prob.dtype} (img_res "
+                f"{first.img_res}, inverse_depth {first.inverse_depth}): "
+                f"one lockstep launch takes scenes of one shape")
+    S = len(scenes)
+    V, D, Hv, Wv = first.prob.shape
+    dev = first.prob.device
     with torch.no_grad():
-        packed = (corner_cubes(mvs.prob), slab_cubes(mvs.z_slab))
+        prob8 = torch.empty((S, V, D, Hv, Wv, 8), dtype=first.prob.dtype,
+                            device=dev)
+        slab8 = torch.empty((S, V, Hv, Wv, 8), device=dev)
+        for s, m in enumerate(scenes):    # one scene's transient at a time
+            prob8[s] = corner_cubes(m.prob)
+            slab8[s] = slab_cubes(m.z_slab)
+        intr = torch.stack([m.intrinsics for m in scenes])
+        c2w = torch.stack([m.c2w for m in scenes])
+    source = tuple(t for m in scenes for t in _tensors(m))
+    return SceneVolumes(scenes, _kernel_copy(
+        source, (prob8, slab8, intr, c2w), intr, c2w, first))
+
+
+def _kernel_copy(source, packed, intr, c2w, mvs: MVSVolumes
+                 ) -> "KernelVolumes":
+    """A KernelVolumes of the corner-block copies `packed` (the volume's,
+    then the planes', then any tensor the arguments point into) with the
+    cameras `intr`, `c2w`, shaped as `mvs`."""
+    V, D, Hv, Wv = mvs.prob.shape
+    H, W = mvs.img_res
     args = CostArgs(
-        packed[0].data_ptr(), packed[1].data_ptr(), mvs.intrinsics.data_ptr(),
-        mvs.c2w.data_ptr(), int(mvs.prob.dtype == torch.bfloat16), V, D, Hv,
+        packed[0].data_ptr(), packed[1].data_ptr(), intr.data_ptr(),
+        c2w.data_ptr(), int(mvs.prob.dtype == torch.bfloat16), V, D, Hv,
         Wv, min(V, 32), 2.0 / (W - 1), 2.0 / (H - 1),
         int(mvs.inverse_depth))
-    return replace(mvs, kernel=KernelVolumes(
-        (mvs.prob, mvs.z_slab, mvs.intrinsics, mvs.c2w), packed,
-        tuple(mvs.img_res), bool(mvs.inverse_depth), dev, V, args,
-        ctypes.byref(args)))
+    return KernelVolumes(source, tuple(packed), tuple(mvs.img_res),
+                         bool(mvs.inverse_depth), mvs.prob.device, V, args,
+                         ctypes.byref(args))
 
 
 _LIB = None
@@ -434,6 +533,10 @@ def bind(path: str):
     lib.cost_mapping_launch.argtypes = [ctypes.POINTER(CostArgs), vp, vp,
                                         ctypes.c_int, vp, vp, vp, vp]
     lib.cost_mapping_launch.restype = ctypes.c_int
+    lib.cost_mapping_launch_scenes.argtypes = [
+        ctypes.POINTER(CostArgs), vp, vp, ctypes.c_int, ctypes.c_int, vp, vp,
+        vp, vp]
+    lib.cost_mapping_launch_scenes.restype = ctypes.c_int
     lib.cost_mapping_error_string.argtypes = [ctypes.c_int]
     lib.cost_mapping_error_string.restype = ctypes.c_char_p
     lib.cost_mapping_trace.argtypes = [vp, ctypes.c_int]
@@ -453,58 +556,66 @@ def _load():
         return _LIB
 
 
-def _launch(xyz: torch.Tensor, view_onehot: torch.Tensor,
-            mvs: MVSVolumes):
-    """One launch of the kernel on xyz (R, S, 3) CUDA float32, or an
+def _launch(xyz: torch.Tensor, view_onehot: torch.Tensor, mvs):
+    """One launch of the kernel on xyz (R, S, 3) CUDA float32 (for
+    SceneVolumes of S scenes: (S, N, K, 3), one-hots (S, V)), or an
     exception naming what it does not take."""
     chk = mvs.kernel
-    if chk is None or not chk.made_from(mvs):
+    scenes = isinstance(mvs, SceneVolumes)
+    if chk is None or not (mvs.copy_is_current() if scenes
+                           else chk.made_from(mvs)):
         raise ValueError("cost_mapping: the volumes carry no kernel copy "
                          "made from their own tensors; make one with "
                          "check_volumes (the trainer's pack_for_chunk "
-                         "does, once per run)")
+                         "does, once per run), or check_volumes_scenes")
+    S = len(mvs.scenes) if scenes else 1
+    lead = (S,) if scenes else ()
     idx = chk.device.index
     if not (xyz.get_device() == idx and xyz.dtype == torch.float32
-            and xyz.dim() == 3 and xyz.shape[2] == 3 and xyz.is_contiguous()):
-        raise ValueError(f"cost_mapping: want xyz (R, S, 3) float32 "
-                         f"contiguous on {chk.device}, got "
+            and xyz.dim() == 3 + len(lead) and xyz.shape[:len(lead)] == lead
+            and xyz.shape[-1] == 3 and xyz.is_contiguous()):
+        raise ValueError(f"cost_mapping: want xyz {lead + ('R', 'S', 3)} "
+                         f"float32 contiguous on {chk.device}, got "
                          f"{tuple(xyz.shape)} {xyz.dtype} on {xyz.device}")
     if not (view_onehot.get_device() == idx
             and view_onehot.dtype == torch.float32
-            and view_onehot.shape == (chk.V,)
+            and view_onehot.shape == lead + (chk.V,)
             and view_onehot.is_contiguous()):
-        raise ValueError(f"cost_mapping: want view_onehot ({chk.V},) float32 "
-                         f"contiguous on {chk.device}, got "
+        raise ValueError(f"cost_mapping: want view_onehot {lead + (chk.V,)} "
+                         f"float32 contiguous on {chk.device}, got "
                          f"{tuple(view_onehot.shape)} {view_onehot.dtype} on "
                          f"{view_onehot.device}")
-    R, S, _ = xyz.shape
-    n = R * S
+    shape = tuple(xyz.shape[:-1])
+    n = shape[-2] * shape[-1]
     if -(-n // (32 // chk.args.group)) * 32 >= INT32:
         raise ValueError(f"cost_mapping: {n} samples exceed int32 indexing")
     lib = _LIB if _LIB is not None else _load()
     # pj and pi in one allocation, valid (bytes 0/1) in another: views of
     # a single byte buffer cost the host more than the second allocation.
-    pjpi = torch.empty((2, R, S), device=chk.device)
-    valid = torch.empty((R, S), dtype=torch.bool, device=chk.device)
+    pjpi = torch.empty((2,) + shape, device=chk.device)
+    valid = torch.empty(shape, dtype=torch.bool, device=chk.device)
     ptr = pjpi.data_ptr()
-    rc = lib.cost_mapping_launch(chk.ref, xyz.data_ptr(),
-                                 view_onehot.data_ptr(), n, ptr, ptr + 4 * n,
-                                 valid.data_ptr(), _STREAM(idx))
+    rc = lib.cost_mapping_launch_scenes(
+        chk.ref, xyz.data_ptr(), view_onehot.data_ptr(), n, S, ptr,
+        ptr + 4 * n * S, valid.data_ptr(), _STREAM(idx))
     if rc != 0:
         raise RuntimeError("cost_mapping kernel launch failed: "
                            + lib.cost_mapping_error_string(rc).decode())
     cost_mapping.launches += 1
+    cost_mapping.scene_launches[S] = cost_mapping.scene_launches.get(S, 0) + 1
     pj, pi = pjpi.unbind(0)
     return pj, pi, valid
 
 
-def cost_mapping(z_vals, xyz, view_onehot, mvs: MVSVolumes):
+def cost_mapping(z_vals, xyz, view_onehot, mvs):
     """Project all ray samples into all views and sample probabilities.
 
     z_vals: (R, S) (shape only); xyz: (R, S, 3) world sample points,
     detached; view_onehot: (V,) float, 1.0 at this batch's view.
     Returns (pj, pi, valid): the other-view cost sum, the same-view cost
-    masked to samples seen by >= 1 other view, and that mask.
+    masked to samples seen by >= 1 other view, and that mask. With
+    `SceneVolumes` of S scenes (`check_volumes_scenes`): xyz
+    (S, N, K, 3), view_onehot (S, V) and outputs (S, N, K).
 
     CPU tensors: `cost_mapping_plain`. CUDA tensors: one launch of the
     kernel on the current stream, reading `mvs.kernel` (`check_volumes`),
@@ -519,7 +630,13 @@ def cost_mapping(z_vals, xyz, view_onehot, mvs: MVSVolumes):
         return cost_mapping_plain(xyz.detach(), view_onehot, mvs)
 
 
-cost_mapping.launches = 0
+def reset_launches() -> None:
+    """Set the launch count and the launches by number of scenes to 0."""
+    cost_mapping.launches = 0
+    cost_mapping.scene_launches = {}
+
+
+reset_launches()
 
 
 def touched_bytes(xyz, mvs: MVSVolumes) -> int:

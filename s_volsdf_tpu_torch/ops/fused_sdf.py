@@ -29,6 +29,17 @@ chooses the plain route for such a config before any launch
 (`models.network.sampler_sdf_fn`, counted in `plain_sweeps`), as the
 JAX package's gate `supported` keeps its Pallas kernel to the family.
 
+The scene axis (the lockstep multi-scene step, engine/multiscene.py):
+with stacked SDF parameters (leaves with a leading S axis,
+`models.layers`), `pack_sdf_scenes` stacks the S scenes' packs into one
+(S, n_stages, 256, 64) stream and an (S, L) vector, and
+`fused_sdf_values` takes points (S, N, 3) and returns (S, N) from ONE
+launch: each block's `blockIdx.y` picks its scene's points, weight
+stream and vector. A point's arithmetic is the single launch's, so the
+batched launch equals S single launches bit for bit. The plain version
+of stacked parameters loops over the scenes. `scene_launches` counts
+every launch by its number of scenes (1 for a single launch).
+
 The kernel library is built with nvcc at first use into `_build/`
 (rebuilt when the source is newer) and bound with ctypes.
 """
@@ -45,7 +56,7 @@ import torch
 
 from s_volsdf_tpu_torch.config import ModelConfig
 from s_volsdf_tpu_torch.models.embedder import embed_dim, positional_encoding
-from s_volsdf_tpu_torch.models.layers import softplus_b
+from s_volsdf_tpu_torch.models.layers import n_scenes, softplus_b
 from s_volsdf_tpu_torch.ops.build import (CSRC_DIR, NVCC_FLAGS,
                                           build_library, nvcc)
 
@@ -109,16 +120,23 @@ def bf16r(x: torch.Tensor) -> torch.Tensor:
 
 
 def normalized_weights(sdf_params) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-    """Materialise every layer to a plain detached (W (in, out), b) pair."""
+    """Materialise every layer to a plain detached (W (in, out), b) pair
+    (W (S, in, out) and b (S, out) for stacked parameters)."""
     return [(p.weight().detach(), p.b.detach()) for p in sdf_params]
+
+
+def scene_weights(wb, s: int):
+    """Scene s's (W, b) pairs of stacked `normalized_weights`."""
+    return [(w[s], b[s]) for w, b in wb]
 
 
 def sdf_values_plain(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
                      bounding_sphere: float) -> torch.Tensor:
     """What the kernel computes in `cfg`'s mode, as one torch.matmul per
-    layer: the clamped SDF (N,) of pts (N, 3). The last layer is applied
-    to its SDF column only. Softplus is `layers.softplus_b`'s jax.nn
-    form.
+    layer: the clamped SDF (N,) of pts (N, 3), or with stacked
+    parameters (S, N) of pts (S, N, 3), one scene after another. The
+    last layer is applied to its SDF column only. Softplus is
+    `layers.softplus_b`'s jax.nn form.
 
     The bfloat16 mode rounds where the kernel rounds: every layer's
     input and weights to bf16 (the float32 product of bf16 values is
@@ -126,11 +144,25 @@ def sdf_values_plain(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
     the pre-activation and the softplus; the skip junction's
     [h, pe] * 1/sqrt(2) (bf16(1/sqrt(2)) with bf16 activations) before
     its rounding."""
+    with torch.no_grad():
+        wb = normalized_weights(sdf_params)
+        S = n_scenes(sdf_params)
+        if not S:
+            return _plain(wb, cfg, pts, bounding_sphere)
+        if pts.dim() != 3 or pts.shape[0] != S:
+            raise ValueError(f"sdf_values_plain: {S} scenes' parameters "
+                             f"want points (S, N, 3), got {tuple(pts.shape)}")
+        return torch.stack([_plain(scene_weights(wb, s), cfg, pts[s],
+                                   bounding_sphere) for s in range(S)])
+
+
+def _plain(wb, cfg: ModelConfig, pts: torch.Tensor,
+           bounding_sphere: float) -> torch.Tensor:
+    """`sdf_values_plain` of one scene's (W, b) pairs."""
     imp = cfg.implicit
     bf16 = mode(cfg) == "bfloat16"
     act = act_bf16(cfg)
     with torch.no_grad():
-        wb = normalized_weights(sdf_params)
         inp = positional_encoding(pts, imp.multires)
         h = inp
         for l, (w, b) in enumerate(wb):
@@ -196,24 +228,57 @@ class SdfPack:
       last layer (64, else zeros), and its bias. The bfloat16 mode's
       SDF column and encoding rows are bf16-rounded.
     meta: the layer table (bounding_sphere and sphere_scale are set per
-      launch)."""
+      launch).
+    scenes: 0 for one set of weights; S for `pack_sdf_scenes`' pack of S
+      scenes, whose weights are (S, n_stages, 256, 64) and vec (S, L)
+      whose row s is scene s's `pack_sdf` vector, zero-padded to a
+      multiple of 4 floats (the kernel reads the vector in pairs)."""
     mode: str
     weights: torch.Tensor
     vec: torch.Tensor
     meta: SdfMeta
+    scenes: int = 0
 
 
 def pack_sdf(sdf_params, cfg: ModelConfig, device=None) -> SdfPack:
     """Weight norm and the padded, swizzled K-major layout of `cfg`'s
     mode, on `device` (default: the weights'): the 1/sqrt(2) fold and the
     hi/lo split (float32), or W rounded to nearest bf16 (bfloat16)."""
+    if n_scenes(sdf_params):
+        raise ValueError("pack_sdf: stacked parameters; use pack_sdf_scenes")
     pack_sdf.builds += 1
-    imp = cfg.implicit
-    bf16 = mode(cfg) == "bfloat16"
     with torch.no_grad():
         wb = normalized_weights(sdf_params)
         device = torch.device(device) if device is not None \
             else wb[0][0].device
+        return _pack(wb, cfg, device)
+
+
+def pack_sdf_scenes(sdf_params, cfg: ModelConfig, device=None) -> SdfPack:
+    """`pack_sdf` of each scene of stacked parameters (leaves with a
+    leading S axis), stacked into one pack: weights (S, n_stages, 256,
+    64) and vec (S, L) (see SdfPack). One build."""
+    S = n_scenes(sdf_params)
+    if not S:
+        raise ValueError("pack_sdf_scenes: parameters without a scene axis")
+    pack_sdf.builds += 1
+    with torch.no_grad():
+        wb = normalized_weights(sdf_params)
+        device = torch.device(device) if device is not None \
+            else wb[0][0].device
+        packs = [_pack(scene_weights(wb, s), cfg, device) for s in range(S)]
+        n = packs[0].vec.numel()
+        vec = torch.stack([torch.nn.functional.pad(p.vec, (0, -n % 4))
+                           for p in packs])
+        return SdfPack(packs[0].mode, torch.stack([p.weights for p in packs]),
+                       vec, packs[0].meta, S)
+
+
+def _pack(wb, cfg: ModelConfig, device) -> SdfPack:
+    """The pack of one scene's (W, b) pairs on `device`."""
+    imp = cfg.implicit
+    bf16 = mode(cfg) == "bfloat16"
+    with torch.no_grad():
         n_hidden = len(wb) - 1
         skip = imp.skip_in[0] if imp.skip_in else -1
         meta = SdfMeta()
@@ -281,6 +346,11 @@ def bind(path: str):
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, SdfMeta, ctypes.c_void_p]
     lib.fused_sdf_forward.restype = ctypes.c_int
+    lib.fused_sdf_forward_scenes.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, SdfMeta,
+        ctypes.c_void_p]
+    lib.fused_sdf_forward_scenes.restype = ctypes.c_int
     lib.fused_sdf_error_string.argtypes = [ctypes.c_int]
     lib.fused_sdf_error_string.restype = ctypes.c_char_p
     return lib
@@ -297,20 +367,32 @@ def _load():
 def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
                      bounding_sphere: float,
                      pack: Optional[SdfPack] = None) -> torch.Tensor:
-    """Clamped SDF values (N,) of pts (N, 3) f32, without gradient.
+    """Clamped SDF values (N,) of pts (N, 3) f32, without gradient; with
+    stacked parameters (S scenes), (S, N) of pts (S, N, 3).
 
-    A pack of another mode than `cfg`'s raises. CPU tensor:
-    `sdf_values_plain` (`pack` otherwise unused). CUDA tensor: one
-    launch of the fused kernel in `cfg`'s mode on the current stream
-    (counted in `fused_sdf_values.launches` and, by mode, in
-    `fused_sdf_values.mode_launches`) with `pack` (`pack_sdf` of the
-    same weights and mode; packed here when None), or an exception."""
+    A pack of another mode than `cfg`'s, or of another number of scenes
+    than the parameters', raises. CPU tensor: `sdf_values_plain` (`pack`
+    otherwise unused). CUDA tensor: one launch of the fused kernel in
+    `cfg`'s mode on the current stream, for all S scenes at once
+    (counted in `fused_sdf_values.launches`, by mode in
+    `fused_sdf_values.mode_launches` and by number of scenes in
+    `fused_sdf_values.scene_launches`) with `pack` (`pack_sdf`, or
+    `pack_sdf_scenes` for stacked parameters, of the same weights and
+    mode; packed here when None), or an exception."""
     if pack is not None and (pack.mode, bool(pack.meta.act_bf16)) != (
             mode(cfg), act_bf16(cfg)):
         raise ValueError(f"fused_sdf_values: a {pack.mode} pack (bf16 "
                          f"activations {bool(pack.meta.act_bf16)}) for a "
                          f"config of mode {mode(cfg)} (bf16 activations "
                          f"{act_bf16(cfg)})")
+    S = n_scenes(sdf_params)
+    if pack is not None and pack.scenes != S:
+        raise ValueError(f"fused_sdf_values: a pack of {pack.scenes} scenes "
+                         f"for parameters of {S} (0: no scene axis)")
+    if pts.dim() != (3 if S else 2) or (S and pts.shape[0] != S):
+        raise ValueError(f"fused_sdf_values: want points "
+                         f"{'(S, N, 3) for S = %d' % S if S else '(N, 3)'}, "
+                         f"got {tuple(pts.shape)}")
     if pts.device.type == "cpu":
         return sdf_values_plain(sdf_params, cfg, pts, bounding_sphere)
     if pts.device.type != "cuda":
@@ -318,16 +400,18 @@ def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
     if not supported(cfg):
         raise ValueError(f"fused_sdf_values: config outside the kernel's "
                          f"family: {cfg.implicit}")
-    if pts.dtype != torch.float32 or pts.dim() != 2 or pts.shape[1] != 3:
-        raise ValueError(f"fused_sdf_values: want (N, 3) float32 points, "
+    if pts.dtype != torch.float32 or pts.shape[-1] != 3:
+        raise ValueError(f"fused_sdf_values: want float32 points (..., 3), "
                          f"got {tuple(pts.shape)} {pts.dtype}")
     if not pts.is_contiguous():
         raise ValueError("fused_sdf_values: points must be contiguous")
-    n = pts.shape[0]
-    if n >= 2 ** 31:
-        raise ValueError(f"fused_sdf_values: {n} points exceed int32 indexing")
+    n = pts.shape[-2]
+    if n * max(S, 1) >= 2 ** 31:
+        raise ValueError(f"fused_sdf_values: {n} x {max(S, 1)} points exceed "
+                         f"int32 indexing")
     if pack is None:
-        pack = pack_sdf(sdf_params, cfg, pts.device)
+        pack = (pack_sdf_scenes if S else pack_sdf)(sdf_params, cfg,
+                                                    pts.device)
     if pack.weights.device != pts.device:
         raise ValueError(f"fused_sdf_values: pack on {pack.weights.device}, "
                          f"points on {pts.device}")
@@ -335,18 +419,21 @@ def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
     meta = SdfMeta.from_buffer_copy(pack.meta)
     meta.bounding_sphere = float(bounding_sphere)
     meta.sphere_scale = float(cfg.implicit.sphere_scale)
-    out = torch.empty((n,), dtype=torch.float32, device=pts.device)
+    out = torch.empty(pts.shape[:-1], dtype=torch.float32, device=pts.device)
     if n == 0:
         return out
     stream = torch.cuda.current_stream(pts.device).cuda_stream
-    rc = lib.fused_sdf_forward(pts.data_ptr(), pack.weights.data_ptr(),
-                               pack.vec.data_ptr(), out.data_ptr(), n, meta,
-                               stream)
+    rc = lib.fused_sdf_forward_scenes(
+        pts.data_ptr(), pack.weights.data_ptr(), pack.vec.data_ptr(),
+        out.data_ptr(), n, max(S, 1), pack.vec.shape[-1] if S else 0, meta,
+        stream)
     if rc != 0:
         raise RuntimeError("fused_sdf kernel launch failed: "
                            + lib.fused_sdf_error_string(rc).decode())
     fused_sdf_values.launches += 1
     fused_sdf_values.mode_launches[pack.mode] += 1
+    scenes = fused_sdf_values.scene_launches
+    scenes[max(S, 1)] = scenes.get(max(S, 1), 0) + 1
     return out
 
 
@@ -357,11 +444,12 @@ plain_sweeps = 0
 
 
 def reset_launches() -> None:
-    """Set the launch counts, the total and each mode's, and the plain
-    sweeps to 0."""
+    """Set the launch counts, the total, each mode's and each number of
+    scenes', and the plain sweeps to 0."""
     global plain_sweeps
     fused_sdf_values.launches = 0
     fused_sdf_values.mode_launches = dict.fromkeys(MODES, 0)
+    fused_sdf_values.scene_launches = {}
     plain_sweeps = 0
 
 

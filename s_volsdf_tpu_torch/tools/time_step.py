@@ -19,6 +19,21 @@ time over the median unprofiled step) and the kernels (and copies)
 launched per step. The turns go other, this, this, other, ... for N
 pairs. Prints the card's name and power limit first, one JSON line per
 turn, then each checkout's medians.
+
+    python3 -m s_volsdf_tpu_torch.tools.time_step --scenes 1 2 4
+        [--precision float32 defaults] [--profile] [--row-split 16 1]
+
+times the lockstep multi-scene step of this checkout instead
+(`engine.multiscene.run_joint`, S scenes in one step), in one process:
+`chip_smoke.py`'s phase 13 scenes (576x768 spheres of per-scene radius,
+bench.py's volumes, 512 rays a scene), first each scene's serial
+trainer for 20 steps, then for each S 20 lockstep steps of the first S
+scenes: the median step, training rays/s (S x 512 / median), the peak
+memory, and S serial steps' total beside them; with `--profile` 5 more
+lockstep steps under torch.profiler (device ms, busy share, launches a
+step). One JSON line per precision and S. `--row-split` times each
+S at each value of `models.layers.ROW_SPLIT` in turn (the row blocks of
+a stacked product on the card; 1 runs S products as they are).
 """
 
 from __future__ import annotations
@@ -86,16 +101,75 @@ def child(tree: str, precision: str, profile: bool) -> None:
     print(json.dumps(out))
 
 
+def scenes(sizes, precisions, profile: bool, row_splits) -> None:
+    """The lockstep step at each S of `sizes` (see the module
+    docstring)."""
+    sys.path.insert(0, REPO)
+    import numpy as np
+    import torch
+    import chip_smoke
+    from s_volsdf_tpu_torch import config
+    from s_volsdf_tpu_torch.engine.multiscene import run_joint
+    from s_volsdf_tpu_torch.models import layers
+    dev = torch.device("cuda")
+    data = chip_smoke.ms_scenes(dev, max(sizes))
+    for precision in precisions:
+        cfg = (chip_smoke.float32_dtu_config() if precision == "float32"
+               else config.dtu_config())
+        serial = chip_smoke.ms_trainers(cfg, data, dev)
+        for t in serial:
+            t.run(STEPS)
+        serial_ms = [1e3 * float(np.median(t.chunk_seconds)) for t in serial]
+        del serial
+        for S, split in ((S, k) for S in sizes for k in row_splits):
+            layers.ROW_SPLIT = split
+            trainers = chip_smoke.ms_trainers(cfg, data[:S], dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            run_joint(trainers, STEPS, chunk_steps=STEPS)
+            torch.cuda.synchronize()
+            med = 1e3 * float(np.median(trainers[0].step_seconds))
+            out = {"precision": precision, "scenes": S, "row_split": split,
+                   "median_ms": med,
+                   "rays_per_s": S * cfg.train.num_pixels / (med / 1e3),
+                   "peak_gib": torch.cuda.max_memory_allocated(dev) / 2 ** 30,
+                   "serial_ms": serial_ms[:S],
+                   "serial_total_ms": sum(serial_ms[:S])}
+            if profile:
+                prof = chip_smoke._profile_joint(trainers, PROFILE_STEPS)
+                out.update({"device_ms_per_step": prof["device_ms"],
+                            "busy_share": prof["device_ms"] / med,
+                            "launches_per_step": prof["launches"]})
+            print(json.dumps(out), flush=True)
+            del trainers
+            torch.cuda.empty_cache()
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--other", required=True,
-                    help="another checkout of the repository")
+    ap.add_argument("--other", help="another checkout of the repository")
+    ap.add_argument("--scenes", type=int, nargs="+",
+                    help="time the lockstep step of this checkout at these "
+                    "numbers of scenes instead")
+    ap.add_argument("--row-split", type=int, nargs="+", default=None,
+                    help="with --scenes: time each of these row splits of "
+                    "the stacked products")
     ap.add_argument("--pairs", type=int, default=4)
     ap.add_argument("--precision", nargs="+", default=["float32"],
                     choices=["float32", "defaults"])
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.scenes:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True, check=True).stdout.strip()
+        print(f"[card] {card}", flush=True)
+        from s_volsdf_tpu_torch.models import layers
+        scenes(args.scenes, args.precision, args.profile,
+               args.row_split or [layers.ROW_SPLIT])
+        return
+    if not args.other:
+        ap.error("--other is required (or --scenes)")
     if args.child:
         for precision in args.precision:
             child(args.child, precision, args.profile)

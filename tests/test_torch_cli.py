@@ -139,10 +139,22 @@ def test_cli_defaults_to_cuda(scan_outputs, monkeypatch):
 
 
 @pytest.mark.parametrize("arg,item", [("multiscene=true", "Multi-scene")])
-def test_unported_modes_raise(arg, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
+def test_unported_modes_raise(arg, item, tmp_path, monkeypatch):
+    """The modes the port once refused with NotImplementedError naming
+    their ROADMAP item. `item` (queue 1's multi-scene training) is
+    ported now: the mode runs save_depth_multiscene, which here stops at
+    the scenes' absent data, and nothing refuses it."""
+    reached = []
+    joint = trun.save_depth_multiscene
+
+    def spy(*a, **k):
+        reached.append(a[1])
+        return joint(*a, **k)
+    monkeypatch.setattr(trun, "save_depth_multiscene", spy)
+    with pytest.raises(FileNotFoundError, match="scan24"):
         trun.main([arg, "testlist=scan24,scan37", f"outdir={tmp_path}"],
                   device="cpu")
+    assert reached == [["scan24", "scan37"]]
 
 
 @pytest.mark.parametrize("model", tconfig.MVS_MODELS)

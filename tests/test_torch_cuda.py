@@ -24,7 +24,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import chip_smoke  # noqa: E402
 from s_volsdf_tpu_torch import config as tconfig  # noqa: E402
-from s_volsdf_tpu_torch.models.network import init_volsdf_params  # noqa: E402
+from s_volsdf_tpu_torch.models.network import (init_volsdf_params,  # noqa: E402
+                                               stack_params)
 from s_volsdf_tpu_torch.engine.render import render_depth  # noqa: E402
 from s_volsdf_tpu_torch.engine import fusion  # noqa: E402
 from s_volsdf_tpu_torch.data.synthetic import make_sphere_scene  # noqa: E402
@@ -585,3 +586,129 @@ def test_image_based_render_card_matches_cpu(cuda, tmp_path):
     finally:
         ibr.laplacian_blending, ibr.get_eval_ids = blend, eval_ids
     assert (blends[0] - blends[1]).abs().max().item() <= 1e-5
+
+
+def _stacked_sdf(cuda, S, cfg):
+    params = [init_volsdf_params(torch.Generator().manual_seed(s), cfg.model,
+                                 cuda) for s in range(S)]
+    return params, stack_params(params)
+
+
+@pytest.mark.parametrize("mode", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,n", [(1, 65536), (3, 65536), (4, 700),
+                                 (2, 65537)])
+def test_fused_sdf_scene_axis_equals_single_launches(cuda, mode, S, n):
+    """One launch of S scenes (blockIdx.y the scene) against S single
+    launches of the same weights and points: bit for bit, in both modes,
+    with a ragged last block (700, 65,537 points) and at S = 1. Counted
+    as one launch of S scenes."""
+    cfg = tconfig.dtu_config()
+    mcfg = cfg.model if mode == "float32" else dataclasses.replace(
+        cfg.model, compute_dtype="bfloat16", activation_dtype="bfloat16")
+    params, stacked = _stacked_sdf(cuda, S, cfg)
+    pts = torch.tensor(np.random.default_rng(2).normal(size=(S, n, 3)),
+                       dtype=torch.float32, device=cuda)
+    fused_sdf.reset_launches()
+    got = fused_sdf.fused_sdf_values(stacked.sdf, mcfg, pts, 3.0)
+    torch.cuda.synchronize()
+    assert fused_sdf.fused_sdf_values.launches == 1
+    assert fused_sdf.fused_sdf_values.scene_launches == {S: 1}
+    for s, p in enumerate(params):
+        one = fused_sdf.fused_sdf_values(p.sdf, mcfg, pts[s].contiguous(), 3.0)
+        assert torch.equal(got[s], one), s
+
+
+def test_fused_sdf_scene_axis_refusals(cuda):
+    """A pack of another mode or of another number of scenes, and points
+    without the scene axis, raise before any launch."""
+    cfg = tconfig.dtu_config()
+    params, stacked = _stacked_sdf(cuda, 2, cfg)
+    pts = torch.zeros(2, 128, 3, device=cuda)
+    bf16 = dataclasses.replace(cfg.model, compute_dtype="bfloat16")
+    fused_sdf.reset_launches()
+    with pytest.raises(ValueError, match="pack"):
+        fused_sdf.fused_sdf_values(stacked.sdf, cfg.model, pts, 3.0,
+                                   pack=fused_sdf.pack_sdf_scenes(stacked.sdf,
+                                                                  bf16))
+    with pytest.raises(ValueError, match="scenes"):
+        fused_sdf.fused_sdf_values(stacked.sdf, cfg.model, pts, 3.0,
+                                   pack=fused_sdf.pack_sdf(params[0].sdf,
+                                                           cfg.model))
+    with pytest.raises(ValueError, match="S, N, 3"):
+        fused_sdf.fused_sdf_values(stacked.sdf, cfg.model, pts[0], 3.0)
+    assert fused_sdf.fused_sdf_values.launches == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S", [1, 3])
+def test_cost_mapping_scene_axis_equals_single_launches(cuda, dtype, S):
+    """One launch of S scenes' volumes (bench.py's shapes, a sphere of
+    another radius a scene) against S single launches: pj, pi and valid
+    bit for bit, counted as one launch of S scenes."""
+    scenes = chip_smoke.ms_scenes(cuda, S)
+    vols = [dataclasses.replace(m, prob=m.prob.to(dtype)) for _, m in scenes]
+    stacked = cost_mapping.check_volumes_scenes(vols)
+    xyz = torch.stack([chip_smoke.cost_mapping_samples(sc, s % 3, cuda)
+                       for s, (sc, _) in enumerate(scenes)])
+    onehot = torch.eye(3, device=cuda)[[(s + 1) % 3 for s in range(S)]]
+    cost_mapping.reset_launches()
+    got = cost_mapping.cost_mapping(None, xyz, onehot, stacked)
+    torch.cuda.synchronize()
+    assert cost_mapping.cost_mapping.scene_launches == {S: 1}
+    for s, m in enumerate(vols):
+        one = cost_mapping.cost_mapping(None, xyz[s], onehot[s],
+                                        cost_mapping.check_volumes(m))
+        for a, b in zip(got, one):
+            assert torch.equal(a[s], b), s
+        assert 0 < int(one[2].sum()) < one[2].numel()
+
+
+def test_cost_mapping_scene_axis_refusals(cuda):
+    """Volumes of other shapes, dtypes or settings do not stack; samples
+    or one-hots without the scene axis, and volumes replaced after the
+    copy, raise before any launch."""
+    scene = make_sphere_scene(3, (48, 64))
+    a = chip_smoke.make_volumes(scene, (16, 12, 16), cuda)
+    for other in (chip_smoke.make_volumes(scene, (8, 12, 16), cuda),
+                  dataclasses.replace(a, prob=a.prob.to(torch.bfloat16)),
+                  dataclasses.replace(a, inverse_depth=True)):
+        with pytest.raises(ValueError, match="one lockstep launch"):
+            cost_mapping.check_volumes_scenes([a, other])
+    stacked = cost_mapping.check_volumes_scenes([a, a])
+    xyz = torch.zeros(2, 4, 5, 3, device=cuda)
+    onehot = torch.eye(3, device=cuda)[:2]
+    cost_mapping.reset_launches()
+    with pytest.raises(ValueError, match="xyz"):
+        cost_mapping.cost_mapping(None, xyz[0], onehot, stacked)
+    with pytest.raises(ValueError, match="view_onehot"):
+        cost_mapping.cost_mapping(None, xyz, onehot[0], stacked)
+    with pytest.raises(ValueError, match="check_volumes"):
+        cost_mapping.cost_mapping(None, xyz, onehot, dataclasses.replace(
+            stacked, scenes=(a, dataclasses.replace(a, prob=a.prob * 1))))
+    assert cost_mapping.cost_mapping.launches == 0
+
+
+def test_lockstep_tracks_serial_on_card(cuda):
+    """Two scenes in lockstep at float32 (a small model on 96x128 scenes)
+    against two serial trainers: every step's loss within 1e-4 relative
+    over 5 steps (cuBLAS's batched and single products may sum in other
+    orders) and one launch of each kernel for the two scenes a step."""
+    cfg = chip_smoke.float32_dtu_config()
+    cfg.model.implicit.dims = (64,) * 4
+    cfg.model.implicit.skip_in = (2,)
+    cfg.train.num_pixels = 128
+    scenes = [(sc, chip_smoke.make_volumes(sc, (32, 24, 32), cuda))
+              for sc in (make_sphere_scene(3, (96, 128), sphere_radius=r)
+                         for r in (0.8, 0.6))]
+    serial = chip_smoke.ms_trainers(cfg, scenes, cuda)
+    for t in serial:
+        t.run(5)
+    joint = chip_smoke.ms_trainers(cfg, scenes, cuda)
+    fused_sdf.reset_launches()
+    cost_mapping.reset_launches()
+    chip_smoke.run_joint(joint, 5)
+    assert fused_sdf.fused_sdf_values.scene_launches == {2: 5}
+    assert cost_mapping.cost_mapping.scene_launches == {2: 5}
+    for a, b in zip(serial, joint):
+        np.testing.assert_allclose([lo.loss for lo in b.losses],
+                                   [lo.loss for lo in a.losses], rtol=1e-4)
