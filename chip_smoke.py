@@ -185,11 +185,32 @@ checks it, in phases that print in order:
      `cli.run` of the same scans: every view's depth PFM within 1e-3 on
      at least 99.5% of its pixels, each scene's "latest" checkpoint
      resuming at step 30;
+ 14. (run before 10's results) multi-device on the one card: (a) one
+     NCCL rank in this process at bench.py's shapes, at the defaults and
+     at float32: make_sharded_train_step on an injected batch equal to
+     train_step to the bit, 20 steps of the ray-sharded loop (finite
+     losses) beside the single-process loop's (median, device ms, busy
+     share and launches a step), the flat gradient all-reduce's us and
+     bytes; (b) two gloo ranks sharing the card (spawned, float32): the
+     sharded step at 256 rays a rank against one process's on the same
+     512 rays and jitter within the one-step bars of
+     tests/test_torch_train_step.py, the replicas bit-equal after 5
+     steps (and at the defaults within their bf16 bars: each leaf 1e-1,
+     the whole gradient 2e-2 in L2), one fused-SDF and one cost-mapping
+     launch a step in each rank, a sharded 576x768 render_depth against one process's (equal,
+     or 99.5% of the pixels within 1e-3); its times are two processes on
+     one card, not scaling; (c) cli.run under three gloo ranks on phase
+     7(d)'s 64x96 fixture, 30 float32 steps of 510 rays: stage 0 one
+     view a rank within 1e-5 of one process, ray-sharded training, each
+     PFM, PNG and PLY written once with finite depths. Each group of
+     spawned ranks has a join timeout;
  10. a JSON line with the kernels' numbers (the fused kernel's
      `unclamped_launches`: its launches on phase 11's paths, all at
      bounding_sphere 0; both kernels' `scene_launches`, their launches
      on phase 13's paths by number of scenes, and `lockstep_launches`,
-     those of more than one scene, with `scenes_*` times from 13(a)),
+     those of more than one scene, with `scenes_*` times from 13(a);
+     every kernel's `sharded_launches`, its launches on phase 14's paths
+     in this process and the spawned ranks),
      the card's name and power limit, and the last line {"ok": true,
      "device": {...}}.
 
@@ -209,7 +230,9 @@ from __future__ import annotations
 
 import copy
 import dataclasses
+import hashlib
 import json
+import logging
 import os
 import subprocess
 import sys
@@ -230,7 +253,7 @@ from s_volsdf_tpu_torch.cli import eval_vsdf as cli_eval_vsdf
 from s_volsdf_tpu_torch.cli import ibr as cli_ibr
 from s_volsdf_tpu_torch.cli import run as cli_run
 from s_volsdf_tpu_torch.config import (Config, bmvs_config, dtu_config,
-                                       per_scene_overrides)
+                                       load_config, per_scene_overrides)
 from s_volsdf_tpu_torch.data.fixtures import make_bmvs_fixture, make_dtu_fixture
 from s_volsdf_tpu_torch.data.io import (load_ply, read_img, read_pfm,
                                         save_pfm, save_ply, write_cam,
@@ -251,8 +274,14 @@ from s_volsdf_tpu_torch.engine.ibr import image_based_render
 from s_volsdf_tpu_torch.engine.mesh import mesh_sdf_fn
 from s_volsdf_tpu_torch.engine.render import render_depth, render_image
 from s_volsdf_tpu_torch.engine.runner import (MVSEngine, pcd_filter,
-                                              save_scene_depth)
-from s_volsdf_tpu_torch.engine.train_step import training_model_config
+                                              run_mvs_stage, save_scene_depth,
+                                              setup_scene)
+from s_volsdf_tpu_torch.engine.train_step import (draw_step_inputs,
+                                                  loss_and_grads,
+                                                  mean_over_group,
+                                                  pack_for_chunk, shard_batch,
+                                                  train_step,
+                                                  training_model_config)
 from s_volsdf_tpu_torch.engine.multiscene import run_joint
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer, stack_states
 from s_volsdf_tpu_torch.models.lpips import init_lpips_params, lpips_leaves
@@ -263,6 +292,9 @@ from s_volsdf_tpu_torch.models.mvs.transmvsnet import DCN
 from s_volsdf_tpu_torch.ops import (cost_mapping, deform_conv, fused_sdf,
                                     geo_consistency)
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
+from s_volsdf_tpu_torch.parallel import mesh as pmesh
+from s_volsdf_tpu_torch.parallel.train_parallel import (
+    make_sharded_scan_train_fn, make_sharded_train_step)
 from s_volsdf_tpu_torch.tools.fp64_count import fp64_instructions
 from s_volsdf_tpu_torch.tools.time_cost_mapping import (cold_ms, sample_sets,
                                                         samples)
@@ -2661,6 +2693,428 @@ def ms_command_line(dev, card: str, tmp: str) -> Dict:
     return {"seconds": seconds, "worst_share": worst}
 
 
+# --------------------------------------------------------------------------
+# 14. Multi-device on the one card
+# --------------------------------------------------------------------------
+
+SHARD_STEPS = 20             # 14(a): the ray-sharded loop at one NCCL rank
+SHARD_PROFILE_STEPS = 5
+ALLREDUCE_REPS = 50
+PAIR_STEPS = 5               # 14(b): two gloo ranks sharing the card
+# tests/test_torch_train_step.py's one-step bars: float32 (each gradient
+# element), and at the bf16 defaults each leaf and the whole gradient in
+# L2 (a bf16 product's weight gradient is rounded to bf16, so the mean of
+# the ranks' rounded halves moves by about a bf16 unit).
+STEP_LOSS_RTOL, STEP_GRAD_RTOL, STEP_GRAD_ATOL = 1e-4, 1e-3, 1e-5
+BF16_LOSS_RTOL, BF16_LEAF_L2, BF16_WHOLE_L2 = 1e-2, 1e-1, 2e-2
+CLI_RANKS, CLI_STEPS, CLI_PIXELS = 3, 30, 510   # 14(c)
+STAGE_TOL = 1e-5             # 14(c): stage 0 one view a rank vs one process
+RANK_TIMEOUT = 400.0         # seconds a group of spawned ranks may take
+
+
+def step_agreement(cfg: Config, grads, lo, want, wlo) -> Dict:
+    """A sharded step's loss and gradients against one process's on the
+    same rays: the loss's relative gap, the largest leaf's and the whole
+    gradient's relative L2 gaps, and whether they are within the one-step
+    bars of `cfg`'s precision ("ok")."""
+    w = float(wlo.loss.detach())
+    loss_rel = abs(float(lo.loss) - w) / abs(w)
+    leaf = max(float(torch.linalg.norm(g - x) / torch.linalg.norm(x))
+               for g, x in zip(grads, want))
+    whole = float(torch.sqrt(sum(torch.sum((g - x) ** 2)
+                                 for g, x in zip(grads, want))
+                             / sum(torch.sum(x ** 2) for x in want)))
+    if cfg.train.train_compute_dtype == "float32":
+        ok = loss_rel <= STEP_LOSS_RTOL and all(
+            torch.allclose(g, x, rtol=STEP_GRAD_RTOL, atol=STEP_GRAD_ATOL)
+            for g, x in zip(grads, want))
+    else:
+        ok = (loss_rel <= BF16_LOSS_RTOL and leaf <= BF16_LEAF_L2
+              and whole <= BF16_WHOLE_L2)
+    return {"loss_rel": loss_rel, "leaf_l2": leaf, "whole_l2": whole,
+            "ok": bool(ok)}
+
+
+def _params_bytes(params) -> bytes:
+    return b"".join(p.detach().cpu().numpy().tobytes()
+                    for p in params.parameters())
+
+
+def _profile_run(run, state, n: int, scene, mvs, gen) -> Dict:
+    """torch.profiler over n steps of a loop: device ms and launches a
+    step (tools/time_step.py's method)."""
+    from torch.profiler import ProfilerActivity
+    from s_volsdf_tpu_torch.tools.time_step import _device_time
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU,
+                                            ProfilerActivity.CUDA]) as prof:
+        state, _, seconds = run(state, n, scene, mvs, gen)
+        torch.cuda.synchronize()
+    busy, launches = _device_time(prof)
+    return {"device_ms": 1e3 * busy / n, "launches": launches / n,
+            "busy": busy / sum(seconds)}
+
+
+def _allreduce_us(group, params) -> Dict:
+    """The flat gradient all-reduce (`Group.mean_flat`) on gradients of
+    the parameters' shapes: device us a call (CUDA events over
+    ALLREDUCE_REPS calls) and the bytes it reduces."""
+    grads = [torch.randn_like(p) for p in params.parameters()]
+    for _ in range(3):
+        group.mean_flat(grads)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(ALLREDUCE_REPS):
+        group.mean_flat(grads)
+    end.record()
+    torch.cuda.synchronize()
+    return {"us": 1e3 * start.elapsed_time(end) / ALLREDUCE_REPS,
+            "bytes": 4 * sum(g.numel() for g in grads)}
+
+
+def one_nccl_rank(dev, card: str, tmp: str) -> Dict:
+    """Phase 14(a): one NCCL rank at bench.py's shapes, at the defaults
+    and at float32: make_sharded_train_step on an injected batch equal
+    to train_step to the bit; 20 steps of the ray-sharded loop (finite
+    losses) beside the single-process loop's 20 (median, device ms,
+    busy share, launches a step); the flat gradient all-reduce's us and
+    bytes."""
+    pmesh.init_process_group(
+        "cuda", init_method="file://" + os.path.join(tmp, "nccl_store"),
+        env={"WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+             "LOCAL_WORLD_SIZE": "1"})
+    try:
+        group = pmesh.node_group()
+        out = {}
+        for what, cfg in (("defaults", dtu_config()),
+                          ("float32", float32_dtu_config())):
+            res = (cfg.max_h, cfg.max_w)
+            plain = make_trainer(cfg, res, BENCH_VOLUMES, dev)
+            shard = VolTrainer(cfg, plain.scene, None, device=dev,
+                               chunk_steps=1)
+            shard.mvs = plain.mvs
+            mvs = pack_for_chunk(cfg, plain.mvs)
+            scene = plain.scene_tensors()
+            batch = draw_step_inputs(
+                scene, torch.Generator(device=dev).manual_seed(5), cfg=cfg,
+                n_views=3, img_res=res, n_rays=cfg.train.num_pixels)
+            _, lo_plain = train_step(plain.state, batch, None, mvs, cfg=cfg,
+                                     tx=plain.tx, use_mvs=True)
+            step = make_sharded_train_step(cfg, shard.tx, group, use_mvs=True)
+            _, lo_shard = step(shard.state, shard_batch(batch, group), None,
+                               mvs)
+            torch.cuda.synchronize()
+            _check(_params_bytes(plain.state.params)
+                   == _params_bytes(shard.state.params)
+                   and float(lo_plain.loss) == float(lo_shard.loss),
+                   f"{what}: the sharded step at one NCCL rank differs from "
+                   f"train_step")
+            run = make_sharded_scan_train_fn(cfg, shard.tx, group,
+                                             use_mvs=True, n_views=3,
+                                             img_res=res)
+            shard.state, losses, seconds = run(shard.state, SHARD_STEPS,
+                                               scene, mvs, shard.gen)
+            losses = [float(x.loss) for x in losses]
+            _check(all(np.isfinite(losses)), f"{what}: sharded losses "
+                   f"{losses}")
+            plain.run(SHARD_STEPS)
+            same = [a.loss == b for a, b in zip(plain.losses, losses)]
+            prof_shard = _profile_run(run, shard.state, SHARD_PROFILE_STEPS,
+                                      scene, mvs, shard.gen)
+            prof_plain = _profile_steps(plain, SHARD_PROFILE_STEPS)
+            prof_plain["busy"] = (prof_plain["device_ms"] / 1e3
+                                  * SHARD_PROFILE_STEPS
+                                  / sum(plain.chunk_seconds))
+            ar = _allreduce_us(group, shard.state.params)
+            out[what] = {"median_ms": 1e3 * float(np.median(seconds)),
+                         "plain_median_ms":
+                             1e3 * float(np.median(plain.step_seconds[
+                                 :SHARD_STEPS])),
+                         "shard": prof_shard, "plain": prof_plain,
+                         "allreduce": ar}
+            print(f"[multi] 14(a) one NCCL rank, {what}: the sharded step "
+                  f"equals train_step to the bit (loss {losses[0]:.6f}); "
+                  f"{SHARD_STEPS} ray-sharded steps: loss {losses[0]:.5f} -> "
+                  f"{losses[-1]:.5f}, {sum(same)}/{SHARD_STEPS} losses equal "
+                  f"to the single-process loop's, median "
+                  f"{out[what]['median_ms']:.2f} ms/step (single process "
+                  f"{out[what]['plain_median_ms']:.2f}), device "
+                  f"{prof_shard['device_ms']:.2f} ms (single "
+                  f"{prof_plain['device_ms']:.2f}), busy "
+                  f"{prof_shard['busy']:.3f} (single {prof_plain['busy']:.3f}"
+                  f"), launches {prof_shard['launches']:.0f}/step (single "
+                  f"{prof_plain['launches']:.0f}); the flat gradient "
+                  f"all-reduce {ar['us']:.1f} us for {ar['bytes']} bytes "
+                  f"[{card}]", flush=True)
+            del plain, shard, mvs
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        pmesh.shutdown()
+
+
+def sharded_step_agreement(cfg: Config, dev, group) -> tuple:
+    """chip_smoke's trainer at bench.py's shapes and one sharded step's
+    agreement with one process's on the same 512 rays and jitter
+    (`step_agreement`, on the group's first rank; None elsewhere):
+    (trainer, its packed volumes, its scene tensors, the agreement)."""
+    res = (cfg.max_h, cfg.max_w)
+    t = make_trainer(cfg, res, BENCH_VOLUMES, dev)
+    mvs = pack_for_chunk(cfg, t.mvs)
+    scene = t.scene_tensors()
+    batch = draw_step_inputs(scene, torch.Generator(device=dev).manual_seed(5),
+                             cfg=cfg, n_views=3, img_res=res,
+                             n_rays=cfg.train.num_pixels)
+    grads, lo = mean_over_group(group, *loss_and_grads(
+        t.state.params, cfg, shard_batch(batch, group), None, mvs, 0))
+    agree = None
+    if group.first:
+        agree = step_agreement(cfg, grads, lo, *loss_and_grads(
+            t.state.params, cfg, batch, None, mvs, 0))
+    return t, mvs, scene, agree
+
+
+def pair_rank() -> Dict:
+    """What each of 14(b)'s two gloo ranks on one card runs (spawned by
+    `pair_ranks`)."""
+    dev = pmesh.rank_device()
+    group = pmesh.node_group()
+    out = {"rank": group.index}
+    out["agree_defaults"] = sharded_step_agreement(dtu_config(), dev,
+                                                   group)[3]
+    torch.cuda.empty_cache()
+    cfg = float32_dtu_config()
+    res = (cfg.max_h, cfg.max_w)
+    t, mvs, scene, out["agree"] = sharded_step_agreement(cfg, dev, group)
+    _reset_counts()
+    run = make_sharded_scan_train_fn(cfg, t.tx, group, use_mvs=True,
+                                     n_views=3, img_res=res)
+    t.state, losses, seconds = run(t.state, PAIR_STEPS, scene, mvs, t.gen)
+    torch.cuda.synchronize()
+    out["step_launches"] = _launch_counts()
+    out["losses"] = [float(x.loss) for x in losses]
+    out["median_ms"] = 1e3 * float(np.median(seconds))
+    out["params_sha"] = hashlib.sha256(_params_bytes(t.state.params)).hexdigest()
+    del mvs
+    t.mvs = None
+    torch.cuda.empty_cache()
+    egroup = pmesh.eval_group(cfg.parallel, 16384)
+    pose, intr = t.scene.poses[0], t.scene.intrinsics[0]
+    t0 = time.perf_counter()
+    maps = render_depth(t.state.params, cfg.model, pose, intr, res,
+                        chunk=16384, fast=-1, device=dev, group=egroup)
+    torch.cuda.synchronize()
+    out["render_s"] = time.perf_counter() - t0
+    out["render_group"] = None if egroup is None else egroup.ranks
+    if group.first:
+        t0 = time.perf_counter()
+        single = render_depth(t.state.params, cfg.model, pose, intr, res,
+                              chunk=16384, fast=-1, device=dev)
+        torch.cuda.synchronize()
+        out["single_render_s"] = time.perf_counter() - t0
+        d, w = maps["depth"], single["depth"]
+        out["render_equal"] = bool(np.array_equal(d, w)
+                                   and np.array_equal(maps["acc"],
+                                                      single["acc"]))
+        out["render_share"] = float(np.isclose(d, w, rtol=MS_DEPTH_TOL,
+                                               atol=MS_DEPTH_TOL).mean())
+        out["render_max_diff"] = float(np.abs(d - w).max())
+        out["render_finite"] = bool(np.isfinite(d).all())
+    out["launches"] = _launch_counts()
+    return out
+
+
+def pair_ranks(card: str) -> Dict:
+    """Phase 14(b): two gloo ranks sharing the card (spawned; NCCL
+    refuses two ranks on one device). The sharded step at 256 rays a
+    rank against the single-process step on the same 512 rays and
+    jitter, within the one-step bars; the replicas' parameters bit-equal
+    after 5 steps; one fused-SDF and one cost-mapping launch a step in
+    each rank; a sharded 576x768 render_depth against the single-process
+    render. Its times are two processes sharing one card, not
+    scaling."""
+    t0 = time.perf_counter()
+    r0, r1 = pmesh.run_local_ranks(pair_rank, 2, device="cuda:0",
+                                   backend="gloo", timeout=RANK_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    a, d = r0["agree"], r0["agree_defaults"]
+    _check(a["ok"] and d["ok"],
+           f"14(b): the sharded step against the single-process step: "
+           f"float32 {a}, defaults {d}")
+    _check(r0["params_sha"] == r1["params_sha"],
+           "14(b): the replicas' parameters differ")
+    for r in (r0, r1):
+        sl = r["step_launches"]
+        _check(sum(sl["fused_sdf"].values()) == PAIR_STEPS
+               and sl["cost_mapping"] == PAIR_STEPS
+               and all(np.isfinite(r["losses"])),
+               f"14(b) rank {r['rank']}: launches over {PAIR_STEPS} steps "
+               f"{sl}, losses {r['losses']}")
+    _check(r0["render_group"] == (0, 1) and r0["render_finite"]
+           and (r0["render_equal"] or r0["render_share"] >= MS_DEPTH_SHARE),
+           f"14(b): the sharded render against one process: equal "
+           f"{r0['render_equal']}, {r0['render_share']} of the pixels within "
+           f"{MS_DEPTH_TOL}")
+    print(f"[multi] 14(b) two gloo ranks sharing the card (two processes on "
+          f"one card, not scaling): the sharded step at 256 rays a rank vs "
+          f"one process at 512: float32 loss {a['loss_rel']:.3g} relative, "
+          f"gradients within rtol {STEP_GRAD_RTOL} atol {STEP_GRAD_ATOL} "
+          f"(largest leaf {a['leaf_l2']:.3g}, whole {a['whole_l2']:.3g} in "
+          f"L2); defaults loss {d['loss_rel']:.3g}, largest leaf "
+          f"{d['leaf_l2']:.3g}, whole {d['whole_l2']:.3g} (bars "
+          f"{BF16_LEAF_L2}, {BF16_WHOLE_L2}); replicas bit-equal "
+          f"after {PAIR_STEPS} steps; launches a rank over {PAIR_STEPS} steps "
+          f"{r0['step_launches']['fused_sdf']} fused SDF, "
+          f"{r0['step_launches']['cost_mapping']} cost_mapping; median "
+          f"{r0['median_ms']:.2f}/{r1['median_ms']:.2f} ms/step; sharded "
+          f"576x768 render_depth {r0['render_s']:.3f} s (one process "
+          f"{r0['single_render_s']:.3f} s), bit-equal "
+          f"{r0['render_equal']}, max |diff| {r0['render_max_diff']:.3g}; "
+          f"{seconds:.1f} s in all [{card}]", flush=True)
+    return {"launches": [r0["launches"], r1["launches"]], "ranks": [r0, r1]}
+
+
+def _recording(written: list, root: str):
+    """Wrap the functions that write a scene's files, so that each
+    call's path (relative to root) lands in `written`; returns what to
+    restore."""
+    from s_volsdf_tpu_torch.engine import fusion as fusion_mod
+    from s_volsdf_tpu_torch.engine import runner as runner_mod
+    from s_volsdf_tpu_torch.engine import trainer as trainer_mod
+    patched = []
+    for mod, name in ((runner_mod, "save_pfm"), (runner_mod, "write_png"),
+                      (runner_mod, "write_cam"), (runner_mod, "save_config"),
+                      (trainer_mod, "save_config"), (trainer_mod, "write_png"),
+                      (ckpt, "save_state"), (fusion_mod, "save_ply")):
+        fn = getattr(mod, name)
+
+        def wrapper(*a, _fn=fn, **k):
+            path = a[0] if isinstance(a[0], str) else a[1]
+            written.append(os.path.relpath(path, root))
+            return _fn(*a, **k)
+        setattr(mod, name, wrapper)
+        patched.append((mod, name, fn))
+    return patched
+
+
+def cli_rank(argv, root: str) -> Dict:
+    """What each of 14(c)'s ranks runs: cli.run.main, recording the
+    files it writes, stage 0's outputs, the launches and the log."""
+    from s_volsdf_tpu_torch.engine import runner as runner_mod
+    written, stage0, lines = [], [], []
+    patched = _recording(written, root)
+    run_stage = runner_mod.run_mvs_stage
+
+    def spy(cfg, engine, sc, stage_idx):
+        outs, extras = run_stage(cfg, engine, sc, stage_idx)
+        if stage_idx == 0:
+            stage0.extend({k: np.asarray(o[k]) if not torch.is_tensor(o[k])
+                           else o[k].cpu().numpy()
+                           for k in ("depth", "photometric_confidence",
+                                     "prob_volume")} for o in outs)
+        return outs, extras
+    runner_mod.run_mvs_stage = spy
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    log = logging.getLogger("s_volsdf_tpu_torch")
+    log.addHandler(handler)
+    level = log.level
+    log.setLevel(logging.INFO)
+    _reset_counts()
+    try:
+        plys = cli_run.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+        runner_mod.run_mvs_stage = run_stage
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+    return {"rank": pmesh.topology().rank, "written": written,
+            "stage0": stage0, "plys": plys, "launches": _launch_counts(),
+            "log": lines}
+
+
+def cli_ranks(dev, card: str, tmp: str) -> Dict:
+    """Phase 14(c): cli.run under three gloo ranks on the card, on phase
+    7(d)'s 64x96 DTU fixture, 30 float32 steps of 510 rays (3 x 170):
+    stage 0 one view a rank within STAGE_TOL of a one-process stage 0;
+    ray-sharded training; every PFM, PNG and PLY written once, from the
+    first rank, with finite depths."""
+    small = os.path.join(tmp, "small")
+    if not os.path.isdir(os.path.join(small, "DTU")):
+        make_dtu_fixture(small, scan_id=int(SCAN[4:]), img_res=SMALL_RES)
+    root = os.path.join(tmp, "multi_cli")
+    out = os.path.join(root, "out")
+    argv = small_run_args(tmp, out) + [
+        f"exps_folder={os.path.join(root, 'exps')}",
+        f"opt_stepNs=[{CLI_STEPS},0,0]", f"train.num_pixels={CLI_PIXELS}",
+        "train.train_compute_dtype=float32",
+        "train.train_activation_dtype=float32",
+        "train.mvs_pack_dtype=float32", "mvs.compute_dtype=float32"]
+    t0 = time.perf_counter()
+    rs = pmesh.run_local_ranks(cli_rank, CLI_RANKS, argv, root,
+                               device="cuda:0", backend="gloo",
+                               timeout=RANK_TIMEOUT)
+    seconds = time.perf_counter() - t0
+    # Stage 0 in this process, with the same (seeded) cascade weights.
+    cfg = load_config("dtu", [a for a in argv if "=" in a])
+    engine = MVSEngine(cfg, device=dev)
+    sc = setup_scene(cfg, SCAN, exps_root=os.path.join(root, "single"),
+                     device=dev)
+    outs, _ = run_mvs_stage(cfg, engine, sc, 0)
+    stage_err = 0.0
+    for r in rs:
+        for got, want in zip(r["stage0"], outs):
+            for k in got:
+                w = want[k] if not torch.is_tensor(want[k]) \
+                    else want[k].cpu().numpy()
+                stage_err = max(stage_err, float(np.abs(got[k] - w).max()))
+    _check(stage_err <= STAGE_TOL and all(len(r["stage0"]) == 3 for r in rs),
+           f"14(c): stage 0 one view a rank against one process: "
+           f"{stage_err:.3g}")
+    _check(all(r["written"] == [] for r in rs[1:]),
+           f"14(c): ranks other than the first wrote "
+           f"{[r['written'] for r in rs[1:]]}")
+    outputs = [p for p in rs[0]["written"] if "checkpoints" not in p]
+    _check(len(outputs) == len(set(outputs)),
+           f"14(c): files written more than once: {outputs}")
+    pfms = [p for p in outputs if p.endswith(".pfm")]
+    pngs = [p for p in outputs if p.endswith(".png")]
+    plys = [p for p in outputs if p.endswith(".ply")]
+    _check(len(pfms) == 6 and len(plys) == 1 and len(pngs) >= 9,
+           f"14(c): outputs {outputs}")
+    for p in pfms:
+        d = read_pfm(os.path.join(root, p))[0]
+        _check(np.isfinite(d).all(), f"14(c): non-finite {p}")
+    sharded = [any(f"ray-sharded training over {CLI_RANKS} ranks" in x
+                   for x in r["log"]) for r in rs]
+    _check(all(sharded), f"14(c): ray-sharded training on the ranks {sharded}")
+    for r in rs:
+        _check(r["launches"]["cost_mapping"] == CLI_STEPS,
+               f"14(c) rank {r['rank']}: launches {r['launches']}")
+    print(f"[multi] 14(c) cli.run under {CLI_RANKS} gloo ranks on the card "
+          f"at {SMALL_RES[0]}x{SMALL_RES[1]}, {CLI_STEPS} float32 steps of "
+          f"{CLI_PIXELS} rays ({CLI_PIXELS // CLI_RANKS} a rank): stage 0 one "
+          f"view a rank within {stage_err:.3g} of one process; ray-sharded "
+          f"training; {len(pfms)} PFMs, {len(pngs)} PNGs, {len(plys)} PLY "
+          f"written once by the first rank, finite depths; launches a rank "
+          f"{[r['launches']['fused_sdf'] for r in rs]} fused SDF, "
+          f"{[r['launches']['cost_mapping'] for r in rs]} cost_mapping, "
+          f"{[r['launches']['geo_consistency'] for r in rs]} geo_consistency;"
+          f" {seconds:.1f} s [{card}]", flush=True)
+    return {"launches": [r["launches"] for r in rs]}
+
+
+def _sum_launches(counts) -> Dict:
+    """Per-kernel launch totals of several `_launch_counts` records."""
+    return {"fused_sdf": {m: sum(c["fused_sdf"][m] for c in counts)
+                          for m in fused_sdf.MODES},
+            "cost_mapping": sum(c["cost_mapping"] for c in counts),
+            "deform_conv": sum(c["deform_conv"] for c in counts),
+            "geo_consistency": sum(c["geo_consistency"] for c in counts)}
+
+
 def validate_cli_config(root: str) -> Config:
     """The config cli.run builds from ms_cli_args (the joint run's)."""
     from s_volsdf_tpu_torch.config import load_config, validate_config
@@ -2791,12 +3245,26 @@ def main() -> None:
               f"launches on the multi-scene paths {ms_launches} [{card}]",
               flush=True)
 
+        # 14. Multi-device on the one card: one NCCL rank in this
+        # process, then spawned gloo ranks sharing the card.
+        t0 = time.perf_counter()
+        _reset_counts()                         # the multi-device paths start
+        multi = {"a": one_nccl_rank(dev, card, tmp)}
+        rank_launches = [_launch_counts()]      # ... (a) ends here
+        multi["b"] = pair_ranks(card)
+        multi["c"] = cli_ranks(dev, card, tmp)
+        sharded = _sum_launches(rank_launches + multi["b"]["launches"]
+                                + multi["c"]["launches"])
+        print(f"[multi] phase 14 in {time.perf_counter() - t0:.2f} s; "
+              f"launches on the multi-device paths (this process and the "
+              f"spawned ranks) {sharded} [{card}]", flush=True)
+
     # 10. Results. Launches are summed over the paths, each counted from 0.
     paths = [launches, outside, scene_launches["float32"],
              scene_launches["defaults"],
              {"fused_sdf": fusion["sdf_launches"],
               "cost_mapping": fusion["cost_launches"]}, eval_field,
-             eval_cli] + other + bmvs + [ibr_launches, ms_launches]
+             eval_cli] + other + bmvs + [ibr_launches, ms_launches, sharded]
     sdf_launches = {m: sum(p["fused_sdf"][m] for p in paths)
                     for m in fused_sdf.MODES}
     cost_launches = sum(p["cost_mapping"] for p in paths)
@@ -2828,6 +3296,7 @@ def main() -> None:
             "bound_ms": m["bound_ms"][KERNEL_SWEEP],
             "bound_by": "operations", "library_ms": None,
             "unclamped_launches": bmvs_sdf[mode],
+            "sharded_launches": sharded["fused_sdf"][mode],
             "scene_launches": by_scenes("fused_sdf_scenes"),
             "lockstep_launches": lockstep_sdf,
             "scenes_ms": axis[f"fused_sdf_{mode}"]["ms"],
@@ -2845,6 +3314,7 @@ def main() -> None:
         "source": "s_volsdf_tpu_torch/csrc/cost_mapping.cu",
         "replaces": "s_volsdf_tpu/ops/cost_mapping.py:152",
         "launches": cost_launches,
+        "sharded_launches": sharded["cost_mapping"],
         "max_abs_err": max(c["max_abs_err"] for c in cost.values()),
         "ms": bf16["ms_cold"], "ms_cold": bf16["ms_cold"],
         "ms_warm": bf16["ms_warm"], "plain_ms": bf16["plain_ms"],
@@ -2870,6 +3340,7 @@ def main() -> None:
         "source": "s_volsdf_tpu_torch/csrc/fusion.cu",
         "replaces": "s_volsdf_tpu/native/fusion.cpp:59",
         "launches": geo_launches,
+        "sharded_launches": sharded["geo_consistency"],
         "max_abs_err": fusion["max_abs_err"], "ms": fusion["ms"],
         "plain_ms": fusion["plain_ms"], "bound_ms": fusion["bound_ms"],
         "bound_by": fusion["bound_by"], "library_ms": None,
@@ -2881,7 +3352,8 @@ def main() -> None:
         "name": "deform_conv", "route": "cuda",
         "source": "s_volsdf_tpu_torch/csrc/deform_conv.cu",
         "replaces": "s_volsdf_tpu/ops/deform_conv.py:29",
-        "launches": dcn_launches, "max_abs_err": dcn["max_abs_err"],
+        "launches": dcn_launches, "sharded_launches": sharded["deform_conv"],
+        "max_abs_err": dcn["max_abs_err"],
         "ms": dcn["ms"], "plain_ms": dcn["plain_ms"],
         "bound_ms": dcn["bound_ms"], "bound_by": dcn["bound_by"],
         "library_ms": None, "tensor_ms": dcn["tensor_ms"],

@@ -14,7 +14,10 @@ box of <data_dir_root>/DTU/bbs.npz when it exists), and with
 rendering_<epoch>/ (--result_from None) or their PSNR, SSIM and LPIPS
 (--result_from default|blend; LPIPS needs --lpips_weights, a checkpoint
 directory of converted weights). The flags and defaults are the JAX
-command line's; --gpu is accepted and ignored.
+command line's; --gpu is accepted and ignored. Under torchrun
+(`torchrun --nproc_per_node=N -m s_volsdf_tpu_torch.cli.eval_vsdf ...`)
+the ranks share each render's rays and each grid's points
+(parallel.eval_group) and the node's first rank writes the files.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from s_volsdf_tpu_torch.engine.eval_nvs import (eval_rendered_views,
                                                 export_mesh, find_checkpoint,
                                                 load_trained_params,
                                                 render_eval_views)
+from s_volsdf_tpu_torch.parallel.mesh import launched
 from s_volsdf_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("s_volsdf_tpu_torch")
@@ -82,7 +86,11 @@ def main(argv: Optional[List[str]] = None, *, device=None) -> List[Dict]:
     if opt.ckpt_dir and len(opt.scan_ids) != 1:
         p.error(f"--ckpt_dir points at a single run dir; pass exactly "
                 f"one --scan_ids with it (got {len(opt.scan_ids)} scans)")
-    device = resolve_device(device, "eval_vsdf")
+    with launched(device) as device:
+        return _evaluate(opt, resolve_device(device, "eval_vsdf"))
+
+
+def _evaluate(opt, device) -> List[Dict]:
 
     cfg = load_config(opt.conf, overrides=list(opt.override))
     cfg.data_dir_root = opt.data_dir_root

@@ -18,6 +18,20 @@ or default preset; `mvs_weights=` names a converted cascade checkpoint.
 Precision follows the JAX package's knobs and defaults (bf16 training
 products and activations, bf16 MVS volumes and cascade convs, float32
 renders); `train.train_compute_dtype=float32` and the like pick float32.
+
+Under torchrun, one process a card:
+
+    torchrun --nproc_per_node=N -m s_volsdf_tpu_torch.cli.run \
+        testlist=scan106,scan114 [multiscene=true]
+
+the process group is set up from torchrun's environment (NCCL, each
+rank on cuda:LOCAL_RANK; gloo with device="cpu") and torn down at the
+end. The scenes are partitioned over the nodes, and on a node the
+layouts follow `parallel.*` as the JAX package's follow its devices:
+the cascade one view a rank, each scene's rays sharded over the ranks
+(shard_rays; multiscene=true picks among the scene-sharded layouts,
+engine/multiscene._pick_loop), the renders sharded (shard_eval). The
+node's first rank writes the outputs, once.
 """
 
 from __future__ import annotations
@@ -30,6 +44,7 @@ from s_volsdf_tpu_torch.config import load_config, validate_config
 from s_volsdf_tpu_torch.engine import ibr
 from s_volsdf_tpu_torch.engine.multiscene import save_depth_multiscene
 from s_volsdf_tpu_torch.engine.runner import pcd_filter, save_depth
+from s_volsdf_tpu_torch.parallel.mesh import launched
 
 logger = logging.getLogger("s_volsdf_tpu_torch")
 
@@ -78,13 +93,15 @@ def main(argv: List[str], *, device=None) -> List[str]:
         for scene in testlist:
             ibr.create_scene(cfg, scene)
         return []
-    if not cfg.filter_only:
-        if multiscene and len(testlist) > 1:
-            save_depth_multiscene(cfg, testlist, mvs_weights=mvs_weights,
-                                  device=device)
-        else:
-            save_depth(cfg, testlist, mvs_weights=mvs_weights, device=device)
-    return pcd_filter(cfg, testlist, device=device)
+    with launched(device) as device:
+        if not cfg.filter_only:
+            if multiscene and len(testlist) > 1:
+                save_depth_multiscene(cfg, testlist, mvs_weights=mvs_weights,
+                                      device=device)
+            else:
+                save_depth(cfg, testlist, mvs_weights=mvs_weights,
+                           device=device)
+        return pcd_filter(cfg, testlist, device=device)
 
 
 def cli() -> None:

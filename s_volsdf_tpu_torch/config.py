@@ -178,6 +178,22 @@ class FilterConfig:
 
 
 @dataclass(unsafe_hash=True)
+class ParallelConfig:
+    """Multi-device runs (counterpart of s_volsdf_tpu/config.py:237-249;
+    `parallel/`): the node's ranks arranged as `mesh_shape` over
+    `mesh_axes` (-1 takes every rank left), one scene's rays sharded
+    over them in training (`shard_rays`), the eval and feedback renders'
+    rays and the SDF grids' points sharded over them (`shard_eval`), and
+    the cascade one reference view a rank (`shard_mvs_views`; None
+    follows shard_eval)."""
+    mesh_shape: Tuple[int, ...] = (-1,)
+    mesh_axes: Tuple[str, ...] = ("rays",)
+    shard_rays: bool = True
+    shard_eval: bool = True
+    shard_mvs_views: Optional[bool] = None
+
+
+@dataclass(unsafe_hash=True)
 class Config:
     num_view: int = 3
     testlist: str = "scan106"
@@ -202,6 +218,7 @@ class Config:
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     plot: PlotConfig = field(default_factory=PlotConfig)
     filter: FilterConfig = field(default_factory=FilterConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
 
 
 def dtu_config() -> Config:
@@ -256,7 +273,8 @@ _PRESETS = {"dtu": dtu_config, "bmvs": bmvs_config, "default": Config}
 
 def _parse_literal(value: str) -> Any:
     """A command-line value by JSON rules (`[20,0,0]`, `1e-3`, `null`),
-    then Python literal rules (`(1, 2)`, `None`), else the string."""
+    then Python literal rules (`(1, 2)`, `None`), then as a flow list of
+    bare words as YAML reads it (`[scene,rays]`), else the string."""
     try:
         return json.loads(value)
     except ValueError:
@@ -264,7 +282,11 @@ def _parse_literal(value: str) -> Any:
     try:
         return ast.literal_eval(value)
     except (ValueError, SyntaxError):
-        return value
+        pass
+    if value.startswith("[") and value.endswith("]"):
+        return [_parse_literal(v.strip()) for v in value[1:-1].split(",")
+                if v.strip()]
+    return value
 
 
 def _coerce(value: str, current: Any) -> Any:
@@ -287,7 +309,9 @@ def _coerce(value: str, current: Any) -> Any:
 
 def apply_override(cfg: Any, dotted_key: str, value: str) -> None:
     """Set `cfg.<dotted.key> = value` with type coercion. A key or
-    section the port's config does not have raises, naming the key."""
+    section the port's config does not have raises, naming the key.
+    A field whose default is None (parallel.shard_mvs_views) parses by
+    literal rules whatever it holds, so "null" resets it."""
     parts = dotted_key.split(".")
     obj = cfg
     for i, p in enumerate(parts):
@@ -298,7 +322,9 @@ def apply_override(cfg: Any, dotted_key: str, value: str) -> None:
                            f"config has no {'.'.join(parts[:i + 1])!r}")
         if i < len(parts) - 1:
             obj = getattr(obj, p)
-    setattr(obj, parts[-1], _coerce(value, getattr(obj, parts[-1])))
+    fld = next(f for f in dataclasses.fields(obj) if f.name == parts[-1])
+    current = None if fld.default is None else getattr(obj, parts[-1])
+    setattr(obj, parts[-1], _coerce(value, current))
 
 
 def load_config(preset: str = "dtu",

@@ -16,6 +16,10 @@ s_volsdf_tpu/engine/eval_nvs.py):
 - `export_mesh`: the SDF's surface (`engine.mesh`, the fused kernel on
   the card; unclamped for a background model), its largest component,
   mapped to world units by the scene's scale_mat, as a PLY with faces.
+
+Under a process group the renders and the SDF grids are sharded over
+`parallel.mesh.eval_group` (where the JAX package passes `eval_mesh`),
+and only the node's first rank writes the files.
 """
 
 from __future__ import annotations
@@ -32,7 +36,8 @@ from s_volsdf_tpu_torch.config import Config, check_ported
 from s_volsdf_tpu_torch.data.io import read_png, save_pfm, save_ply, write_png
 from s_volsdf_tpu_torch.data.scene_dataset import SceneData
 from s_volsdf_tpu_torch.data.splits import get_trains_ids
-from s_volsdf_tpu_torch.engine.mesh import (extract_mesh_by_grid,
+from s_volsdf_tpu_torch.engine.mesh import (LAUNCH_POINTS,
+                                            extract_mesh_by_grid,
                                             extract_mesh_high_res,
                                             largest_component, mesh_sdf_fn)
 from s_volsdf_tpu_torch.engine.render import render_image
@@ -40,6 +45,7 @@ from s_volsdf_tpu_torch.engine.train_step import init_train_state, make_optimize
 from s_volsdf_tpu_torch.models.lpips import load_lpips, lpips_distance
 from s_volsdf_tpu_torch.models.network import VolSDFParams, init_volsdf_params
 from s_volsdf_tpu_torch.models.network_bg import init_volsdf_bg_params
+from s_volsdf_tpu_torch.parallel.mesh import eval_group, is_writer
 from s_volsdf_tpu_torch.utils import checkpoint as ckpt
 from s_volsdf_tpu_torch.utils.metrics import masked_psnr, ssim
 
@@ -103,16 +109,21 @@ def render_eval_views(cfg: Config, scene: SceneData, params: VolSDFParams,
     """Render the eval views (and the first three training views of the
     3-view protocol) and write their RGB, normal and scaled-depth files;
     returns the view ids."""
-    os.makedirs(os.path.join(images_dir, "depth_est"), exist_ok=True)
+    writer = is_writer()
+    if writer:
+        os.makedirs(os.path.join(images_dir, "depth_est"), exist_ok=True)
     test_idx = scene.eval_ids()
     if include_train:
         test_idx = test_idx + get_trains_ids(
             scene.data_dir, f"scan{scene.scan_id}", 3)[:3]
+    group = eval_group(cfg.parallel, chunk)
     for vid in test_idx:
         maps = render_image(params, cfg.model, scene.poses[vid],
                             scene.intrinsics[vid], scene.img_res,
                             chunk=chunk, fast=-1,
-                            near_pose=scene.near_pose(vid))
+                            near_pose=scene.near_pose(vid), group=group)
+        if not writer:
+            continue
         write_png(os.path.join(images_dir, f"eval_{vid:03d}.png"),
                   _to_png(maps["rgb"]))
         write_png(os.path.join(images_dir, f"normal_{vid:03d}.png"),
@@ -196,20 +207,23 @@ def export_mesh(cfg: Config, scene: SceneData, params: VolSDFParams,
     bounding = 0.0 if (cfg.model.white_bkgd or cfg.model.with_background) \
         else cfg.model.scene_bounding_sphere
     sdf_fn = mesh_sdf_fn(params, cfg.model, bounding)
+    group = eval_group(cfg.parallel, LAUNCH_POINTS)
     if bbs_file and os.path.exists(bbs_file):
         with np.load(bbs_file) as bbs:
             grid_params = dtu_bbs_lookup(bbs, scene.scan_id)
         mesh = extract_mesh_by_grid(grid_params, sdf_fn, resolution=resolution,
                                     level=cfg.plot.level, higher_res=True,
-                                    stats=stats)
+                                    stats=stats, group=group)
     else:
         mesh = extract_mesh_high_res(
             sdf_fn, resolution=resolution,
             grid_boundary=tuple(cfg.plot.grid_boundary), level=cfg.plot.level,
-            stats=stats)
+            stats=stats, group=group)
     if mesh is None:
         logger.warning("no surface found")
         return None
+    if not is_writer():
+        return out_path
     t0 = time.perf_counter()
     verts, faces = largest_component(*mesh)
     t1 = time.perf_counter()

@@ -19,7 +19,10 @@ s_volsdf_tpu/engine/mesh.py).
   pass) and `extract_mesh_by_grid`. A grid's points are those of the
   JAX package (float64 `np.linspace`, `meshgrid(indexing="ij")`, the
   float64 PCA transform, then float32), made per launch (`GridPoints`)
-  instead of whole: a 512^3 grid is 1.6 GB of float32 points.
+  instead of whole: a 512^3 grid is 1.6 GB of float32 points. With a
+  `group` (parallel.mesh.eval_group; the JAX package's `mesh=`) each
+  launch's points are split over its ranks and the values gathered, so
+  every rank holds the whole grid.
 """
 
 from __future__ import annotations
@@ -273,13 +276,16 @@ def mesh_sdf_fn(params: VolSDFParams, cfg: ModelConfig,
 
 
 def eval_sdf_grid(sdf_fn: Callable, points, chunk: int = LAUNCH_POINTS,
-                  stats: Optional[Dict] = None) -> np.ndarray:
+                  stats: Optional[Dict] = None, group=None) -> np.ndarray:
     """SDF values (N,) float32 of `points`, an (N, 3) array or a
     `GridPoints`, in launches of `chunk` points on `sdf_fn.device`, each
-    launch's values copied to the host as it ends. `stats`, when given,
-    gets {"points", "launches", "seconds"} appended to its "grids" list
-    (host seconds, which include making the points; each copy
-    synchronises)."""
+    launch's values copied to the host as it ends. With `group`, each
+    rank evaluates its rows of a launch's points (`Group.rows`; a launch
+    of fewer points than ranks whole on every rank) and the rows are
+    gathered. `stats`, when given, gets {"points", "launches",
+    "seconds"} appended to its "grids" list (host seconds, which include
+    making the points; each copy synchronises; `launches` counts this
+    rank's)."""
     device = getattr(sdf_fn, "device", torch.device("cpu"))
     n = len(points)
     out = np.empty(n, np.float32)
@@ -287,10 +293,17 @@ def eval_sdf_grid(sdf_fn: Callable, points, chunk: int = LAUNCH_POINTS,
     launches = 0
     for s in range(0, n, chunk):
         e = min(s + chunk, n)
-        block = points.block(s, e) if isinstance(points, GridPoints) \
-            else np.ascontiguousarray(points[s:e], np.float32)
-        pts = torch.from_numpy(block).to(device)
-        out[s:e] = sdf_fn(pts).cpu().numpy()
+        lo, hi = s, e
+        sharded = group is not None and e - s >= group.size
+        if sharded:
+            a, b = group.rows(e - s)
+            lo, hi = s + a, s + b
+        block = points.block(lo, hi) if isinstance(points, GridPoints) \
+            else np.ascontiguousarray(points[lo:hi], np.float32)
+        values = sdf_fn(torch.from_numpy(block).to(device))
+        if sharded:
+            values = group.gather_rows(values, lo - s, e - s)
+        out[s:e] = values.cpu().numpy()
         launches += 1
     if stats is not None:
         stats.setdefault("grids", []).append(
@@ -331,19 +344,21 @@ def _surface(z, level, axes, stats):
 
 def extract_mesh_uniform(sdf_fn: Callable, resolution: int = 100,
                          grid_boundary=(-2.0, 2.0), level: float = 0.0,
-                         stats: Optional[Dict] = None):
+                         stats: Optional[Dict] = None, group=None):
     """The surface on a uniform resolution^3 grid over the cube
-    grid_boundary^3: (verts, faces), or None."""
+    grid_boundary^3: (verts, faces), or None. `group`: the ranks that
+    share the grid's launches (`eval_sdf_grid`), as in the extractors
+    below."""
     b0, b1 = grid_boundary
     pts, axes = _grid_from_bounds([b0] * 3, [b1] * 3, resolution)
-    z = eval_sdf_grid(sdf_fn, pts, stats=stats)
+    z = eval_sdf_grid(sdf_fn, pts, stats=stats, group=group)
     return _surface(z.reshape((resolution,) * 3), level, axes, stats)
 
 
 def extract_mesh_high_res(sdf_fn: Callable, resolution: int = 512,
                           grid_boundary=(-2.0, 2.0), level: float = 0.0,
                           take_components: bool = True,
-                          stats: Optional[Dict] = None):
+                          stats: Optional[Dict] = None, group=None):
     """Two passes: a 100^3 uniform surface, its largest component's
     principal axes (from 10,000 surface samples), then a resolution^3
     grid aligned with them around the surface, 0.1 beyond it. `stats`
@@ -351,7 +366,7 @@ def extract_mesh_high_res(sdf_fn: Callable, resolution: int = 512,
     `eval_sdf_grid`), "marching" and "component", in the order they
     ran, and each grid's largest spacing ("voxel")."""
     low = extract_mesh_uniform(sdf_fn, 100, grid_boundary, level,
-                               stats=stats)
+                               stats=stats, group=group)
     if low is None:
         return None
     verts, faces = low
@@ -373,7 +388,7 @@ def extract_mesh_high_res(sdf_fn: Callable, resolution: int = 512,
     bmin = helper.min(axis=0) - eps
     bmax = helper.max(axis=0) + eps
     pts_world, axes = _grid_from_bounds(bmin, bmax, resolution, vecs, mean)
-    z = eval_sdf_grid(sdf_fn, pts_world, stats=stats)
+    z = eval_sdf_grid(sdf_fn, pts_world, stats=stats, group=group)
     out = _surface(z.reshape((resolution,) * 3), level, axes, stats)
     if out is None:
         return None
@@ -385,7 +400,7 @@ def extract_mesh_high_res(sdf_fn: Callable, resolution: int = 512,
 def extract_mesh_by_grid(grid_params: np.ndarray, sdf_fn: Callable,
                          resolution: int = 100, level: float = 0.0,
                          higher_res: bool = False,
-                         stats: Optional[Dict] = None):
+                         stats: Optional[Dict] = None, group=None):
     """The surface inside a scan's bounding box: grid_params (2, 3)
     [min; max], scaled by [1.5, 1.0] as in the JAX package; with
     higher_res, the two-pass extraction over the box's extent, then the
@@ -395,12 +410,12 @@ def extract_mesh_by_grid(grid_params: np.ndarray, sdf_fn: Callable,
 
     if not higher_res:
         pts, axes = _grid_from_bounds(bmin, bmax, resolution)
-        z = eval_sdf_grid(sdf_fn, pts, stats=stats)
+        z = eval_sdf_grid(sdf_fn, pts, stats=stats, group=group)
         return _surface(z.reshape((resolution,) * 3), level, axes, stats)
 
     out = extract_mesh_high_res(sdf_fn, resolution,
                                 (float(bmin.min()), float(bmax.max())),
-                                level, stats=stats)
+                                level, stats=stats, group=group)
     if out is None:
         return None
     verts, faces = out

@@ -23,16 +23,27 @@ they agree to the bit; cuBLAS may differ at the last bit).
 
 There is no fallback: a group the lockstep step cannot take (scenes of
 different image sizes or volume shapes) raises, and nothing runs the
-scenes serially in its place. Sharding scenes over several cards, the
-JAX package's `shard_map` layouts, is ROADMAP queue 1's multi-device
-item.
+scenes serially in its place.
+
+Under a process group (parallel/) every rank of the node holds every
+scene's trainer, and `run_joint` spreads the scenes over the ranks as
+the JAX package spreads them over its devices (`_pick_loop`): blocks of
+scenes a rank, with no collective, when the ranks divide the scenes (or
+one scene a rank when there are fewer scenes than ranks); each scene's
+rays over its own line of ranks (a scene x rays mesh) when there are
+spare ranks and parallel.shard_rays; else every rank runs every scene in
+lockstep. Afterwards each scene's state is broadcast from the rank that
+trained it, so every rank holds every scene again (the JAX package
+unstacks its sharded states); the node's first rank writes the
+checkpoints and the outputs.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
@@ -43,6 +54,12 @@ from s_volsdf_tpu_torch.engine.trainer import (VolTrainer,
                                                stack_states)
 from s_volsdf_tpu_torch.models.loss import LossOutput
 from s_volsdf_tpu_torch.ops.cost_mapping import SceneVolumes
+from s_volsdf_tpu_torch.parallel.mesh import (Group, RankMesh, is_writer,
+                                              make_group, node_group)
+from s_volsdf_tpu_torch.parallel.multihost import partition_scenes
+from s_volsdf_tpu_torch.parallel.train_parallel import (
+    make_sharded_multiscene_train_fn, make_sharded_scene_ray_train_fn,
+    scene_block)
 from s_volsdf_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger("s_volsdf_tpu_torch")
@@ -60,19 +77,61 @@ def _pack_stacked(cfg: Config, trainers: List[VolTrainer]) -> SceneVolumes:
     return volumes
 
 
-def _pick_loop(cfg: Config, tx, S: int, device: torch.device, *,
-               use_mvs: bool, n_views: int, img_res):
-    """The lockstep loop of S scenes on the trainers' device. The JAX
-    package also shards scenes over a mesh; here scenes stay on that one
-    device whatever else is visible (sharding them is ROADMAP queue 1's
-    multi-device item)."""
-    n_dev = torch.cuda.device_count() if device.type == "cuda" else 1
-    logger.info(f"multiscene: {S} scenes in lockstep on {device}"
-                + (f" ({n_dev} CUDA devices visible; sharding scenes over "
-                   f"them is not ported: ROADMAP queue 1, multi-device)"
-                   if n_dev > 1 else ""))
-    return make_multiscene_train_fn(cfg, tx, use_mvs=use_mvs,
-                                    n_views=n_views, img_res=img_res)
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """How S scenes run on the node's ranks: "scene" (contiguous blocks
+    of scenes over a `shape` = (n,) mesh, make_sharded_multiscene_
+    train_fn), "scene_rays" (a (S, rays) mesh,
+    make_sharded_scene_ray_train_fn) or "lockstep" (every rank runs
+    every scene, make_multiscene_train_fn)."""
+    kind: str
+    shape: Tuple[int, ...] = (1,)
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return ("scene", "rays")[:len(self.shape)]
+
+
+def _pick_loop(cfg: Config, S: int, n_ranks: int) -> Layout:
+    """The widest layout of S scenes that n ranks admit, as the JAX
+    package's `_pick_loop` picks over its devices: the scenes over all
+    ranks when n divides S; a 2-D (scene x rays) mesh when there are
+    spare ranks a scene (S < n), parallel.shard_rays is set and the
+    scene's num_pixels divide over them; one scene a rank on S ranks
+    when 1 < S < n otherwise; else the lockstep loop on every rank.
+
+    parallel.shard_rays=false keeps each scene's rays on one rank, so
+    that its trajectory stays the one-process lockstep run's."""
+    n = n_ranks
+    if n > 1 and S % n == 0:
+        logger.info(f"multiscene: {S} scenes sharded over {n} devices")
+        return Layout("scene", (n,))
+    ray_chips = n // S if S < n else 0
+    if (cfg.parallel.shard_rays and ray_chips > 1
+            and cfg.train.num_pixels % ray_chips == 0):
+        logger.info(
+            f"multiscene: 2D mesh — {S} scenes x {ray_chips} ray-chips "
+            f"each ({cfg.train.num_pixels // ray_chips} rays/chip, "
+            f"{S * ray_chips}/{n} devices)")
+        return Layout("scene_rays", (S, ray_chips))
+    if 1 < S < n:
+        logger.info(f"multiscene: {S} scenes sharded over {S}/{n} devices")
+        return Layout("scene", (S,))
+    logger.info(f"multiscene: {S} scenes vmapped on one device"
+                + (f" ({n} devices visible but {S} not divisible)"
+                   if n > 1 else ""))
+    return Layout("lockstep")
+
+
+def _loop(cfg: Config, layout: Layout, mesh: Optional[RankMesh], tx, *,
+          use_mvs: bool, n_views: int, img_res):
+    """The training loop of this rank's scenes under `layout`."""
+    kw = dict(use_mvs=use_mvs, n_views=n_views, img_res=img_res)
+    if layout.kind == "scene_rays":
+        return make_sharded_scene_ray_train_fn(cfg, tx, mesh, **kw)
+    if layout.kind == "scene":
+        return make_sharded_multiscene_train_fn(cfg, tx, mesh, **kw)
+    return make_multiscene_train_fn(cfg, tx, **kw)
 
 
 def _scene_losses(lo: LossOutput) -> List[LossOutput]:
@@ -97,7 +156,10 @@ def run_joint(trainers: List[VolTrainer], opt_stepN: int,
     state, iter_step, generator and epoch are updated in place, its
     per-step losses and seconds recorded (`losses`, `step_seconds`,
     `chunk_seconds`, `last_guard_trips`), and, with a run directory, its
-    "latest" and "epoch_<n>" checkpoints written at the end."""
+    "latest" and "epoch_<n>" checkpoints written at the end. Under a
+    process group the scenes are spread over the node's ranks
+    (`_pick_loop`; module docstring) and every trainer ends alike on
+    every rank."""
     cfg = trainers[0].cfg
     S = len(trainers)
     device = trainers[0].device
@@ -111,20 +173,46 @@ def run_joint(trainers: List[VolTrainer], opt_stepN: int,
                 f"views of {t.scene.img_res}) does not match scene "
                 f"{trainers[0].scan} ({device}, {n_views} views of "
                 f"{img_res}): lockstep training takes scenes of one shape")
+    group = node_group()
+    layout = _pick_loop(cfg, S, group.size if group is not None else 1)
+    mesh = None if layout.kind == "lockstep" else make_group(layout.shape,
+                                                             layout.axes)
+    mine = list(range(S)) if mesh is None else scene_block(mesh, S)
+    for t in trainers:
+        t.losses, t.step_seconds, t.chunk_seconds = [], [], []
+        t.last_guard_trips = 0
+    if mine:
+        _train_scenes([trainers[s] for s in mine], opt_stepN, layout, mesh,
+                      chunk_steps, log_every)
+    if mesh is not None:   # each scene from the first rank that trained it
+        firsts = mesh.ranks.reshape(mesh.shape["scene"], -1)[:, 0]
+        per = S // len(firsts)
+        for s, t in enumerate(trainers):
+            share_trainer(group, t, group.ranks.index(int(firsts[s // per])))
+    for t in trainers:
+        t.epoch += max(1, opt_stepN // max(n_views, 1))
+        t._snapshot()
+        t._snapshot(f"epoch_{t.epoch}")
+
+
+def _train_scenes(trainers: List[VolTrainer], opt_stepN: int, layout: Layout,
+                  mesh: Optional[RankMesh], chunk_steps: int,
+                  log_every: int) -> None:
+    """This rank's scenes of `run_joint`, in lockstep under `layout`."""
+    cfg = trainers[0].cfg
+    S = len(trainers)
+    n_views = len(trainers[0].trains_i)
     use_mvs = bool(cfg.use_mvs) and all(t.mvs is not None for t in trainers)
     mvs = _pack_stacked(cfg, trainers) if use_mvs else None
     state = stack_states([t.state for t in trainers])
-    run = _pick_loop(cfg, state.opt_state, S, device, use_mvs=use_mvs,
-                     n_views=n_views, img_res=img_res)
+    run = _loop(cfg, layout, mesh, state.opt_state, use_mvs=use_mvs,
+                n_views=n_views, img_res=trainers[0].scene.img_res)
     scenes = [t.scene_tensors() for t in trainers]
     gens = [t.gen for t in trainers]
 
     start = state.iter_step
     done = 0
     next_log = log_every
-    for t in trainers:
-        t.losses, t.step_seconds, t.chunk_seconds = [], [], []
-        t.last_guard_trips = 0
     logger.info(f"joint volsdf: {S} scenes, start={start} steps={opt_stepN} "
                 f"use_mvs={use_mvs}")
     while done < opt_stepN:
@@ -146,12 +234,40 @@ def run_joint(trainers: List[VolTrainer], opt_stepN: int,
                         + ",".join(f"{lo.loss:.4f}" for lo in last)
                         + " psnr=" + ",".join(f"{lo.psnr:.1f}" for lo in last))
             next_log += log_every
-
     for s, t in enumerate(trainers):
         t.take_scene(state, s)
-        t.epoch += max(1, opt_stepN // max(n_views, 1))
-        t._snapshot()
-        t._snapshot(f"epoch_{t.epoch}")
+
+
+def share_trainer(group: Group, trainer: VolTrainer, src: int) -> None:
+    """The trainer of the rank at place `src` of `group`, on every rank:
+    its parameters and Adam state (moments and counts) in place, its
+    iter_step, generator state and last run's records."""
+    params = list(trainer.state.params.parameters())
+    adam = trainer.tx.adam
+    meta = group.broadcast_object(
+        {"iter_step": trainer.state.iter_step,
+         "gen": trainer.gen.get_state(),
+         "counts": [float(adam.state[p]["step"]) if adam.state.get(p)
+                    else None for p in params],
+         "records": (trainer.losses, trainer.step_seconds,
+                     trainer.chunk_seconds, trainer.last_guard_trips)},
+        src)
+    if group.index != src:
+        for p, count in zip(params, meta["counts"]):
+            adam.state.pop(p, None)
+            if count is not None:
+                adam.state[p] = {
+                    "step": torch.tensor(count, dtype=torch.float32),
+                    "exp_avg": torch.zeros_like(p),
+                    "exp_avg_sq": torch.zeros_like(p)}
+        trainer.state.iter_step = meta["iter_step"]
+        trainer.gen.set_state(meta["gen"])
+        (trainer.losses, trainer.step_seconds, trainer.chunk_seconds,
+         trainer.last_guard_trips) = meta["records"]
+    moments = [adam.state[p][k] for p in params if adam.state.get(p)
+               for k in ("exp_avg", "exp_avg_sq")]
+    with torch.no_grad():
+        group.broadcast(params + moments, src)
 
 
 def override_groups(cfg: Config, testlist: List[str]) -> List[tuple]:
@@ -170,12 +286,13 @@ def save_depth_multiscene(cfg: Config, testlist: List[str], *,
                           mvs_weights: Optional[str] = None,
                           exps_root: str = ".", device=None
                           ) -> Dict[str, Dict]:
-    """The multi-scene counterpart of `engine.runner.save_depth`: per
-    override group, the cascade per scene, the VolSDF optimisations of
-    a stage jointly (`run_joint`), the feedback renders and the outputs
-    per scene. Runs on `device` ("cuda" by default; without a CUDA
-    device this raises rather than run on the CPU, which takes
-    device="cpu"). Returns each scan's trainer and output directory."""
+    """The multi-scene counterpart of `engine.runner.save_depth`, on the
+    scenes this node owns (`partition_scenes`): per override group, the
+    cascade per scene, the VolSDF optimisations of a stage jointly
+    (`run_joint`), the feedback renders and the outputs per scene. Runs
+    on `device` ("cuda" by default; without a CUDA device this raises
+    rather than run on the CPU, which takes device="cpu"). Returns each
+    scan's trainer and output directory."""
     from s_volsdf_tpu_torch.engine.runner import (MVSEngine,
                                                   accumulate_stage,
                                                   feedback_depths,
@@ -183,7 +300,7 @@ def save_depth_multiscene(cfg: Config, testlist: List[str], *,
                                                   save_scene_outputs,
                                                   setup_scene)
     dev = resolve_device(device, "save_depth_multiscene")
-    groups = override_groups(cfg, testlist)
+    groups = override_groups(cfg, partition_scenes(testlist))
     if len(groups) > 1:
         logger.info(f"multiscene: {len(groups)} override groups "
                     f"{[len(scans) for _, scans in groups]}")
@@ -213,7 +330,8 @@ def save_depth_multiscene(cfg: Config, testlist: List[str], *,
             for sc, (outs, extras) in zip(scs, stage_outs):
                 accumulate_stage(sc, outs, extras, stage_idx)
         for scan, sc in zip(scans, scs):
-            save_scene_outputs(sc)
+            if is_writer():
+                save_scene_outputs(sc)
             logger.info(f"scene {scan}: outputs saved to {sc['outdir']}")
             results[scan] = {"trainer": sc["trainer"],
                              "outdir": sc["outdir"]}

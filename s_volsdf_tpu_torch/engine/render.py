@@ -17,8 +17,16 @@ arithmetic runs in full float32 on the card
 (model.with_background) the sweeps are unclamped (bounding sphere 0),
 `render_depth` drops the sampler's last column (the sphere's exit), and
 `render_image` renders through `models.network_bg.render_rays_bg` with
-the nearest training view's directions. The JAX package's `mesh=`
-sharding of the rays has no counterpart: the port renders on one card.
+the nearest training view's directions.
+
+With `group` (parallel.mesh.eval_group; the JAX package's `mesh=`) each
+chunk's rays are split over the group's ranks, each rank renders its
+rows, and the rows are gathered, so every rank returns the whole image.
+The sampler's global early exit tests every rank's rows of the chunk
+(`ray_group`), so the sharded render takes the unsharded one's
+iterations; the eval sampler's only draw, the eikonal index, feeds no
+output. A chunk with fewer rays than ranks is rendered whole on every
+rank.
 """
 
 from __future__ import annotations
@@ -41,8 +49,22 @@ from s_volsdf_tpu_torch.utils.cameras import (depth_scale_factor,
 from s_volsdf_tpu_torch.utils.device import full_float32
 
 
+def _rows_of(fn, uv: torch.Tensor, group) -> Dict[str, torch.Tensor]:
+    """fn(uv rows, ray_group) -> {name: (rows, ...)} over the whole chunk
+    of rays uv (n, 2), as (n, C) tensors: with `group`, over this rank's
+    rows, the ranks' rows gathered; without, over all n rows."""
+    n = uv.shape[0]
+    if group is None or n < group.size:
+        return {k: v.reshape(n, -1) for k, v in fn(uv, None).items()}
+    start, stop = group.rows(n)
+    out = fn(uv[start:stop], group)
+    return {k: group.gather_rows(v.reshape(stop - start, -1), start, n)
+            for k, v in out.items()}
+
+
 def _depth_chunk(params: VolSDFParams, uv, pose, intrinsics, gen, sdf_fn, *,
-                 cfg: ModelConfig, fast: int) -> Dict[str, torch.Tensor]:
+                 cfg: ModelConfig, fast: int,
+                 ray_group=None) -> Dict[str, torch.Tensor]:
     """Depth and accumulated weight of uv (B, N, 2); skips the radiance
     MLP and the normals. sdf_fn: `sampler_sdf_fn` of the params."""
     ray_dirs, cam_loc = get_camera_params(uv, pose, intrinsics)
@@ -58,7 +80,7 @@ def _depth_chunk(params: VolSDFParams, uv, pose, intrinsics, gen, sdf_fn, *,
     s_out = error_bound_sample(
         gen, cfg.sampler, ray_dirs, cam_loc, sdf_fn, beta0,
         n_iters=n_iters, training=False,
-        scene_bounding_sphere=cfg.scene_bounding_sphere)
+        scene_bounding_sphere=cfg.scene_bounding_sphere, ray_group=ray_group)
     z_vals = s_out.z_vals
     if cfg.with_background:
         z_vals = z_vals[:, :-1]     # the last column is the sphere's exit
@@ -77,10 +99,11 @@ def _depth_chunk(params: VolSDFParams, uv, pose, intrinsics, gen, sdf_fn, *,
 def render_depth(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
                  img_res: Tuple[int, int], *, chunk: int = 16384,
                  fast: int = -1, gen: Optional[torch.Generator] = None,
-                 device=None) -> Dict[str, np.ndarray]:
+                 device=None, group=None) -> Dict[str, np.ndarray]:
     """Depth-only full-image render in fixed chunks of `chunk` pixels
     (the last one zero-padded). pose/intrinsics: (4, 4) numpy. Returns
-    host maps depth (H, W) and acc (H, W)."""
+    host maps depth (H, W) and acc (H, W). `group`: the ranks that share
+    each chunk (module docstring)."""
     check_model_ported(cfg)
     device = torch.device(device) if device is not None \
         else next(params.parameters()).device
@@ -101,8 +124,9 @@ def render_depth(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
     depth, acc = [], []
     with torch.no_grad(), full_float32():
         for i in range(0, uv.shape[0], chunk):
-            o = _depth_chunk(params, uv[i:i + chunk][None], pose_b, intr_b,
-                             gen, sdf_fn, cfg=cfg, fast=fast)
+            o = _rows_of(lambda u, g: _depth_chunk(
+                params, u[None], pose_b, intr_b, gen, sdf_fn, cfg=cfg,
+                fast=fast, ray_group=g), uv[i:i + chunk], group)
             depth.append(o["depth_values"].reshape(chunk))
             acc.append(o["acc"].reshape(chunk))
     depth = torch.cat(depth)[:n].reshape(H, W).cpu().numpy()
@@ -113,7 +137,8 @@ def render_depth(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
 def render_image(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
                  img_res: Tuple[int, int], *, chunk: int = 16384,
                  fast: int = -1, gen: Optional[torch.Generator] = None,
-                 device=None, near_pose=None) -> Dict[str, np.ndarray]:
+                 device=None, near_pose=None,
+                 group=None) -> Dict[str, np.ndarray]:
     """Full-image render in chunks of `chunk` rays (the last one
     ragged; rays are independent, so the chunk does not change the
     values). pose/intrinsics: (4, 4) numpy. Returns host maps rgb
@@ -121,7 +146,8 @@ def render_image(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
     grid is x = column, y = row. With cfg.with_background the
     background model renders (`render_rays_bg`, the foreground
     unclamped) with the view directions of `near_pose` (4, 4), the
-    nearest training view's camera, or of `pose` itself when None."""
+    nearest training view's camera, or of `pose` itself when None.
+    `group`: the ranks that share each chunk (module docstring)."""
     check_model_ported(cfg)
     device = torch.device(device) if device is not None \
         else next(params.parameters()).device
@@ -147,11 +173,15 @@ def render_image(params: VolSDFParams, cfg: ModelConfig, pose, intrinsics,
     keys = ("rgb_values", "depth_values", "normal_map", "acc")
     outs = {k: [] for k in keys}
     with torch.no_grad(), full_float32():
+        def rows(u, g):
+            o = render(params, cfg, u[None], pose_b, intr_b, gen,
+                       training=False, fast=fast, sdf_fn=sdf_fn, ray_group=g)
+            return {k: getattr(o, k).detach() for k in keys}
+
         for i in range(0, uv.shape[0], chunk):
-            o = render(params, cfg, uv[i:i + chunk][None], pose_b, intr_b,
-                       gen, training=False, fast=fast, sdf_fn=sdf_fn)
+            o = _rows_of(rows, uv[i:i + chunk], group)
             for k in keys:
-                outs[k].append(getattr(o, k).detach())
+                outs[k].append(o[k])
             del o
     cat = {k: torch.cat(v).cpu().numpy() for k, v in outs.items()}
     return {"rgb": cat["rgb_values"].reshape(H, W, 3),

@@ -17,10 +17,21 @@ save_scene_depth, per scene:
       the cam files and the images/ copy.
 
 pcd_filter then fuses each scene's depth maps into its point cloud
-(engine/fusion.py). Serial over reference views and scenes on one
-device. The trainer writes its run directory and checkpoints under
+(engine/fusion.py), over `cfg.num_worker` processes when there are
+several scenes (`parallel.multihost.map_scenes_host_pool`). The trainer
+writes its run directory and checkpoints under
 {exps_root}/{exps_folder} and, with is_continue, resumes from the
 newest.
+
+Under a process group (parallel/) the scenes are partitioned over the
+nodes (`partition_scenes`), and the node's ranks run each of its scenes
+together: with as many ranks as reference views (and views of one
+shape) each stage runs one view a rank, and every rank then holds every
+view's outputs, since each rank's cost mapping reads all the volumes
+(`_view_group`; the JAX package's `_view_mesh`); the trainer shards
+its rays and the feedback renders theirs. The node's first rank alone
+writes the depth maps, their PNGs, the cams and images and the point
+cloud.
 """
 
 from __future__ import annotations
@@ -55,6 +66,9 @@ from s_volsdf_tpu_torch.models.mvs.ucsnet import (init_ucsnet,
                                                   ucsnet_features,
                                                   ucsnet_stage)
 from s_volsdf_tpu_torch.ops.fused_sdf import fused_sdf_values
+from s_volsdf_tpu_torch.parallel.mesh import is_writer, node_group
+from s_volsdf_tpu_torch.parallel.multihost import (map_scenes_host_pool,
+                                                   partition_scenes)
 from s_volsdf_tpu_torch.utils.device import full_float32, resolve_device
 from s_volsdf_tpu_torch.utils.viz import visualize_depth
 
@@ -166,7 +180,8 @@ def setup_scene(cfg: Config, scene_name: str, *, exps_root: str = ".",
     validate_config(cfg)
     outdir = os.path.join(exps_root, cfg.outdir)
     os.makedirs(os.path.join(outdir, scene_name), exist_ok=True)
-    save_config(cfg, os.path.join(outdir, scene_name, "args.yaml"))
+    if is_writer():
+        save_config(cfg, os.path.join(outdir, scene_name, "args.yaml"))
 
     trains_i = get_trains_ids(cfg.dataset.data_dir, scene_name, cfg.num_view)
     mvs_datapath = os.path.join(cfg.data_dir_root, cfg.dataset.data_dir,
@@ -193,12 +208,36 @@ def setup_scene(cfg: Config, scene_name: str, *, exps_root: str = ".",
             "feedback_seconds": [], "feedback_launches": []}
 
 
+def _view_group(cfg: Config, n_views: int):
+    """The node's ranks when they run a stage one reference view a rank
+    (rank v of the node view v), or None for the serial loop
+    (counterpart of the JAX package's `_view_mesh`): gated by
+    parallel.shard_mvs_views (None follows shard_eval) and more than one
+    view, and it needs a rank a view: a partial split would change what
+    each card holds, which the cascade is sized for. With fewer ranks
+    than views it logs a warning and the stage runs serially on every
+    rank."""
+    on = cfg.parallel.shard_mvs_views
+    if on is None:
+        on = cfg.parallel.shard_eval
+    group = node_group()
+    if not on or n_views <= 1 or group is None:
+        return None
+    if group.size < n_views:
+        logger.warning(f"parallel.shard_mvs_views: {group.size} ranks for "
+                       f"{n_views} views; the cascade runs serially")
+        return None
+    return group
+
+
 def run_mvs_stage(cfg: Config, engine: MVSEngine, sc: Dict,
                   stage_idx: int) -> Tuple[List[Dict], List]:
     """One cascade stage over a scene's reference views; returns each
     view's outputs and its `extra` for the next stage. The 2D maps
     (depth, photometric_confidence) come back to the host; the volumes
-    (prob_volume, depth_values) and the extras stay on the device.
+    (prob_volume, depth_values) and the extras stay on the device. With
+    a `_view_group`, rank v runs view v and broadcasts its outputs and
+    extra to every rank of the node.
 
     Records the stage's seconds in sc["stage_seconds"] and, on a CUDA
     device, its peak allocated bytes in sc["stage_peak_bytes"] (this
@@ -212,9 +251,15 @@ def run_mvs_stage(cfg: Config, engine: MVSEngine, sc: Dict,
         imgs_all = np.stack([s.imgs[0] for s in samples])
         sc["feat_cache"] = engine.scene_feature_cache(imgs_all)
     inv = cfg.inverse_depth and stage_idx == 0
+    hws = {tuple(s.imgs.shape[1:3]) for s in samples}
+    group = _view_group(cfg, len(samples)) if len(hws) == 1 else None
     outs: List[Dict] = []
     extras: List = []
     for i, s in enumerate(samples):
+        if group is not None and group.index != i:
+            outs.append(None)
+            extras.append(None)
+            continue
         feats = engine.sample_features(
             sc["feat_cache"], [sc["trains_i"].index(v) for v in s.view_ids])
         prev_depth = None
@@ -226,6 +271,9 @@ def run_mvs_stage(cfg: Config, engine: MVSEngine, sc: Dict,
             (s.imgs.shape[1], s.imgs.shape[2]), inverse_depth=inv)
         outs.append(out)
         extras.append(extra)
+    if group is not None:
+        for i in range(len(samples)):
+            outs[i], extras[i] = group.share((outs[i], extras[i]), i)
     # Fetch the 2D maps only after every view's stage is queued; the
     # fetch is also the device sync for the stage's time.
     for out in outs:
@@ -310,7 +358,8 @@ def save_scene_depth(cfg: Config, scene_name: str, *,
         accumulate_stage(sc, outs, extras, stage_idx)
 
     t0 = time.perf_counter()
-    save_scene_outputs(sc)
+    if is_writer():
+        save_scene_outputs(sc)
     outputs_seconds = time.perf_counter() - t0
     logger.info(f"scene {scene_name}: outputs saved to {sc['outdir']}")
     return {"trainer": trainer, "outdir": sc["outdir"], "epoch": epoch,
@@ -362,22 +411,36 @@ def save_scene_outputs(sc: Dict) -> None:
                   img, level=1)
 
 
+def _fuse_scene_task(task) -> str:
+    """One scene's fusion (module level: the host pool pickles it)."""
+    (scan_dir, ply, trains_i, conf, thres_view, filter_dist, filter_diff,
+     eval_mask_dir, device) = task
+    return filter_depth(
+        scan_dir, scan_dir, ply, trains_i, conf_thresh=conf,
+        thres_view=thres_view, filter_dist=filter_dist,
+        filter_diff=filter_diff, eval_mask_dir=eval_mask_dir,
+        device=torch.device(device))
+
+
 def pcd_filter(cfg: Config, testlist: List[str], exps_root: str = ".", *,
                device=None) -> List[str]:
     """Fuse each scene's depth maps into <outdir>/mvsnet{id:03d}_l3.ply
     (counterpart of s_volsdf_tpu/engine/runner.py:574-601), with the
     eval masks of <data_dir_root>/<data_dir>/eval_mask/<scan> when
     cfg.filter.eval_mask and that directory exists. Returns the PLY
-    paths.
+    paths of this node's scenes (`partition_scenes`).
 
-    Fusion runs on `device` ("cuda" by default), serially over the
-    scenes in this process: a forked worker cannot reuse the parent's
-    CUDA context, so cfg.num_worker does not fan out here. With one
-    process there is no scene partition across hosts either."""
+    Fusion runs on `device` ("cuda" by default), over `cfg.num_worker`
+    spawned processes when there are several scenes, each with its own
+    CUDA context on this rank's card (`map_scenes_host_pool`; serially
+    in this process otherwise). Under a process group the node's first
+    rank fuses and the others return the paths."""
     dev = resolve_device(device, "pcd_filter")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
     outdir = os.path.join(exps_root, cfg.outdir)
-    plys = []
-    for scan in testlist:
+    tasks = []
+    for scan in partition_scenes(testlist):
         trains_i = get_trains_ids(cfg.dataset.data_dir, scan, cfg.num_view)
         ply = os.path.join(outdir, f"mvsnet{int(scan[4:]):03d}_l3.ply")
         eval_mask_dir = None
@@ -385,24 +448,26 @@ def pcd_filter(cfg: Config, testlist: List[str], exps_root: str = ".", *,
             d = os.path.join(cfg.data_dir_root, cfg.dataset.data_dir,
                              "eval_mask", scan)
             eval_mask_dir = d if os.path.isdir(d) else None
-        scan_dir = os.path.join(outdir, scan)
-        plys.append(filter_depth(
-            scan_dir, scan_dir, ply, trains_i, conf_thresh=cfg.filter.conf,
-            thres_view=cfg.filter.thres_view,
-            filter_dist=cfg.filter.filter_dist,
-            filter_diff=cfg.filter.filter_diff, eval_mask_dir=eval_mask_dir,
-            device=dev))
-    return plys
+        tasks.append((os.path.join(outdir, scan), ply, trains_i,
+                      cfg.filter.conf, cfg.filter.thres_view,
+                      cfg.filter.filter_dist, cfg.filter.filter_diff,
+                      eval_mask_dir, str(dev)))
+    if not is_writer():
+        return [t[1] for t in tasks]
+    return map_scenes_host_pool(_fuse_scene_task, tasks,
+                                num_workers=cfg.num_worker)
 
 
 def save_depth(cfg: Config, testlist: List[str], *,
                mvs_weights: Optional[str] = None, exps_root: str = ".",
                device=None) -> None:
-    """Every scene of `testlist` with its per-scan overrides, sharing
-    one MVSEngine (the overrides never touch cfg.mvs), on `device`
-    ("cuda" by default; without a CUDA device this raises rather than
-    run on the CPU, which takes device="cpu")."""
+    """Every scene of `testlist` that this node owns (`partition_scenes`)
+    with its per-scan overrides, sharing one MVSEngine (the overrides
+    never touch cfg.mvs), on `device` ("cuda" by default; without a CUDA
+    device this raises rather than run on the CPU, which takes
+    device="cpu")."""
     dev = resolve_device(device, "save_depth")
+    testlist = partition_scenes(testlist)
     if not testlist:
         return
     engine = MVSEngine(cfg, weights_path=mvs_weights, device=dev)

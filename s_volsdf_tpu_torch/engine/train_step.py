@@ -29,6 +29,18 @@ parameters, its moments and its Adam count while the others step. Each
 scene draws from its own generator in the serial step's order
 (`draw_step_inputs`), so its pixels, views and sampler noise are a
 serial run's. One host sync a step reads the S guard flags.
+
+Rays sharded over a group of ranks (`group=` of `make_one_step` and
+`make_multiscene_one_step`; the counterpart of the JAX step's
+`shard_axis`): every rank draws the whole group's step from its
+generator, which is alike on every rank (the same view, pixels and
+sampler noise as one process drawing the group's rays), keeps its own
+rows (`shard_batch`), and averages the gradients and the loss statistics
+over the group (`mean_over_group`: one all_reduce each) before the
+guard, which then decides alike on every rank. Every loss term is a
+per-ray mean, so over equal shards the average is the whole batch's.
+The generator's state, which a checkpoint saves, reproduces every
+rank's draws.
 """
 
 from __future__ import annotations
@@ -336,12 +348,37 @@ def guarded_update_scenes(tx: StackedOptimizer, state: TrainState,
     return state, loss_out
 
 
+_RAY_KEYS = ("uv", "rgb", "rgb_smooth")
+
+
+def shard_batch(batch: Dict, group) -> Dict:
+    """This rank's rows of a batch of one scene's rays (`group.rows`):
+    uv, rgb and rgb_smooth (B, N, ...) along N, and the jitter feed's
+    per-ray draws along R; the view's tensors and the jitter feed's
+    column picks (extra_idx) whole."""
+    start, stop = group.rows(batch["uv"].shape[1])
+    out = dict(batch)
+    for k in _RAY_KEYS:
+        out[k] = batch[k][:, start:stop]
+    if "jitter" in batch:
+        out["jitter"] = {k: v if k == "extra_idx" else v[start:stop]
+                         for k, v in batch["jitter"].items()}
+    return out
+
+
 def sample_train_batch(scene: Dict, gen: torch.Generator, *, n_views: int,
-                       img_res: Tuple[int, int], n_rays: int) -> Dict:
-    """One step's view and pixels, drawn on the device from `gen`.
+                       img_res: Tuple[int, int], n_rays: int,
+                       group=None) -> Dict:
+    """One step's view and pixels, drawn on the device from `gen`; with
+    a `group`, the group's n_rays x size pixels drawn and this rank's
+    n_rays kept (`shard_batch`).
 
     scene: rgb, rgb_smooth (V, H*W, 3), poses, intrinsics (V, 4, 4) on
     the device."""
+    if group is not None:
+        return shard_batch(sample_train_batch(
+            scene, gen, n_views=n_views, img_res=img_res,
+            n_rays=n_rays * group.size), group)
     H, W = img_res
     dev = scene["rgb"].device
     view = torch.randint(0, n_views, (1,), generator=gen, device=dev)
@@ -362,7 +399,7 @@ def sample_train_batch(scene: Dict, gen: torch.Generator, *, n_views: int,
 
 def draw_step_inputs(scene: Dict, gen: torch.Generator, *, cfg: Config,
                      n_views: int, img_res: Tuple[int, int],
-                     n_rays: int) -> Dict:
+                     n_rays: int, group=None) -> Dict:
     """The serial training step's random draws from `gen`, in its order,
     as a batch with its jitter feed: the view and pixels
     (`sample_train_batch`), then the sampler's t_rand (R, N_samples_eval)
@@ -370,7 +407,13 @@ def draw_step_inputs(scene: Dict, gen: torch.Generator, *, cfg: Config,
     columns (its first N_samples_extra, "extra_idx"), eik_idx (R, 1),
     with a background model t_rand_bg (R, N_samples_inverse_sphere), and
     the eikonal points' U[0,1) "eik_pts" (R, 3). `train_step` on it
-    does what `one_step(gen)` does, to the bit."""
+    does what `one_step(gen)` does, to the bit. With a `group`, the
+    group's n_rays x size rays' draws, of which this rank keeps its
+    n_rays (`shard_batch`)."""
+    if group is not None:
+        return shard_batch(draw_step_inputs(
+            scene, gen, cfg=cfg, n_views=n_views, img_res=img_res,
+            n_rays=n_rays * group.size), group)
     batch = sample_train_batch(scene, gen, n_views=n_views, img_res=img_res,
                                n_rays=n_rays)
     s = cfg.model.sampler
@@ -409,20 +452,47 @@ def stack_batches(batches: List[Dict]) -> Dict:
     return out
 
 
+def mean_over_group(group, grads: List[torch.Tensor], loss_out: LossOutput
+                    ) -> Tuple[List[torch.Tensor], LossOutput]:
+    """The gradients and the loss statistics averaged over the group's
+    ranks (lax.pmean): one all_reduce of every gradient flattened into
+    one buffer, one more of the statistics."""
+    grads = group.mean_flat(grads)
+    fields = list(loss_out)
+    present = [i for i, x in enumerate(fields[:-1]) if x is not None]
+    stats = group.mean_flat([torch.stack([fields[i].detach()
+                                          for i in present])])[0]
+    for j, i in enumerate(present):
+        fields[i] = stats[j]
+    return grads, LossOutput(*fields)
+
+
 def make_one_step(cfg: Config, tx: Optimizer, *, use_mvs: bool, n_views: int,
-                  img_res: Tuple[int, int], n_rays: Optional[int] = None):
+                  img_res: Tuple[int, int], n_rays: Optional[int] = None,
+                  group=None):
     """The trainer's step: sample pixels on the device, grad, guard,
-    update."""
+    update. With a `group` (parallel.mesh.Group), `n_rays` is this
+    rank's share: the step draws the group's rays and their noise
+    (`draw_step_inputs`), keeps this rank's, and averages the gradients
+    and loss statistics over the group before the guard
+    (`mean_over_group`)."""
     check_ported(cfg)
     n_rays = n_rays if n_rays is not None else cfg.train.num_pixels
 
     def one_step(scene: Dict, mvs: Optional[MVSVolumes], state: TrainState,
                  gen: torch.Generator) -> Tuple[TrainState, LossOutput]:
-        batch = sample_train_batch(scene, gen, n_views=n_views,
-                                   img_res=img_res, n_rays=n_rays)
-        grads, loss_out = loss_and_grads(
-            state.params, cfg, batch, gen, mvs if use_mvs else None,
-            state.iter_step)
+        mvs_in = mvs if use_mvs else None
+        if group is None:
+            batch = sample_train_batch(scene, gen, n_views=n_views,
+                                       img_res=img_res, n_rays=n_rays)
+            grads, loss_out = loss_and_grads(state.params, cfg, batch, gen,
+                                             mvs_in, state.iter_step)
+        else:
+            batch = draw_step_inputs(scene, gen, cfg=cfg, n_views=n_views,
+                                     img_res=img_res, n_rays=n_rays,
+                                     group=group)
+            grads, loss_out = mean_over_group(group, *loss_and_grads(
+                state.params, cfg, batch, None, mvs_in, state.iter_step))
         return guarded_update(tx, state, grads, loss_out)
 
     return one_step
@@ -431,10 +501,12 @@ def make_one_step(cfg: Config, tx: Optimizer, *, use_mvs: bool, n_views: int,
 def make_multiscene_one_step(cfg: Config, tx: StackedOptimizer, *,
                              use_mvs: bool, n_views: int,
                              img_res: Tuple[int, int],
-                             n_rays: Optional[int] = None):
+                             n_rays: Optional[int] = None, group=None):
     """The lockstep step of S scenes: each scene's draws from its own
     generator (`draw_step_inputs`), the stacked render, the per-scene
-    loss and its gradients, the per-scene guard, clip and Adam."""
+    loss and its gradients, the per-scene guard, clip and Adam. With a
+    `group`, each scene's rays are sharded over it as in `make_one_step`
+    (`n_rays` this rank's share)."""
     check_ported(cfg)
     n_rays = n_rays if n_rays is not None else cfg.train.num_pixels
 
@@ -443,11 +515,13 @@ def make_multiscene_one_step(cfg: Config, tx: StackedOptimizer, *,
                  ) -> Tuple[TrainState, LossOutput]:
         batch = stack_batches([
             draw_step_inputs(sc, g, cfg=cfg, n_views=n_views,
-                             img_res=img_res, n_rays=n_rays)
+                             img_res=img_res, n_rays=n_rays, group=group)
             for sc, g in zip(scenes, gens)])
         grads, loss_out = loss_and_grads(
             state.params, cfg, batch, None, mvs if use_mvs else None,
             state.iter_step)
+        if group is not None:
+            grads, loss_out = mean_over_group(group, grads, loss_out)
         return guarded_update_scenes(tx, state, grads, loss_out)
 
     return one_step

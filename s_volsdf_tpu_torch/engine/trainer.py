@@ -25,6 +25,17 @@ states as one stacked state (`stack_states`) through
 `make_multiscene_train_fn`'s loop, each scene drawing from its own
 trainer's generator, and hands each trainer its scene back
 (`VolTrainer.take_scene`).
+
+Under a process group (parallel/), every rank of the node holds the
+trainer and runs the same program. With parallel.shard_rays and more
+than one rank the loop is the ray-sharded one
+(parallel.train_parallel.make_sharded_scan_train_fn; a num_pixels that
+the ranks do not divide logs a warning and runs the single-rank loop, as
+the JAX trainer does); the renders shard their rays over
+`parallel.mesh.eval_group`. Only the node's first rank writes the run
+directory, its checkpoints, plots and TensorBoard logs. A sharded run's
+checkpoint is a one-process run's: the replicas are equal and the one
+generator they share reproduces every rank's draws.
 """
 
 from __future__ import annotations
@@ -56,6 +67,8 @@ from s_volsdf_tpu_torch.models.network import (init_volsdf_params,
                                                stack_params)
 from s_volsdf_tpu_torch.models.network_bg import init_volsdf_bg_params
 from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
+from s_volsdf_tpu_torch.parallel.mesh import (eval_group, is_writer,
+                                              make_group, node_group)
 from s_volsdf_tpu_torch.utils import checkpoint as ckpt
 from s_volsdf_tpu_torch.utils.tracing import PhaseTimer, TBWriter
 from s_volsdf_tpu_torch.utils.viz import stacked_panel
@@ -64,13 +77,16 @@ logger = logging.getLogger("s_volsdf_tpu_torch")
 
 
 def make_scan_train_fn(cfg: Config, tx: Optimizer, *, use_mvs: bool,
-                       n_views: int, img_res: Tuple[int, int]):
+                       n_views: int, img_res: Tuple[int, int],
+                       n_rays: Optional[int] = None, group=None):
     """A function running `n_steps` optimisation steps with on-device
     pixel sampling; returns the state, each step's LossOutput and each
     step's host seconds (a step ends in the NaN guard's host sync, so
-    that is its device time plus host overhead)."""
+    that is its device time plus host overhead). `n_rays` and `group`:
+    the rays sharded over a group of ranks (`make_one_step`;
+    parallel.train_parallel.make_sharded_scan_train_fn)."""
     one_step = make_one_step(cfg, tx, use_mvs=use_mvs, n_views=n_views,
-                             img_res=img_res)
+                             img_res=img_res, n_rays=n_rays, group=group)
 
     def run_chunk(state: TrainState, n_steps: int, scene: Dict,
                   mvs: Optional[MVSVolumes], gen: torch.Generator
@@ -83,21 +99,26 @@ def make_scan_train_fn(cfg: Config, tx: Optimizer, *, use_mvs: bool,
             losses.append(lo)
         return state, losses, seconds
 
+    run_chunk.group = group
     return run_chunk
 
 
 def make_multiscene_train_fn(cfg: Config, tx: StackedOptimizer, *,
                              use_mvs: bool, n_views: int,
-                             img_res: Tuple[int, int]):
+                             img_res: Tuple[int, int],
+                             n_rays: Optional[int] = None, group=None):
     """`make_scan_train_fn` for S scenes in lockstep (counterpart of
     s_volsdf_tpu/engine/trainer.py:80-115, which vmaps the scan over a
     leading scene axis): a function running `n_steps` lockstep steps of
     a stacked state (`stack_states`) on the S scenes' tensors
     (`VolTrainer.scene_tensors`) and SceneVolumes, each scene drawing
     from its own generator; returns the state, each step's LossOutput
-    ((S,) fields) and each step's host seconds."""
+    ((S,) fields) and each step's host seconds. `n_rays` and `group`:
+    each scene's rays sharded over a group of ranks
+    (`make_multiscene_one_step`)."""
     one_step = make_multiscene_one_step(cfg, tx, use_mvs=use_mvs,
-                                        n_views=n_views, img_res=img_res)
+                                        n_views=n_views, img_res=img_res,
+                                        n_rays=n_rays, group=group)
 
     def run_chunk(state: TrainState, n_steps: int, scenes: List[Dict],
                   mvs, gens: List[torch.Generator]
@@ -151,6 +172,7 @@ class VolTrainer:
         self.device = torch.device(device)
         self.chunk_steps = chunk_steps
         self.stg = 2        # the cascade stage whose volumes are loaded
+        self.writer = is_writer()   # this rank writes the run's files
         self.rundir = self.plots_dir = self.checkpoints_path = None
         if exps_root is not None:
             self._make_run_dir(exps_root, is_continue)
@@ -173,8 +195,8 @@ class VolTrainer:
         self.chunk_seconds: List[float] = []  # each chunk of the last run
         self.step_seconds: List[float] = []   # each step of the last run
         self.last_guard_trips = 0   # steps the NaN guard skipped, last run
-        self.tb = TBWriter(self.plots_dir and os.path.join(self.plots_dir,
-                                                           "logs"))
+        self.tb = TBWriter(self.plots_dir and self.writer
+                           and os.path.join(self.plots_dir, "logs"))
         self.timer = PhaseTimer()
 
     def _make_run_dir(self, exps_root: str, is_continue: bool) -> None:
@@ -188,6 +210,8 @@ class VolTrainer:
         self.rundir = os.path.join(expdir, timestamp)
         self.plots_dir = os.path.join(self.rundir, "plots")
         self.checkpoints_path = os.path.join(self.rundir, "checkpoints")
+        if not self.writer:
+            return
         os.makedirs(self.plots_dir, exist_ok=True)
         os.makedirs(self.checkpoints_path, exist_ok=True)
         save_config(self.cfg, os.path.join(self.rundir, "run.yaml"))
@@ -197,11 +221,14 @@ class VolTrainer:
     def save_checkpoint(self, label: str = "latest") -> str:
         """Write checkpoints/<label>: the state in the JAX TrainState's
         leaf order, the generator's state beside it (`torch_gen`, which
-        JAX does not read) and the epoch. Returns its directory."""
+        JAX does not read) and the epoch. Returns its directory. On a
+        rank other than the node's first this writes nothing."""
         if self.checkpoints_path is None:
             raise RuntimeError("save_checkpoint: the trainer has no run "
                                "directory (exps_root)")
         path = os.path.join(self.checkpoints_path, label)
+        if not self.writer:
+            return path
         ckpt.save_state(path, ckpt.train_state_leaves(self.state),
                         backend=self.cfg.train.ckpt_backend,
                         extras={"torch_gen": self.gen.get_state().numpy()},
@@ -229,8 +256,14 @@ class VolTrainer:
         logger.info(f"resumed from {path} at step {self.state.iter_step}")
 
     def _snapshot(self, label: str = "latest") -> None:
+        """The checkpoint of the schedule; under a process group every
+        rank waits until the first has written it, so that none reads a
+        checkpoint in the making."""
         if self.checkpoints_path is not None:
             self.save_checkpoint(label)
+            group = node_group()
+            if group is not None:
+                group.barrier()
 
     def get_mvs_input(self, outs: List[Dict]) -> MVSVolumes:
         """Stack the cascade's per-view prob volumes and hypothesis slabs
@@ -274,9 +307,31 @@ class VolTrainer:
         self.state.iter_step = stacked.iter_step
 
     def _get_loop(self, use_mvs: bool):
-        return make_scan_train_fn(self.cfg, self.tx, use_mvs=use_mvs,
-                                  n_views=len(self.trains_i),
-                                  img_res=self.scene.img_res)
+        """The single-rank loop, or the ray-sharded one when
+        parallel.shard_rays is set and the mesh's first axis holds more
+        than one rank (counterpart of the JAX trainer's `_build_loop`).
+        Both take (state, n_steps, scene, mvs, gen)."""
+        cfg, pcfg = self.cfg, self.cfg.parallel
+        mesh = make_group(pcfg.mesh_shape, pcfg.mesh_axes)
+        kw = dict(use_mvs=use_mvs, n_views=len(self.trains_i),
+                  img_res=self.scene.img_res)
+        if (pcfg.shard_rays and mesh is not None and mesh.size > 1
+                and mesh.coords is not None):
+            axis = pcfg.mesh_axes[0]
+            n = mesh.shape[axis]
+            if cfg.train.num_pixels % n == 0:
+                from s_volsdf_tpu_torch.parallel.train_parallel import (
+                    make_sharded_scan_train_fn)
+                logger.info(f"ray-sharded training over {n} ranks "
+                            f"({cfg.train.num_pixels} rays/step, "
+                            f"{cfg.train.num_pixels // n} per rank)")
+                return make_sharded_scan_train_fn(
+                    cfg, self.tx, mesh.group(axis), axis=axis, **kw)
+            logger.warning(
+                f"parallel.shard_rays set but train.num_pixels="
+                f"{cfg.train.num_pixels} is not divisible by {n} "
+                f"devices; falling back to single-device loop")
+        return make_scan_train_fn(cfg, self.tx, **kw)
 
     def run(self, opt_stepN: int, log_every: int = 1000) -> int:
         """Optimise for opt_stepN steps; returns the epoch counter (an
@@ -354,6 +409,8 @@ class VolTrainer:
         vid = eval_ids[0] if eval_ids else self.trains_i[0]
         with self.timer.phase("plot_render"):
             maps = self.render_view(vid, res_scale=0.25, fast=-1)
+        if not self.writer:
+            return
         H4, W4 = maps["rgb"].shape[:2]
         gt = self.scene.rgb[vid].reshape(*self.scene.img_res, 3)
         gt4 = gt[::4, ::4][:H4, :W4]
@@ -379,7 +436,8 @@ class VolTrainer:
         return render_image(self.state.params, self.cfg.model,
                             self.scene.poses[view_idx], intr, out_res,
                             chunk=16384, fast=fast, device=self.device,
-                            near_pose=self.scene.near_pose(view_idx))
+                            near_pose=self.scene.near_pose(view_idx),
+                            group=eval_group(self.cfg.parallel, 16384))
 
     def render_mvs(self, view_idx: int, res_scale: float = 1.0,
                    chunk: int = 16384) -> np.ndarray:
@@ -400,7 +458,8 @@ class VolTrainer:
         with self.timer.phase("render_mvs"):
             maps = render_depth(self.state.params, mcfg,
                                 self.scene.poses[view_idx], intr, out_res,
-                                fast=-1, chunk=chunk, device=self.device)
+                                fast=-1, chunk=chunk, device=self.device,
+                                group=eval_group(self.cfg.parallel, chunk))
         depth = maps["depth"] * self.scale_factor
         far = depth.max()
         depth = np.where(maps["acc"] < 0.2, far, depth)

@@ -313,13 +313,15 @@ def check_scenes(params: VolSDFParams, B: int, *, training: bool,
 
 def render_rays(params: VolSDFParams, cfg: ModelConfig, uv, pose, intrinsics,
                 gen: Optional[torch.Generator], *, training: bool, fast: int,
-                jitter=None, sdf_fn=None) -> RenderOutput:
+                jitter=None, sdf_fn=None, ray_group=None) -> RenderOutput:
     """VolSDF forward for uv (B, N, 2), pose/intrinsics (B, 4, 4); rays
     are flattened to R = B*N. fast: sampler iterations, -1 for
     cfg.sampler.max_total_iters. jitter: the sampler feed plus "eik_pts"
     (R, 3) U[0,1) for the uniform eikonal points. sdf_fn: the sampler's
     sweep (`sampler_sdf_fn` of these parameters, made once for many
-    calls, as a render does); made here when None."""
+    calls, as a render does); made here when None. ray_group: the ranks
+    holding the other rows of a sharded render's rays (the sampler's
+    early exit tests them all)."""
     check_model_ported(cfg)
     bounding_sphere = 0.0 if cfg.white_bkgd else cfg.scene_bounding_sphere
     ray_dirs, cam_loc = get_camera_params(uv, pose, intrinsics)
@@ -341,7 +343,8 @@ def render_rays(params: VolSDFParams, cfg: ModelConfig, uv, pose, intrinsics,
             gen, cfg.sampler, ray_dirs, cam_loc,
             sdf_fn or sampler_sdf_fn(params, cfg, bounding_sphere), beta0,
             n_iters=n_iters, training=training,
-            scene_bounding_sphere=cfg.scene_bounding_sphere, jitter=jitter)
+            scene_bounding_sphere=cfg.scene_bounding_sphere, jitter=jitter,
+            ray_group=ray_group)
     z_vals = s_out.z_vals
     S = z_vals.shape[1]
 

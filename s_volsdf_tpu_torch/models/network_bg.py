@@ -182,13 +182,14 @@ def _bg_volume_rendering(z_vals_bg, bg_density):
 def render_rays_bg(params: VolSDFBGParams, cfg: ModelConfig, uv, pose,
                    intrinsics, gen: Optional[torch.Generator], *,
                    training: bool, fast: int, near_pose=None, jitter=None,
-                   sdf_fn=None) -> BGRenderOutput:
+                   sdf_fn=None, ray_group=None) -> BGRenderOutput:
     """VolSDF with the background model for uv (B, N, 2), pose and
     intrinsics (B, 4, 4). jitter: the sampler's feed (with "t_rand_bg")
     plus "eik_pts" (R, 3) U[0,1). near_pose (B, 4, 4): at eval, the view
     directions of the foreground and background colour MLPs are that
     camera's rays through the same pixels. sdf_fn: the sampler's sweep
-    (`sampler_sdf_fn(params, cfg, 0.0)`), made here when None."""
+    (`sampler_sdf_fn(params, cfg, 0.0)`), made here when None.
+    ray_group: as `network.render_rays`'s."""
     check_model_ported(cfg)
     ray_dirs, cam_loc = get_camera_params(uv, pose, intrinsics)
     depth_scale = depth_scale_factor(uv, intrinsics)
@@ -209,7 +210,8 @@ def render_rays_bg(params: VolSDFBGParams, cfg: ModelConfig, uv, pose,
             gen, cfg.sampler, ray_dirs, cam_loc,
             sdf_fn or sampler_sdf_fn(params, cfg, 0.0), beta0,
             n_iters=n_iters, training=training,
-            scene_bounding_sphere=cfg.scene_bounding_sphere, jitter=jitter)
+            scene_bounding_sphere=cfg.scene_bounding_sphere, jitter=jitter,
+            ray_group=ray_group)
 
     z_vals = s_out.z_vals
     z_max = z_vals[:, -1]

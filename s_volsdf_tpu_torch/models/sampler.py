@@ -132,7 +132,7 @@ def _weights(z_vals, sdf, beta):
 def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
                        sdf_fn, beta0, *, n_iters: int, training: bool,
                        scene_bounding_sphere: float,
-                       jitter=None) -> SamplerOutput:
+                       jitter=None, ray_group=None) -> SamplerOutput:
     """ErrorBoundSampler.get_z_vals with the static iteration schedule.
 
     sdf_fn: points (M, 3) -> sdf (M,), no gradient needed.
@@ -149,6 +149,9 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
       U[0,1) — the JAX package's seam, plus the background draw that its
       seam leaves to the key; defined for the training fast=1 path.
     gen: torch.Generator for the draws that `jitter` does not replace.
+    ray_group: the group of ranks that holds the other rows of these
+      rays (a sharded render, parallel.mesh.Group): the global early
+      exit then tests every rank's rays, as one process would.
 
     With cfg.inverse_sphere_bg (a background model), the uniform samples
     end at the bounding sphere's exit (pinned to >= near), the final far
@@ -212,7 +215,10 @@ def error_bound_sample(gen, cfg: RaySamplerConfig, ray_dirs, cam_loc,
         beta = bisect_beta(z_vals, sdf, beta_in, d_star, dists)
         _, _, transmittance = _weights(z_vals, sdf, beta[:, None])
         # One host sync: every ray's bisected beta is at beta0.
-        converged = bool((torch.max(beta) <= beta0).item())
+        top = torch.max(beta)
+        if ray_group is not None:
+            top = ray_group.max(top)
+        converged = bool((top <= beta0).item())
         if converged:
             z2, s2 = dup(z_vals, sdf)
             return z2, s2, beta, True

@@ -87,14 +87,15 @@ def test_bmvs_preset_refused_when_run():
         tconfig.check_ported(cfg)
 
 
-@pytest.mark.parametrize("key", ["parallel.mesh_shape=[2]",
-                                 "parallel.shard_rays=false",
-                                 "parallel.mesh_axes=[rays]",
-                                 "parallel.shard_eval=false",
-                                 "parallel.shard_mvs_views=true"])
+@pytest.mark.parametrize("key", ["parallel.mesh_size=[2]",
+                                 "parallel.shard_ray=false",
+                                 "parallel.axes=[rays]",
+                                 "sharding.shard_eval=false",
+                                 "train.shard_mvs_views=true"])
 def test_unknown_override_raises(key):
     """A key or section the port lacks raises, naming it; it is never
-    dropped."""
+    dropped. (The parallel section itself is ported:
+    tests/test_torch_parallel.py parses its keys.)"""
     name = key.partition("=")[0]
     with pytest.raises(ValueError, match=name.split(".")[0]):
         tconfig.load_config("dtu", overrides=[key])

@@ -712,3 +712,78 @@ def test_lockstep_tracks_serial_on_card(cuda):
     for a, b in zip(serial, joint):
         np.testing.assert_allclose([lo.loss for lo in b.losses],
                                    [lo.loss for lo in a.losses], rtol=1e-4)
+
+
+def _small_sharded_setup(device):
+    """A float32 trainer of a small model on a 96x128 sphere scene with
+    informative volumes, their kernel copy, and a drawn batch of 128
+    rays: (config, trainer, volumes, batch)."""
+    from s_volsdf_tpu_torch.engine.train_step import (draw_step_inputs,
+                                                      pack_for_chunk)
+    cfg = chip_smoke.float32_dtu_config()
+    cfg.model.implicit.dims = (64,) * 4
+    cfg.model.implicit.skip_in = (2,)
+    cfg.train.num_pixels = 128
+    t = chip_smoke.make_trainer(cfg, (96, 128), (32, 24, 32), device)
+    mvs = pack_for_chunk(cfg, t.mvs)
+    batch = draw_step_inputs(t.scene_tensors(),
+                             torch.Generator(device=device).manual_seed(5),
+                             cfg=cfg, n_views=3, img_res=(96, 128),
+                             n_rays=cfg.train.num_pixels)
+    return cfg, t, mvs, batch
+
+
+def test_one_nccl_rank_step_equals_train_step(cuda, tmp_path):
+    """With one NCCL rank every collective is the identity: the sharded
+    step equals train_step to the bit."""
+    from s_volsdf_tpu_torch.engine.train_step import shard_batch, train_step
+    from s_volsdf_tpu_torch.parallel import mesh as pmesh
+    from s_volsdf_tpu_torch.parallel.train_parallel import (
+        make_sharded_train_step)
+    pmesh.init_process_group(
+        "cuda", init_method="file://" + str(tmp_path / "store"),
+        env={"WORLD_SIZE": "1", "RANK": "0"})
+    try:
+        group = pmesh.node_group()
+        cfg, a, mvs, batch = _small_sharded_setup(cuda)
+        _, b, _, _ = _small_sharded_setup(cuda)
+        _, la = train_step(a.state, batch, None, mvs, cfg=cfg, tx=a.tx,
+                           use_mvs=True)
+        step = make_sharded_train_step(cfg, b.tx, group, use_mvs=True)
+        _, lb = step(b.state, shard_batch(batch, group), None, mvs)
+        assert float(la.loss) == float(lb.loss)
+        for p, q in zip(a.state.params.parameters(),
+                        b.state.params.parameters()):
+            assert torch.equal(p, q)
+    finally:
+        pmesh.shutdown()
+
+
+def _gloo_pair_step():
+    """Each of two gloo ranks on one card: the sharded step's averaged
+    gradients and, on the first rank, the one-process step's."""
+    from s_volsdf_tpu_torch.engine.train_step import (loss_and_grads,
+                                                      mean_over_group,
+                                                      shard_batch)
+    from s_volsdf_tpu_torch.parallel import mesh as pmesh
+    group = pmesh.node_group()
+    cfg, t, mvs, batch = _small_sharded_setup(pmesh.rank_device())
+    grads, lo = mean_over_group(group, *loss_and_grads(
+        t.state.params, cfg, shard_batch(batch, group), None, mvs, 0))
+    want, wlo = loss_and_grads(t.state.params, cfg, batch, None, mvs, 0)
+    return {"loss": float(lo.loss), "want_loss": float(wlo.loss.detach()),
+            "grads": [g.cpu().numpy() for g in grads],
+            "want": [w.cpu().numpy() for w in want]}
+
+
+def test_two_gloo_ranks_on_card_match_one_process(cuda):
+    """Two gloo ranks sharing the card: the sharded step's gradients and
+    loss against the one-process step within the one-step bars of
+    tests/test_torch_train_step.py; equal on both ranks."""
+    from s_volsdf_tpu_torch.parallel import mesh as pmesh
+    r0, r1 = pmesh.run_local_ranks(_gloo_pair_step, 2, device="cuda:0",
+                                   backend="gloo", timeout=300)
+    np.testing.assert_allclose(r0["loss"], r0["want_loss"], rtol=1e-4)
+    for g0, g1, w in zip(r0["grads"], r1["grads"], r0["want"]):
+        np.testing.assert_array_equal(g0, g1)
+        np.testing.assert_allclose(g0, w, rtol=1e-3, atol=1e-5)
