@@ -204,13 +204,43 @@ checks it, in phases that print in order:
      view a rank within 1e-5 of one process, ray-sharded training, each
      PFM, PNG and PLY written once with finite depths. Each group of
      spawned ranks has a join timeout;
+ 15. (run before 10's results) the repository's tools without JAX: (a)
+     the reference's checkpoints converted on this machine: CasMVSNet,
+     UCSNet and TransMVSNet at the dtu widths from seed 0 (He-gain convs,
+     random DCN offset convs), LPIPS and the dtu VolSDF field from seed 0,
+     each written by `data.fixtures.reference_state_dict` in the
+     reference's key names and layouts and saved with torch.save
+     ({"epoch", "model", "optimizer"}; VolSDF as a bare state dict in
+     both weight-norm key styles), converted by `python -m
+     s_volsdf_tpu_torch.tools.convert_ckpt` in processes where `import
+     jax` fails, all at once; the VolSDF fields loaded
+     (`bridge.load_volsdf_checkpoint`; every leaf equal to the source)
+     and the fused SDF kernel on them against its plain version at
+     65,536 points (1e-4); each cascade loaded by `MVSEngine(weights_path=)`
+     on the card (every leaf equal to the source) and on the CPU, stage 0
+     of a 64x96 fixture's first view on both (prob 1e-4, depth 1e-5
+     relative; TransMVSNet's winner-take-all and confidence; its 27
+     deform_conv launches with the converted tap-major weights); LPIPS
+     loaded on the card (leaves equal) and `eval_rendered_views` of two
+     held-out 64x96 views on the card against the CPU (1e-5); (b)
+     `tools.run_100k` at the dtu preset, full widths, 576x768, GT prior,
+     chunks of 5 steps (a checkpoint every 200): a process killed after
+     step 250 (exit code 17, no kill-site checkpoint), then `--resume` in
+     this process to 300: the replayed rows 205-250 equal the killed
+     run's in every field but chunk_s, wall, phase and card, no guard
+     trip, finite radial errors; the median chunk, the resume's set-up
+     and the feedback renders' seconds; (c) `tools.run_flagship` on that
+     run (two held-out views): fused points, finite Chamfer, PSNR and
+     SSIM, its seconds. The launches on (a)'s stages, (b)'s resume and
+     (c) are counted (the killed process's are not);
  10. a JSON line with the kernels' numbers (the fused kernel's
      `unclamped_launches`: its launches on phase 11's paths, all at
      bounding_sphere 0; both kernels' `scene_launches`, their launches
      on phase 13's paths by number of scenes, and `lockstep_launches`,
      those of more than one scene, with `scenes_*` times from 13(a);
      every kernel's `sharded_launches`, its launches on phase 14's paths
-     in this process and the spawned ranks),
+     in this process and the spawned ranks; `production_launches`, its
+     launches on phase 15's paths),
      the card's name and power limit, and the last line {"ok": true,
      "device": {...}}.
 
@@ -246,7 +276,9 @@ from typing import Dict
 import numpy as np
 import torch
 
-from s_volsdf_tpu_torch.bridge import from_jax_mvs_params, to_jax_mvs_params
+from s_volsdf_tpu_torch.bridge import (from_jax_mvs_params,
+                                       load_volsdf_checkpoint, to_jax_params,
+                                       to_jax_mvs_params)
 from s_volsdf_tpu_torch.cli import eval_bmvs as cli_eval_bmvs
 from s_volsdf_tpu_torch.cli import eval_dtu as cli_eval_dtu
 from s_volsdf_tpu_torch.cli import eval_vsdf as cli_eval_vsdf
@@ -254,7 +286,10 @@ from s_volsdf_tpu_torch.cli import ibr as cli_ibr
 from s_volsdf_tpu_torch.cli import run as cli_run
 from s_volsdf_tpu_torch.config import (Config, bmvs_config, dtu_config,
                                        load_config, per_scene_overrides)
-from s_volsdf_tpu_torch.data.fixtures import make_bmvs_fixture, make_dtu_fixture
+from s_volsdf_tpu_torch.data.fixtures import (make_bmvs_fixture,
+                                              make_dtu_fixture,
+                                              reference_checkpoint,
+                                              reference_state_dict)
 from s_volsdf_tpu_torch.data.io import (load_ply, read_img, read_pfm,
                                         save_pfm, save_ply, write_cam,
                                         write_png)
@@ -284,7 +319,8 @@ from s_volsdf_tpu_torch.engine.train_step import (draw_step_inputs,
                                                   training_model_config)
 from s_volsdf_tpu_torch.engine.multiscene import run_joint
 from s_volsdf_tpu_torch.engine.trainer import VolTrainer, stack_states
-from s_volsdf_tpu_torch.models.lpips import init_lpips_params, lpips_leaves
+from s_volsdf_tpu_torch.models.lpips import (VGG_PLAN, init_lpips_params,
+                                            load_lpips, lpips_leaves)
 from s_volsdf_tpu_torch.models.network import (init_volsdf_params,
                                                render_rays, stack_params)
 from s_volsdf_tpu_torch.models.mvs import blocks as B
@@ -295,10 +331,12 @@ from s_volsdf_tpu_torch.ops.cost_mapping import MVSVolumes
 from s_volsdf_tpu_torch.parallel import mesh as pmesh
 from s_volsdf_tpu_torch.parallel.train_parallel import (
     make_sharded_scan_train_fn, make_sharded_train_step)
+from s_volsdf_tpu_torch.tools import run_100k, run_flagship
 from s_volsdf_tpu_torch.tools.fp64_count import fp64_instructions
 from s_volsdf_tpu_torch.tools.time_cost_mapping import (cold_ms, sample_sets,
                                                         samples)
 from s_volsdf_tpu_torch.utils import checkpoint as ckpt
+from s_volsdf_tpu_torch.utils.device import card_name
 from s_volsdf_tpu_torch.utils.image import remap_cubic
 
 # The kernel's bf16 x 3 split (about 2^-16 of each product) and f32 sums
@@ -460,10 +498,11 @@ def cascade_config(data_root: str, img_res, ndepths, x2_mvsres: bool,
 
 
 def stages_against_cpu(card: MVSEngine, sample, card_outs,
-                       card_extras=None) -> Dict[str, float]:
+                       card_extras=None, cpu=None) -> Dict[str, float]:
     """Recompute the three cascade stages of one MVS sample on the CPU,
     with the card engine's weights (through the bridge), from the inputs
-    the card's stages had: the sample's images, and for stages 1 and 2
+    the card's stages had (or with the CPU engine `cpu`): the sample's
+    images, and for stages 1 and 2
     the depth the card's previous stage handed on (`card_outs[k - 1]
     ["depth"]`, on the host; after a stage with an optimisation budget,
     the VolSDF feedback render) and its `extra` (`card_extras[k - 1]`:
@@ -475,10 +514,11 @@ def stages_against_cpu(card: MVSEngine, sample, card_outs,
     probabilities are more than PROB_TOL apart ("wta") and the largest
     confidence difference, and the CPU's seconds."""
     cfg = card.cfg
-    cpu = MVSEngine(cfg, device="cpu")
-    cpu.net = from_jax_mvs_params(to_jax_mvs_params(card.net),
-                                  cfg.mvs.ndepths, cfg.mvs.cr_base_chs,
-                                  device="cpu", model=cfg.mvs.model_name)
+    if cpu is None:
+        cpu = MVSEngine(cfg, device="cpu")
+        cpu.net = from_jax_mvs_params(to_jax_mvs_params(card.net),
+                                      cfg.mvs.ndepths, cfg.mvs.cr_base_chs,
+                                      device="cpu", model=cfg.mvs.model_name)
     card_extras = card_extras or [None] * len(card_outs)
     t0 = time.perf_counter()
     feats = cpu.sample_features(cpu.scene_feature_cache(sample.imgs),
@@ -3123,6 +3163,340 @@ def validate_cli_config(root: str) -> Config:
         preset, overrides=[f"{k}={v}" for k, v in extra.items()]))
 
 
+# --------------------------------------------------------------------------
+# Phase 15: the reference's checkpoints converted here, and the production
+# schedule with its kill, resume and close-out
+# --------------------------------------------------------------------------
+
+MVS_MODELS = ("casmvsnet", "ucsnet", "transmvsnet")
+WN_STYLES = ("weight_norm", "parametrizations")
+LPIPS_TOL = 1e-5          # LPIPS on the card against the CPU's
+# 15(b): chunks of 5 steps, so a checkpoint every 200 steps; the kill
+# after step 250 leaves 200, and the resume replays 205-250.
+PROD_CHUNK, PROD_CRASH, PROD_TARGET = 5, 250, 300
+PROD_KILL_CODE = 17
+# 15(c): two of the fixture's seven held-out views rendered and scored (a
+# 576x768 `render_image` takes about 11 s; the long run scores all seven).
+PROD_EVAL_VIEWS = 2
+# A replayed row equals the killed run's but for these (the first row of
+# each process also names the card).
+ROW_CLOCK_KEYS = ("chunk_s", "wall", "phase", "card")
+REPO_ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _port_command(module: str, args) -> list:
+    """A `python -m module args` command line run from the repository's
+    root, in which `import jax` fails."""
+    return [sys.executable, "-c",
+            "import runpy, sys; sys.modules['jax'] = None; "
+            f"runpy.run_module({module!r}, run_name='__main__', "
+            "alter_sys=True)", *args]
+
+
+def seeded_reference_trees(cfg: Config) -> Dict[str, Dict]:
+    """The weight trees phase 15(a) writes as the reference's
+    checkpoints: the three cascades at cfg's widths from seed 0 (their
+    convs at He's gain, TransMVSNet's DCN offset convs random, so that
+    stage 0 is not uniform and its DCNs sample off the grid), LPIPS from
+    seed 0 and the dtu VolSDF field from seed 0."""
+    trees = {}
+    for model in MVS_MODELS:
+        mcfg = copy.deepcopy(cfg)
+        mcfg.mvs.model_name = model
+        net = MVSEngine(mcfg, device="cpu").net
+        he_gain(net)
+        random_offsets(net)
+        trees[model] = to_jax_mvs_params(net)
+    trees["lpips"] = init_lpips_params(np.random.default_rng(0))
+    trees["volsdf"] = to_jax_params(init_volsdf_params(
+        torch.Generator().manual_seed(0), cfg.model))
+    return trees
+
+
+def _named_leaves(tree, prefix: str = "") -> Dict[str, np.ndarray]:
+    """The leaves of a tree of dicts and lists by their paths."""
+    if isinstance(tree, (dict, list)):
+        items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+        out = {}
+        for k, v in items:
+            out.update(_named_leaves(v, f"{prefix}/{k}"))
+        return out
+    return {prefix: np.asarray(tree)}
+
+
+def _equal_trees(got, want, what: str) -> int:
+    """Every leaf of `got` equals the leaf of the same name in `want` in
+    dtype, shape and bits; returns the leaf count."""
+    a, b = _named_leaves(got), _named_leaves(want)
+    _check(set(a) == set(b), f"{what}: leaves {sorted(set(a) ^ set(b))[:5]}"
+           f" in one tree only")
+    for name, y in b.items():
+        x = a[name]
+        _check(x.dtype == y.dtype and x.shape == y.shape
+               and np.array_equal(x, y),
+               f"{what}: leaf {name} {x.dtype}{x.shape} differs from "
+               f"{y.dtype}{y.shape}")
+    return len(b)
+
+
+def _lpips_tree(model) -> Dict:
+    """An LPIPS module's weights as the JAX tree (HWIO kernels)."""
+    convs = iter({"b": b.detach().cpu().numpy(),
+                  "w": w.detach().cpu().numpy().transpose(2, 3, 1, 0)}
+                 for w, b in zip(model.weights, model.biases))
+    return {"features": [[next(convs) for _ in block] for block in VGG_PLAN],
+            "lins": [{"w": w.detach().cpu().numpy()} for w in model.lins]}
+
+
+def convert_checkpoints(tmp: str, trees: Dict[str, Dict]) -> Dict:
+    """Phase 15(a)'s conversions: each tree written as the reference's
+    checkpoint ({"epoch", "model", "optimizer"}; VolSDF's bare state
+    dict, in both weight-norm key styles) with torch.save, then converted
+    by `python -m s_volsdf_tpu_torch.tools.convert_ckpt` in processes
+    without JAX, all at once. Returns {name: converted directory} and
+    the seconds."""
+    jobs = {}
+    for model, tree in trees.items():
+        styles = WN_STYLES if model == "volsdf" else (None,)
+        for style in styles:
+            name = model if style is None else f"volsdf_{style}"
+            src = os.path.join(tmp, f"{name}.ckpt")
+            if style is None:
+                torch.save(reference_checkpoint(model, tree), src)
+            else:
+                torch.save(reference_state_dict(model, tree, wn_style=style),
+                           src)
+            jobs[name] = (model, src, os.path.join(tmp, f"{name}_converted"))
+    t0 = time.perf_counter()
+    procs = {name: subprocess.Popen(
+        _port_command("s_volsdf_tpu_torch.tools.convert_ckpt",
+                      ["--model", model, "--ckpt", src, "--out", out]),
+        cwd=REPO_ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for name, (model, src, out) in jobs.items()}
+    for name, p in procs.items():
+        out, err = p.communicate(timeout=300)
+        _check(p.returncode == 0,
+               f"convert_ckpt {name}: rc {p.returncode}\n{err[-2000:]}")
+    seconds = time.perf_counter() - t0
+    dirs = {name: out for name, (_, _, out) in jobs.items()}
+    for name, d in dirs.items():
+        with open(os.path.join(d, "meta.json")) as f:
+            meta = json.load(f)
+        _check(meta == {"model": jobs[name][0]}, f"{name} meta {meta}")
+    return {"dirs": dirs, "seconds": seconds}
+
+
+def converted_cascades(dev, card: str, tmp: str, trees: Dict,
+                       dirs: Dict) -> Dict:
+    """Phase 15(a): each cascade loaded from its converted directory on
+    the card (every leaf equal to the source tree's) and on the CPU, and
+    stage 0 of the first view of a 64x96 fixture on both, within phase
+    6/9's float32 bars."""
+    data_root = os.path.join(tmp, "convert_data")
+    make_dtu_fixture(data_root, img_res=SMALL_RES)
+    out = {}
+    for model in MVS_MODELS:
+        cfg = cascade_config(data_root, SMALL_RES, SMALL_NDEPTHS, False,
+                             (0, 0, 0))
+        cfg.mvs.model_name = model
+        engine = MVSEngine(cfg, weights_path=dirs[model], device=dev)
+        n = _equal_trees(to_jax_mvs_params(engine.net), trees[model],
+                         f"{model} loaded on the card")
+        cpu = MVSEngine(cfg, weights_path=dirs[model], device="cpu")
+        sample = MVSDataset(
+            datapath=os.path.join(data_root, "DTU", "mvs_data"), scan=SCAN,
+            nviews=cfg.num_view, data_dir="DTU", ndepths=cfg.mvs.numdepth,
+            interval_scale=cfg.mvs.interval_scale, max_h=cfg.max_h,
+            max_w=cfg.max_w,
+            trains_i=get_trains_ids("DTU", SCAN, cfg.num_view),
+            data_dir_root=data_root, x2_mvsres=False)[0]
+        launches = deform_conv.deform_conv2d.launches
+        feats = engine.sample_features(engine.scene_feature_cache(sample.imgs),
+                                      list(range(len(sample.view_ids))))
+        got, _ = engine.stage(0, feats, sample.proj_matrices["stage1"],
+                             sample.depth_values, None, None,
+                             sample.imgs.shape[1:3], inverse_depth=False)
+        dcn = deform_conv.deform_conv2d.launches - launches
+        want_dcn = DCN_LAUNCHES_A_SCENE if model == "transmvsnet" else 0
+        _check(dcn == want_dcn, f"{model} stage 0: {dcn} deform_conv "
+               f"launches, want {want_dcn}")
+        errs = stages_against_cpu(engine, sample, [got], cpu=cpu)
+        ok = errs["prob"] <= PROB_TOL and errs["depth_rel"] <= DEPTH_RTOL
+        if model == "transmvsnet":
+            ok = ok and errs["wta"] == 0 and errs["conf"] <= PROB_TOL
+        _check(ok, f"{model} stage 0 from converted weights, card vs CPU: "
+               f"{errs}")
+        print(f"[convert] {model}: {n} leaves loaded on the card equal to "
+              f"the source; stage 0 at {SMALL_RES[0]}x{SMALL_RES[1]} card "
+              f"vs CPU (both from {os.path.basename(dirs[model])}): prob "
+              f"max|diff| {errs['prob']:.3e} (tol {PROB_TOL}), depth rel "
+              f"{errs['depth_rel']:.3e} (tol {DEPTH_RTOL})"
+              + (f", wta {errs['wta']}, conf {errs['conf']:.3e}"
+                 if model == "transmvsnet" else "")
+              + f"; {dcn} deform_conv launches [{card}]", flush=True)
+        out[model] = errs
+        del engine, cpu
+    return out
+
+
+def converted_lpips(dev, card: str, tmp: str, trees: Dict,
+                    dirs: Dict) -> float:
+    """Phase 15(a): LPIPS from its converted directory (leaves equal to
+    the source), `eval_rendered_views` on two held-out views of a 64x96
+    fixture (noisy copies of the ground truth as the renders) on the
+    card against the CPU; returns the largest LPIPS difference."""
+    d = dirs["lpips"]
+    _equal_trees(_lpips_tree(load_lpips(d, dev)), trees["lpips"],
+                 "lpips loaded on the card")
+    root = os.path.join(tmp, "lpips_data")
+    make_dtu_fixture(root, img_res=SMALL_RES, n_eval_views=2)
+    scene = load_scene("DTU", SMALL_RES, 106, -1, root)
+    images = os.path.join(tmp, "lpips_renders")
+    rng = np.random.default_rng(3)
+    for vid in scene.eval_ids()[:2]:
+        gt = scene.rgb[vid].reshape(*SMALL_RES, 3)
+        noisy = np.clip(gt + rng.normal(0, 0.05, gt.shape), 0, 1)
+        write_png(os.path.join(images, f"eval_{vid:03d}.png"),
+                  (noisy * 255).astype(np.uint8))
+    cfg = dtu_config()
+    got = eval_rendered_views(cfg, scene, images, "default", d, device=dev)
+    want = eval_rendered_views(cfg, scene, images, "default", d,
+                               device="cpu")
+    err = abs(got["lpips_mean"] - want["lpips_mean"])
+    _check(got["n_views"] == 2 and np.isfinite(got["lpips_mean"])
+           and err <= LPIPS_TOL,
+           f"LPIPS from converted weights: card {got}, CPU {want}")
+    print(f"[convert] lpips: leaves equal to the source; LPIPS of 2 "
+          f"held-out 64x96 views on the card {got['lpips_mean']:.6f}, CPU "
+          f"{want['lpips_mean']:.6f}, |diff| {err:.2e} (tol {LPIPS_TOL}) "
+          f"[{card}]", flush=True)
+    return err
+
+
+def converted_volsdf(dev, card: str, trees: Dict, dirs: Dict) -> float:
+    """Phase 15(a): the VolSDF field from each weight-norm key style's
+    converted directory (leaves equal to the source), and the fused SDF
+    kernel on it against its plain version at 65,536 points (float32
+    mode, KERNEL_TOL); returns the largest difference."""
+    cfg = dtu_config()
+    template = init_volsdf_params(torch.Generator().manual_seed(1),
+                                  cfg.model)
+    worst = 0.0
+    for style in WN_STYLES:
+        params = load_volsdf_checkpoint(dirs[f"volsdf_{style}"], template,
+                                        dev)
+        n = _equal_trees(to_jax_params(params), trees["volsdf"],
+                         f"volsdf ({style}) loaded")
+        pts = torch.as_tensor(np.random.default_rng(1).normal(
+            size=(KERNEL_SWEEP, 3)).astype(np.float32), device=dev)
+        got = fused_sdf.fused_sdf_values(params.sdf, cfg.model, pts, 3.0)
+        ref = fused_sdf.sdf_values_plain(params.sdf, cfg.model, pts, 3.0)
+        err = torch.max(torch.abs(got - ref)).item()
+        _check(err <= KERNEL_TOL, f"fused SDF on converted VolSDF weights "
+               f"({style}): {err} > {KERNEL_TOL}")
+        worst = max(worst, err)
+        print(f"[convert] volsdf ({style} keys): {n} leaves equal to the "
+              f"source; fused SDF kernel vs plain at {KERNEL_SWEEP} pts "
+              f"max|diff| {err:.3e} (tol {KERNEL_TOL}) [{card}]", flush=True)
+    return worst
+
+
+def _rows(path: str):
+    rows, done = [], None
+    with open(path) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("done"):
+                done = rec
+            else:
+                rows.append(rec)
+    return rows, done
+
+
+def production_run(dev, card: str, tmp: str) -> Dict:
+    """Phase 15(b): `tools.run_100k` at the dtu preset, full widths,
+    576x768: a process killed after step PROD_CRASH (exit code 17, no
+    kill-site checkpoint), then `--resume` in this process to
+    PROD_TARGET. The replayed rows equal the killed run's in every field
+    but the clock's, no guard trips, a finite radial error."""
+    exps = os.path.join(tmp, "run100k")
+    args = ["--exps", exps, "--chunk", str(PROD_CHUNK),
+            "--target", str(PROD_TARGET)]
+    t0 = time.perf_counter()
+    kill = subprocess.run(
+        _port_command("s_volsdf_tpu_torch.tools.run_100k",
+                      args + ["--crash-at", str(PROD_CRASH)]),
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=900)
+    kill_s = time.perf_counter() - t0
+    _check(kill.returncode == PROD_KILL_CODE,
+           f"run_100k --crash-at {PROD_CRASH}: rc {kill.returncode}, want "
+           f"{PROD_KILL_CODE}\n{kill.stdout[-2000:]}\n{kill.stderr[-3000:]}")
+    t0 = time.perf_counter()
+    res = run_100k.main(args + ["--resume"], device=dev)
+    resume_s = time.perf_counter() - t0
+    rows, done = _rows(os.path.join(exps, "run100k.jsonl"))
+    initial = {r["step"]: r for r in rows if r["phase"] == "initial"}
+    resumed = {r["step"]: r for r in rows if r["phase"] == "resume"}
+    ckpt_step = PROD_CRASH - PROD_CRASH % (PROD_CHUNK * 40)
+    replayed = list(range(ckpt_step + PROD_CHUNK, PROD_CRASH + 1,
+                          PROD_CHUNK))
+    _check(max(initial) == PROD_CRASH and min(resumed) == replayed[0]
+           and max(resumed) == PROD_TARGET,
+           f"rows: killed run to {max(initial)}, resume "
+           f"{min(resumed)}-{max(resumed)}")
+    for step in replayed:
+        a = {k: v for k, v in initial[step].items()
+             if k not in ROW_CLOCK_KEYS}
+        b = {k: v for k, v in resumed[step].items()
+             if k not in ROW_CLOCK_KEYS}
+        _check(a == b, f"replayed row {step}: {b} != killed run's {a}")
+    radial = [r["mean_mm"] for r in done["radial_error"].values()]
+    _check(done["steps"] == PROD_TARGET and done["guard_trips"] == 0
+           and all(r["guard_trips"] == 0 for r in rows)
+           and all(np.isfinite(radial)) and card in done["card"],
+           f"run_100k done record {done}")
+    med = float(np.median([r["chunk_s"] for r in rows]))
+    first = resumed[replayed[0]]
+    setup_s = first["wall"] - first["chunk_s"]
+    print(f"[run100k] run_100k dtu 576x768 full widths, chunks of "
+          f"{PROD_CHUNK}: killed after step {PROD_CRASH} (rc "
+          f"{kill.returncode}, {kill_s:.1f} s), resumed from {ckpt_step} "
+          f"to {PROD_TARGET} ({resume_s:.1f} s); rows {replayed[0]}-"
+          f"{replayed[-1]} of both runs equal but for their clocks; guard "
+          f"trips 0; median chunk {med:.3f} s ({1e3 * med / PROD_CHUNK:.1f} "
+          f"ms/step); resume set-up {setup_s:.1f} s; "
+          f"feedback renders {done['feedback_render_s']} s; radial error "
+          f"(mm) {[round(r, 3) for r in radial]}; last loss "
+          f"{rows[-1]['loss']}, PSNR {rows[-1]['psnr']} [{card}]",
+          flush=True)
+    return {"exps": exps, "median_chunk_s": med, "done": done,
+            "kill_s": kill_s, "resume_s": resume_s, "setup_s": setup_s}
+
+
+def production_close_out(dev, card: str, tmp: str, exps: str) -> Dict:
+    """Phase 15(c): `tools.run_flagship` on 15(b)'s run: finite Chamfer,
+    PSNR and SSIM, fused points."""
+    t0 = time.perf_counter()
+    out = run_flagship.main(["--exps", exps, "--out",
+                             os.path.join(tmp, "flagship.json"),
+                             "--n-eval", str(PROD_EVAL_VIEWS)], device=dev)
+    seconds = time.perf_counter() - t0
+    nvs = out["nvs"]
+    _check(out["step"] == PROD_TARGET and out["n_fused_points"] > 0
+           and np.isfinite(out["chamfer_mm"]["overall"])
+           and np.isfinite(nvs["psnr_mean"]) and np.isfinite(nvs["ssim_mean"])
+           and nvs["n_views"] == PROD_EVAL_VIEWS,
+           f"run_flagship: {out}")
+    print(f"[flagship] run_flagship at step {out['step']}: "
+          f"{out['n_fused_points']} fused points, Chamfer "
+          f"{out['chamfer_mm']} mm, radial {out['radial_mm']} mm, PSNR "
+          f"{nvs['psnr_mean']:.3f}, SSIM {nvs['ssim_mean']:.4f} over "
+          f"{nvs['n_views']} held-out views; {seconds:.1f} s (depth "
+          f"renders {out['wall_s']['depth_renders']} s, eval renders "
+          f"{out['wall_s']['eval_renders']} s) [{card}]", flush=True)
+    return {"seconds": seconds, "out": out}
+
+
 def main() -> None:
     start = time.perf_counter()
     # 1. Environment.
@@ -3131,10 +3505,7 @@ def main() -> None:
               file=sys.stderr)
         sys.exit(1)
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+    card = card_name(dev)
     print(f"[env] torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} "
           f"count {torch.cuda.device_count()}; TF32 flags (left as they "
@@ -3259,12 +3630,36 @@ def main() -> None:
               f"launches on the multi-device paths (this process and the "
               f"spawned ranks) {sharded} [{card}]", flush=True)
 
+        # 15. The reference's checkpoints converted on this machine, the
+        # production schedule killed and resumed, its close-out.
+        t0 = time.perf_counter()
+        trees = seeded_reference_trees(float32_dtu_config())
+        conv = convert_checkpoints(tmp, trees)
+        print(f"[convert] {len(conv['dirs'])} reference checkpoints "
+              f"converted by python -m s_volsdf_tpu_torch.tools.convert_ckpt"
+              f" without JAX, in parallel, in {conv['seconds']:.1f} s",
+              flush=True)
+        converted_volsdf(dev, card, trees, conv["dirs"])
+        _reset_counts()                         # the phase 15 paths start
+        converted_cascades(dev, card, tmp, trees, conv["dirs"])
+        converted_lpips(dev, card, tmp, trees, conv["dirs"])
+        prod = production_run(dev, card, tmp)
+        production_close_out(dev, card, tmp, prod["exps"])
+        prod_launches = _launch_counts()        # ... and end here
+        del trees
+        torch.cuda.empty_cache()
+        print(f"[production] phase 15 in {time.perf_counter() - t0:.2f} s; "
+              f"launches on its paths in this process (the killed "
+              f"run_100k process's are not counted) {prod_launches} "
+              f"[{card}]", flush=True)
+
     # 10. Results. Launches are summed over the paths, each counted from 0.
     paths = [launches, outside, scene_launches["float32"],
              scene_launches["defaults"],
              {"fused_sdf": fusion["sdf_launches"],
               "cost_mapping": fusion["cost_launches"]}, eval_field,
-             eval_cli] + other + bmvs + [ibr_launches, ms_launches, sharded]
+             eval_cli] + other + bmvs + [ibr_launches, ms_launches, sharded,
+                                         prod_launches]
     sdf_launches = {m: sum(p["fused_sdf"][m] for p in paths)
                     for m in fused_sdf.MODES}
     cost_launches = sum(p["cost_mapping"] for p in paths)
@@ -3297,6 +3692,7 @@ def main() -> None:
             "bound_by": "operations", "library_ms": None,
             "unclamped_launches": bmvs_sdf[mode],
             "sharded_launches": sharded["fused_sdf"][mode],
+            "production_launches": prod_launches["fused_sdf"][mode],
             "scene_launches": by_scenes("fused_sdf_scenes"),
             "lockstep_launches": lockstep_sdf,
             "scenes_ms": axis[f"fused_sdf_{mode}"]["ms"],
@@ -3315,6 +3711,7 @@ def main() -> None:
         "replaces": "s_volsdf_tpu/ops/cost_mapping.py:152",
         "launches": cost_launches,
         "sharded_launches": sharded["cost_mapping"],
+        "production_launches": prod_launches["cost_mapping"],
         "max_abs_err": max(c["max_abs_err"] for c in cost.values()),
         "ms": bf16["ms_cold"], "ms_cold": bf16["ms_cold"],
         "ms_warm": bf16["ms_warm"], "plain_ms": bf16["plain_ms"],
@@ -3341,6 +3738,7 @@ def main() -> None:
         "replaces": "s_volsdf_tpu/native/fusion.cpp:59",
         "launches": geo_launches,
         "sharded_launches": sharded["geo_consistency"],
+        "production_launches": prod_launches["geo_consistency"],
         "max_abs_err": fusion["max_abs_err"], "ms": fusion["ms"],
         "plain_ms": fusion["plain_ms"], "bound_ms": fusion["bound_ms"],
         "bound_by": fusion["bound_by"], "library_ms": None,
@@ -3353,6 +3751,7 @@ def main() -> None:
         "source": "s_volsdf_tpu_torch/csrc/deform_conv.cu",
         "replaces": "s_volsdf_tpu/ops/deform_conv.py:29",
         "launches": dcn_launches, "sharded_launches": sharded["deform_conv"],
+        "production_launches": prod_launches["deform_conv"],
         "max_abs_err": dcn["max_abs_err"],
         "ms": dcn["ms"], "plain_ms": dcn["plain_ms"],
         "bound_ms": dcn["bound_ms"], "bound_by": dcn["bound_by"],

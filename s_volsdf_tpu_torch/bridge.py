@@ -19,8 +19,10 @@ and map BN onto weight / bias / running_mean / running_var. A DCN is
 {"w" (in, out), "b"} and LayerNorms {"scale", "bias"} are the port's
 own parameter names. Both directions are exact, and a tree whose leaves
 do not match the net raises. `load_mvs_checkpoint` reads a converted
-checkpoint (tools/convert_ckpt.py writes one: `state.npz` of the
-pytree's leaves in JAX's flatten order).
+checkpoint (`python -m s_volsdf_tpu_torch.tools.convert_ckpt` writes
+one: `state.npz` of the pytree's leaves in JAX's flatten order,
+`utils.checkpoint.leaf_slots`); `load_volsdf_checkpoint` reads a
+converted VolSDF state dict.
 
 The JAX LPIPS weights ({"features": [[{"b", "w"}]], "lins": [{"w"}]},
 HWIO kernels) become `models.lpips.LPIPS` (OIHW) with `lpips_from_jax`.
@@ -37,7 +39,6 @@ All functions take and give numpy arrays; none imports JAX.
 
 from __future__ import annotations
 
-import os
 from typing import Dict, List
 
 import numpy as np
@@ -55,6 +56,7 @@ from s_volsdf_tpu_torch.models.mvs.transmvsnet import DCN, TransMVSNet
 from s_volsdf_tpu_torch.models.mvs.ucsnet import UCSNet
 from s_volsdf_tpu_torch.models.network import VolSDFParams, map_leaves
 from s_volsdf_tpu_torch.models.network_bg import VolSDFBGParams
+from s_volsdf_tpu_torch.utils import checkpoint as ckpt
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -322,36 +324,23 @@ def to_jax_mvs_params(net: nn.Module) -> Dict:
     return _tree_to(net)
 
 
-def _leaf_slots(tree, out: List) -> List:
-    """(container, key) of every leaf in JAX's flatten order: dict keys
-    sorted, lists in order."""
-    items = sorted(tree.items()) if isinstance(tree, dict) \
-        else enumerate(tree)
-    for k, v in items:
-        if isinstance(v, (dict, list)):
-            _leaf_slots(v, out)
-        else:
-            out.append((tree, k))
-    return out
-
-
 def load_mvs_checkpoint(net: nn.Module, path: str) -> nn.Module:
     """Load a converted checkpoint directory (`state.npz` with leaves
     `leaf_<i>` in JAX's flatten order of the pytree) into `net`."""
     tree = to_jax_mvs_params(net)
-    slots = _leaf_slots(tree, [])
-    with np.load(os.path.join(path, "state.npz")) as data:
-        if len(data.files) != len(slots):
-            raise ValueError(f"{path}: {len(data.files)} leaves, the "
-                             f"network has {len(slots)}")
-        for i, (container, key) in enumerate(slots):
-            leaf = data[f"leaf_{i}"]
-            if leaf.shape != container[key].shape:
-                raise ValueError(f"{path}: leaf_{i} {leaf.shape} vs "
-                                 f"{container[key].shape}")
-            container[key] = leaf
+    ckpt.read_tree(path, tree)
     _load_tree(net, tree)
     return net
+
+
+def load_volsdf_checkpoint(path: str, template: VolSDFParams,
+                           device=None) -> VolSDFParams:
+    """The VolSDF parameters of a converted checkpoint directory (a
+    reference state dict through `tools.convert_ckpt --model volsdf`),
+    read in the leaf order and shapes of `template`'s JAX tree."""
+    tree = to_jax_params(template)
+    ckpt.read_tree(path, tree)
+    return from_jax_params(tree, device)
 
 
 # --------------------------------------------------------------------------

@@ -13,11 +13,13 @@ box of <data_dir_root>/DTU/bbs.npz when it exists), and with
 --eval_rendering the renders of the eval views into
 rendering_<epoch>/ (--result_from None) or their PSNR, SSIM and LPIPS
 (--result_from default|blend; LPIPS needs --lpips_weights, a checkpoint
-directory of converted weights). The flags and defaults are the JAX
-command line's; --gpu is accepted and ignored. Under torchrun
-(`torchrun --nproc_per_node=N -m s_volsdf_tpu_torch.cli.eval_vsdf ...`)
-the ranks share each render's rays and each grid's points
-(parallel.eval_group) and the node's first rank writes the files.
+directory of converted weights: `python -m
+s_volsdf_tpu_torch.tools.convert_ckpt --model lpips`). The flags and
+defaults are the JAX command line's; --gpu is accepted and ignored.
+Under torchrun (`torchrun --nproc_per_node=N -m
+s_volsdf_tpu_torch.cli.eval_vsdf ...`) the ranks share each render's
+rays and each grid's points (parallel.eval_group) and the node's first
+rank writes the files.
 """
 
 from __future__ import annotations
@@ -68,7 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--result_from", default="None",
                    choices=["None", "default", "blend"])
     p.add_argument("--resolution", type=int, default=512)
-    p.add_argument("--lpips_weights", default="")
+    p.add_argument("--lpips_weights", default="",
+                   help="a checkpoint directory of LPIPS VGG weights, "
+                        "from python -m s_volsdf_tpu_torch.tools."
+                        "convert_ckpt --model lpips")
     p.add_argument("--override", nargs="*", default=[])
     return p
 

@@ -10,6 +10,12 @@ package's fixture; the PNGs are encoded by the port's own writer. With
 BlendedMVS scans ship them, written by `write_jpeg` (a small encoder
 for fixtures and tests: the machines the port runs on have no image
 library).
+
+`reference_state_dict` goes the other way from
+`tools.convert_ckpt`: a converted (JAX-layout) weight tree to a state
+dict with the reference's key names and layouts, so that a checkpoint
+the reference would publish can be made from seeded weights (tests and
+the smoke run: the published checkpoints are not in the repository).
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import struct
 from typing import Dict, List, Tuple
 
 import numpy as np
+import torch
 
 from s_volsdf_tpu_torch.data.io import write_cam, write_png
 from s_volsdf_tpu_torch.data.splits import (get_eval_ids, get_trains_ids,
@@ -436,3 +443,204 @@ def make_dtu_fixture(root: str, scan_id: int = 106,
     np.savez(os.path.join(inst, "cameras.npz"), **cams)
     write_pair_file(root, f"scan{scan_id}", train_ids)
     return root
+
+
+# --------------------------------------------------------------------------
+# Reference state dicts: the inverse of tools.convert_ckpt
+# --------------------------------------------------------------------------
+
+_WN_KEYS = {"weight_norm": ("weight_g", "weight_v"),
+            "parametrizations": ("parametrizations.weight.original0",
+                                 "parametrizations.weight.original1")}
+# The torch `lpips` package's VGG layers (torchvision's vgg16.features
+# indices) of each tap, and its scaling layer's buffers.
+_LPIPS_SLICES = (("slice1", (0, 2)), ("slice2", (5, 7)),
+                 ("slice3", (10, 12, 14)), ("slice4", (17, 19, 21)),
+                 ("slice5", (24, 26, 28)))
+_LPIPS_SHIFT = (-0.030, -0.088, -0.188)
+_LPIPS_SCALE = (0.458, 0.448, 0.450)
+
+
+def _kernel(w: np.ndarray) -> np.ndarray:
+    """HWIO / DHWIO -> OIHW / OIDHW."""
+    n = w.ndim
+    return np.transpose(w, (n - 1, n - 2) + tuple(range(n - 2)))
+
+
+def _transposed_kernel(w: np.ndarray) -> np.ndarray:
+    """A flipped HWIO / DHWIO kernel -> ConvTranspose's (I, O, k...)."""
+    n = w.ndim
+    sp = tuple(range(n - 2))
+    return np.transpose(np.flip(w, sp), (n - 2, n - 1) + sp)
+
+
+class _StateDict:
+    """The reference's keys, written from a JAX-layout tree."""
+
+    def __init__(self):
+        self.sd: Dict[str, torch.Tensor] = {}
+
+    def put(self, key: str, a) -> None:
+        self.sd[key] = torch.from_numpy(np.array(a, order="C"))
+
+    def bn(self, prefix: str, p: Dict) -> None:
+        for jname, tname in (("scale", "weight"), ("bias", "bias"),
+                             ("mean", "running_mean"),
+                             ("var", "running_var")):
+            self.put(f"{prefix}.{tname}", p[jname])
+        self.sd[f"{prefix}.num_batches_tracked"] = torch.tensor(1000)
+
+    def conv(self, prefix: str, p: Dict, transposed: bool = False) -> None:
+        """A plain conv: prefix.weight, prefix.bias."""
+        self.put(f"{prefix}.weight", _transposed_kernel(p["w"])
+                 if transposed else _kernel(p["w"]))
+        if "b" in p:
+            self.put(f"{prefix}.bias", p["b"])
+
+    def block(self, prefix: str, p: Dict, transposed: bool = False) -> None:
+        """A conv block: prefix.conv and prefix.bn."""
+        self.conv(f"{prefix}.conv", p, transposed)
+        if "bn" in p:
+            self.bn(f"{prefix}.bn", p["bn"])
+
+    def linear(self, prefix: str, p: Dict,
+               wn_style: str = "weight_norm") -> None:
+        if "v" in p:
+            g_key, v_key = _WN_KEYS[wn_style]
+            self.put(f"{prefix}.{g_key}", np.asarray(p["g"])[:, None])
+            self.put(f"{prefix}.{v_key}", np.transpose(p["v"]))
+        else:
+            self.put(f"{prefix}.weight", np.transpose(p["w"]))
+        self.put(f"{prefix}.bias", p["b"])
+
+    def dcn(self, prefix: str, p: Dict) -> None:
+        rows, cout = np.shape(p["w"])
+        cin = rows // 9
+        w = np.reshape(p["w"], (3, 3, cin, cout))
+        self.put(f"{prefix}.weight", np.transpose(w, (3, 2, 0, 1)))
+        self.put(f"{prefix}.bias", p["b"])
+        self.conv(f"{prefix}.conv_offset_mask", p["offset_conv"])
+
+
+def _feature_convs(sd: _StateDict, prefix: str, feat: Dict) -> None:
+    for name in ("conv0", "conv1", "conv2"):
+        for i, p in enumerate(feat[name]):
+            sd.block(f"{prefix}.{name}.{i}", p)
+
+
+def _cost_regs(sd: _StateDict, cost_reg: List[Dict],
+               deconv_names=("conv7", "conv9", "conv11")) -> None:
+    for s, cr in enumerate(cost_reg):
+        pre = f"cost_regularization.{s}"
+        for i in range(7):
+            sd.block(f"{pre}.conv{i}", cr[f"conv{i}"])
+        for slot, name in zip(("conv7", "conv9", "conv11"), deconv_names):
+            sd.block(f"{pre}.{name}", cr[slot], transposed=True)
+        sd.conv(f"{pre}.prob", cr["prob"])
+
+
+def _casmvsnet(sd: _StateDict, tree: Dict) -> None:
+    feat = tree["feature"]
+    _feature_convs(sd, "feature", feat)
+    for name in ("out1", "inner1", "inner2", "out2", "out3"):
+        sd.conv(f"feature.{name}", feat[name])
+    _cost_regs(sd, tree["cost_reg"])
+
+
+def _ucsnet(sd: _StateDict, tree: Dict) -> None:
+    f, feat = "feature_extraction", tree["feature"]
+    _feature_convs(sd, f, feat)
+    for name in ("out1", "out2", "out3"):
+        sd.conv(f"{f}.{name}", feat[name])
+    for name in ("deconv1", "deconv2"):
+        sd.block(f"{f}.{name}.deconv", feat[name]["deconv"], transposed=True)
+        sd.block(f"{f}.{name}.conv", feat[name]["conv"])
+    _cost_regs(sd, tree["cost_reg"], ("deconv7", "deconv8", "deconv9"))
+
+
+def _transmvsnet(sd: _StateDict, tree: Dict) -> None:
+    feat = tree["feature"]
+    _feature_convs(sd, "feature", feat)
+    for name in ("inner1", "inner2"):
+        sd.conv(f"feature.{name}", feat[name])
+    for name in ("out1", "out2", "out3"):
+        head, pre = feat[name], f"feature.{name}"
+        sd.block(f"{pre}.0", head["conv"])
+        for i, part in ((1, "dcn1"), (4, "dcn2"), (7, "dcn3")):
+            sd.dcn(f"{pre}.{i}", head[part])
+        for i, part in ((2, "bn1"), (5, "bn2")):
+            sd.bn(f"{pre}.{i}", head[part])
+    fmt, pre = tree["fmt"], "FMT_with_pathway"
+    for i, layer in enumerate(fmt["fmt"]["layers"]):
+        lp = f"{pre}.FMT.layers.{i}"
+        for part, name in (("q", "query"), ("k", "key"), ("v", "value"),
+                           ("out", "out")):
+            sd.linear(f"{lp}.attention.{name}_projection", layer[part])
+        sd.linear(f"{lp}.linear1", layer["ff1"])
+        sd.linear(f"{lp}.linear2", layer["ff2"])
+        for part, name in (("ln1", "norm1"), ("ln2", "norm2")):
+            sd.put(f"{lp}.{name}.weight", layer[part]["scale"])
+            sd.put(f"{lp}.{name}.bias", layer[part]["bias"])
+    for name in ("dim_reduction_1", "dim_reduction_2", "smooth_1",
+                 "smooth_2"):
+        sd.conv(f"{pre}.{name}", fmt[name])
+    pw, pre = tree["pixelwise"], "DepthNet.pixel_wise_net"
+    sd.block(f"{pre}.conv0", pw["conv0"])
+    sd.block(f"{pre}.conv1", pw["conv1"])
+    sd.conv(f"{pre}.conv2", pw["conv2"])
+    _cost_regs(sd, tree["cost_reg"])
+
+
+def _volsdf(sd: _StateDict, tree: Dict, wn_style: str) -> None:
+    for key, prefix in (("sdf", "implicit_network"),
+                        ("rgb", "rendering_network"),
+                        ("bg_sdf", "bg_implicit_network"),
+                        ("bg_rgb", "bg_rendering_network")):
+        for i, p in enumerate(tree.get(key, [])):
+            sd.linear(f"{prefix}.lin{i}", p, wn_style)
+    sd.put("density.beta", np.asarray(tree["density"]["beta"]))
+
+
+def _lpips(sd: _StateDict, tree: Dict) -> None:
+    sd.put("scaling_layer.shift",
+           np.asarray(_LPIPS_SHIFT, np.float32)[None, :, None, None])
+    sd.put("scaling_layer.scale",
+           np.asarray(_LPIPS_SCALE, np.float32)[None, :, None, None])
+    for i, ((name, ids), block) in enumerate(zip(_LPIPS_SLICES,
+                                                 tree["features"])):
+        for ci, p in zip(ids, block):
+            sd.conv(f"net.{name}.{ci}", p)
+        sd.put(f"lin{i}.model.1.weight",
+               np.transpose(tree["lins"][i]["w"])[:, :, None, None])
+
+
+_INVERSES = {"casmvsnet": _casmvsnet, "ucsnet": _ucsnet,
+             "transmvsnet": _transmvsnet, "lpips": _lpips}
+
+
+def reference_state_dict(model: str, tree: Dict,
+                         wn_style: str = "weight_norm"
+                         ) -> Dict[str, torch.Tensor]:
+    """The reference's state dict (CPU tensors) of a converted weight tree
+    of `model` (casmvsnet, ucsnet, transmvsnet, volsdf or lpips; e.g.
+    `bridge.to_jax_mvs_params` of a port net): OIHW / OIDHW kernels, the
+    transposed convs' (I, O, k...) unflipped, (O, I) linears, the DCNs'
+    OIHW weights, BN buffers with `num_batches_tracked`, and LPIPS'
+    scaling layer. A VolSDF weight-normed linear is written as
+    `weight_g`/`weight_v` (wn_style "weight_norm") or as torch's
+    parametrization, `parametrizations.weight.original0/1`
+    ("parametrizations"). `tools.convert_ckpt.convert` of the result is
+    `tree` again."""
+    sd = _StateDict()
+    if model == "volsdf":
+        _volsdf(sd, tree, wn_style)
+    else:
+        _INVERSES[model](sd, tree)
+    return sd.sd
+
+
+def reference_checkpoint(model: str, tree: Dict, **kw) -> Dict:
+    """`reference_state_dict` in the reference's checkpoint layout:
+    {"epoch", "model", "optimizer"} (what `torch.save` wrote there)."""
+    return {"epoch": 15, "model": reference_state_dict(model, tree, **kw),
+            "optimizer": {"state": {}, "param_groups": []}}

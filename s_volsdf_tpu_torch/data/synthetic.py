@@ -151,3 +151,39 @@ def gt_prob_volume(c2w: np.ndarray, K: np.ndarray, res,
     gauss = gauss / np.clip(gauss.sum(axis=0, keepdims=True), 1e-12, None)
     prob = (1.0 - floor) * gauss + floor / len(dvals)
     return prob.astype(np.float32), dvals.astype(np.float32)
+
+
+def sphere_radial_error(c2w: np.ndarray, K: np.ndarray, res,
+                        depth_metric: np.ndarray, scale_factor: float,
+                        sphere_radius: float = 0.8):
+    """(mean, median, n_pixels) of a rendered z-depth map's distance to
+    the analytic sphere: each pixel that hits the sphere is lifted to a
+    point in the unit frame at the rendered depth, and its | ||p|| - r |
+    is given in metric units (the fixture's DTU-like mm). Every such
+    point's distance to the surface is its radial offset, so this stands
+    in for the DTU Chamfer protocol on a synthetic scene."""
+    H, W = res
+    dirs_cam, dirs_u = _pixel_dirs(c2w, K, H, W)
+    origins = np.broadcast_to(c2w[:3, 3], dirs_u.shape)
+    t_gt = ray_sphere_depth(origins.reshape(-1, 3), dirs_u.reshape(-1, 3),
+                            sphere_radius).reshape(H, W)
+    hit = np.isfinite(t_gt)
+    unit_z = (dirs_cam / np.linalg.norm(dirs_cam, axis=-1,
+                                        keepdims=True))[..., 2]
+    t_pred = (np.asarray(depth_metric) / scale_factor) / unit_z
+    pts = origins + t_pred[..., None] * dirs_u
+    radial = np.abs(np.linalg.norm(pts, axis=-1) - sphere_radius)
+    err = radial[hit] * scale_factor
+    return float(err.mean()), float(np.median(err)), int(hit.sum())
+
+
+def sample_rays(scene: SyntheticScene, rng: np.random.Generator,
+                view_idx: int, n_rays: int):
+    """A random pixel batch of one view: (uv (n, 2) float32 pixel
+    coordinates, rgb (n, 3)), pixels drawn with replacement."""
+    H, W = scene.img_res
+    idx = rng.integers(0, H * W, size=n_rays)
+    ys, xs = np.divmod(idx, W)
+    uv = np.stack([xs, ys], axis=-1).astype(np.float32)
+    rgb = scene.images[view_idx].reshape(-1, 3)[idx]
+    return uv, rgb

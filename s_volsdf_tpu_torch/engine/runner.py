@@ -78,7 +78,8 @@ logger = logging.getLogger("s_volsdf_tpu_torch")
 class MVSEngine:
     """The frozen cascade (mvs.model_name: casmvsnet, ucsnet or
     transmvsnet) on one device. Weights come from a converted checkpoint
-    (tools/convert_ckpt.py) or are random from `rng_seed`. UCSNet is
+    (`python -m s_volsdf_tpu_torch.tools.convert_ckpt`) or are random
+    from `rng_seed`. UCSNet is
     built without mvs.cr_base_chs, as the JAX engine builds it.
 
     With mvs.compute_dtype="bfloat16" (the JAX default) the conv kernels
@@ -110,7 +111,8 @@ class MVSEngine:
             logger.warning(
                 f"MVS model '{self.name}' running with RANDOM weights "
                 f"(no checkpoint at {weights_path}); convert a torch "
-                f"ckpt with tools/convert_ckpt.py for real runs")
+                f"ckpt with python -m s_volsdf_tpu_torch.tools.convert_ckpt "
+                f"for real runs")
         if cfg.mvs.compute_dtype == "bfloat16":
             B.cast_conv_weights(self.net)
 

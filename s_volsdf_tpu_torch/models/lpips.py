@@ -10,8 +10,10 @@ conv] per block], "lins": [{"w"} per tap]}, with HWIO conv kernels:
 smoke run), `lpips_leaves` lists them in JAX's flatten order (a
 checkpoint's `leaf_<i>`), `load_lpips` reads a checkpoint of them
 (utils/checkpoint.py), and `bridge.lpips_from_jax` makes the module.
-The repository holds no LPIPS weights: without a weights file the eval
-reports LPIPS as None, as the JAX package does.
+`python -m s_volsdf_tpu_torch.tools.convert_ckpt --model lpips --ckpt
+X --out D` writes such a checkpoint from the torch `lpips` package's
+VGG state dict. The repository holds no LPIPS weights: without a
+weights file the eval reports LPIPS as None, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -58,11 +60,7 @@ def init_lpips_params(rng: np.random.Generator) -> Dict:
 def lpips_leaves(params: Dict) -> List[np.ndarray]:
     """The JAX tree's leaves in `jax.tree_util.tree_flatten` order (dict
     keys sorted: features then lins; b then w in each conv)."""
-    leaves = []
-    for convs in params["features"]:
-        for conv in convs:
-            leaves += [conv["b"], conv["w"]]
-    return leaves + [lin["w"] for lin in params["lins"]]
+    return ckpt.tree_leaves(params)
 
 
 def _tree_from_leaves(leaves: List[np.ndarray]) -> Dict:

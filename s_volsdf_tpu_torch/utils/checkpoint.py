@@ -17,6 +17,10 @@ The port has no pytree, so it keeps the order itself:
   torch.optim.Adam's `step`, `exp_avg` and `exp_avg_sq` are `count`,
   `mu` and `nu`; `count` and `iter_step` are int32, as in JAX.
 
+A tree of dicts and lists of arrays (a converted checkpoint's, the
+LPIPS weights) takes that order from `leaf_slots`; `read_tree` fills
+one from a checkpoint.
+
 Arrays that JAX does not read (the torch generator's state) go into
 `state.npz` under other keys (`extras`): the JAX loader reads only
 `leaf_<i>`. The orbax backend is not ported (the card's machine has no
@@ -94,6 +98,41 @@ def load_state(path: str, template: Sequence
         with open(meta_path) as f:
             meta = json.load(f)
     return leaves, extras, meta
+
+
+def leaf_slots(tree, out: Optional[List] = None) -> List:
+    """(container, key) of every leaf of a tree of dicts and lists, in
+    `jax.tree_util.tree_flatten`'s order: dict keys sorted (as strings:
+    "conv11" before "conv2"), lists in order."""
+    out = [] if out is None else out
+    items = sorted(tree.items()) if isinstance(tree, dict) \
+        else enumerate(tree)
+    for k, v in items:
+        if isinstance(v, (dict, list)):
+            leaf_slots(v, out)
+        else:
+            out.append((tree, k))
+    return out
+
+
+def tree_leaves(tree) -> List:
+    """The leaves of a tree of dicts and lists in JAX's flatten order."""
+    return [container[key] for container, key in leaf_slots(tree)]
+
+
+def read_tree(path: str, tree) -> Dict:
+    """Set the leaves of `tree` (dicts and lists), in place, from the
+    checkpoint at `path`; returns its meta. The checkpoint must hold as
+    many leaves as the tree, each of its leaf's shape."""
+    slots = leaf_slots(tree)
+    with np.load(os.path.join(path, STATE_FILE)) as data:
+        n = sum(k.startswith("leaf_") for k in data.files)
+    if n != len(slots):
+        raise ValueError(f"{path}: {n} leaves, the tree has {len(slots)}")
+    leaves, _, meta = load_state(path, [c[k] for c, k in slots])
+    for (container, key), leaf in zip(slots, leaves):
+        container[key] = leaf
+    return meta
 
 
 # --------------------------------------------------------------------------

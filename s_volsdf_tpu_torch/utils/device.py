@@ -36,3 +36,19 @@ def full_float32():
         yield
     finally:
         matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
+def card_name(device) -> str:
+    """The card's name and power limit as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` gives them, for
+    a CUDA device (every number timed on it belongs beside them); the
+    device type ("cpu") otherwise."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return dev.type
+    import subprocess
+    lines = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()
+    return lines[min(dev.index or 0, len(lines) - 1)]

@@ -362,3 +362,26 @@ def test_gt_prob_volume_bit_equal(inverse_depth):
     pb, hb = tsynth.gt_prob_volume(*args, rng=np.random.default_rng(3), **kw)
     np.testing.assert_array_equal(pa, pb)
     np.testing.assert_array_equal(ha, hb)
+
+
+def test_sphere_radial_error_bit_equal():
+    scene = jsynth.make_sphere_scene(2, (20, 28))
+    rng = np.random.default_rng(5)
+    for v in range(2):
+        depth = (np.where(np.isfinite(scene.depths[v]), scene.depths[v], 3.0)
+                 * 200.0 + rng.normal(0, 0.5, (20, 28))).astype(np.float32)
+        args = (scene.poses[v], scene.intrinsics[v], (20, 28), depth, 200.0)
+        want = jsynth.sphere_radial_error(*args)
+        got = tsynth.sphere_radial_error(*args)
+        assert got == want and want[2] > 0
+        assert all(type(a) is type(b) for a, b in zip(got, want))
+
+
+def test_sample_rays_bit_equal():
+    scene = jsynth.make_sphere_scene(3, (20, 28))
+    for v in range(3):
+        uv_a, rgb_a = jsynth.sample_rays(scene, np.random.default_rng(v), v, 37)
+        uv_b, rgb_b = tsynth.sample_rays(scene, np.random.default_rng(v), v, 37)
+        for a, b in ((uv_a, uv_b), (rgb_a, rgb_b)):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
