@@ -68,12 +68,14 @@
 //     W_hi, so the ring streams half the bytes, and the epilogue writes
 //     only a_hi (a_lo is not read);
 //   * with activation_dtype="bfloat16" the pre-activation is rounded to
-//     bf16 before the softplus and the softplus after it, as JAX's
-//     h.astype(bf16) and its bf16 softplus round (JAX rounds inside the
-//     softplus too: the CPU tests hold the two within bf16 units). The
-//     roundings inside the epilogue are integer round-to-nearest-even
-//     on the bits, off the conversion unit that the softplus's MUFU
-//     operations share: with cvt.rn they doubled the epilogue (PERF.md);
+//     bf16 before the softplus, and the softplus is computed op by op in
+//     bf16 as JAX's bf16 program computes it (h.astype(bf16), then
+//     jax.nn.softplus(100 h) / 100 on bf16 values): 100 h, exp(-|z|),
+//     log1p, max(z, 0) + log1p and the quotient each rounded to bf16
+//     (softplus100_bf16). The roundings inside the epilogue are integer
+//     round-to-nearest-even on the bits, off the conversion unit that
+//     the softplus's MUFU operations share: with cvt.rn they doubled the
+//     epilogue (PERF.md);
 //   * the 1/sqrt(2) of the skip junction is NOT folded into the
 //     weights: the epilogue multiplies the junction's activations and
 //     encoding by it (bf16(1/sqrt(2)) with bf16 activations) and rounds
@@ -325,22 +327,53 @@ __device__ __forceinline__ float bf16r(float x) {
   return __uint_as_float((u + 0x7FFFu + ((u >> 16) & 1u)) & 0xFFFF0000u);
 }
 
+// softplus(100 h) / 100 of a bf16 value h in bf16 arithmetic, each
+// operation of jax.nn.softplus's form rounded to bf16 as JAX's (and
+// torch's) bf16 ops round their float32 result: z = bf16(100 h) (exact
+// before its rounding), e = bf16(exp(-|z|)), l = bf16(log1p(e)),
+// s = bf16(max(z, 0) + l), and s / 100, which the caller rounds to
+// bf16. log1p(e) is lg2(1 + e) ln 2, or for e below 2^-6, where 1 + e
+// drops e's low bits, e (1 - e/2 + e^2/3). The quotient is s * 0.01f:
+// for a bf16 s (8 significant bits) s / 100 lies at least 2^-16
+// relative from every bf16 rounding midpoint, and s * 0.01f within
+// 2^-23 of it, so both round to the same bf16 (every finite s:
+// tests/test_torch_fused_sdf.py). The exp and the log are the MUFU's
+// approximations, so a result within their error of a bf16 rounding
+// midpoint may round the other way: chip_smoke.py checks the whole
+// function over every bf16 input (fused_sdf_act_bf16).
+__device__ __forceinline__ float softplus100_bf16(float h) {
+  const float z = bf16r(100.0f * h);
+  float e, l;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(-1.4426950408889634f * fabsf(z)));
+  e = bf16r(e);
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(l) : "f"(1.0f + e));
+  l = e < 0.015625f ? e * fmaf(e, fmaf(e, 0.33333334f, -0.5f), 1.0f)
+                    : l * 0.6931471805599453f;
+  return bf16r(fmaxf(z, 0.0f) + bf16r(l)) * 0.01f;
+}
+
 // The bfloat16 mode's activation of a hidden unit: with bf16 activations
-// (kAct) the pre-activation z rounded to bf16 and the softplus too, as
-// JAX's h.astype(bf16) and its bf16 softplus round.
+// (kAct) the pre-activation z rounded to bf16 and the softplus in bf16
+// arithmetic (softplus100_bf16), as JAX's h.astype(bf16) and its bf16
+// softplus round.
 template <bool kAct>
 __device__ __forceinline__ float act(float z) {
-  if constexpr (kAct) return bf16r(softplus100(bf16r(z)));
+  if constexpr (kAct) return bf16r(softplus100_bf16(bf16r(z)));
   return softplus100(z);
+}
+
+// act<true> elementwise (fused_sdf_act_bf16).
+__global__ void act_bf16_kernel(const float* z, float* out, int n) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = act<true>(z[i]);
 }
 
 // The next layer's operand in A_hi is act(z) * scale (scale: 1, or the
 // skip junction's 1/sqrt(2)) rounded to bf16: store_hi rounds it. Where
-// scale is 1, act's own rounding of the softplus is the store's, and is
-// left to it.
+// scale is 1, act's own last rounding is the store's, and is left to it.
 template <bool kAct>
 __device__ __forceinline__ float act_unrounded(float z) {
-  if constexpr (kAct) return softplus100(bf16r(z));
+  if constexpr (kAct) return softplus100_bf16(bf16r(z));
   return softplus100(z);
 }
 
@@ -707,6 +740,15 @@ int fused_sdf_forward(const float* pts, const void* wts, const float* vec,
                       cudaStream_t stream) {
   return fused_sdf_forward_scenes(pts, wts, vec, out, n_pts, 1, 0, meta,
                                   stream);
+}
+
+// act<true> (the bfloat16 mode's activation of a hidden unit, rounded
+// to bf16) of n float32 values, on `stream`: the check of
+// softplus100_bf16 over every bf16 input. Returns cudaGetLastError().
+int fused_sdf_act_bf16(const float* z, float* out, int n,
+                       cudaStream_t stream) {
+  if (n > 0) act_bf16_kernel<<<(n + 255) / 256, 256, 0, stream>>>(z, out, n);
+  return (int)cudaGetLastError();
 }
 
 const char* fused_sdf_error_string(int code) {

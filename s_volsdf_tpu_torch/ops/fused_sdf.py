@@ -141,7 +141,10 @@ def sdf_values_plain(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
     The bfloat16 mode rounds where the kernel rounds: every layer's
     input and weights to bf16 (the float32 product of bf16 values is
     their exact products summed in float32); with bf16 activations also
-    the pre-activation and the softplus; the skip junction's
+    the pre-activation, and the softplus op by op in bf16 (100 h, the
+    exp, the log1p, the sum and the quotient each rounded), as the JAX
+    package's bf16 program rounds it and the port's training MLP does
+    (`models.network.sdf_mlp_raw`); the skip junction's
     [h, pe] * 1/sqrt(2) (bf16(1/sqrt(2)) with bf16 activations) before
     its rounding."""
     with torch.no_grad():
@@ -181,7 +184,7 @@ def _plain(wb, cfg: ModelConfig, pts: torch.Tensor,
             else:
                 z = h @ w + b
                 if act:
-                    h = bf16r(softplus_b(bf16r(z), beta=100.0))
+                    h = softplus_b(z.to(torch.bfloat16), beta=100.0).float()
                 else:
                     h = softplus_b(z, beta=100.0)
         sdf = h[:, 0]
@@ -351,6 +354,9 @@ def bind(path: str):
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, SdfMeta,
         ctypes.c_void_p]
     lib.fused_sdf_forward_scenes.restype = ctypes.c_int
+    lib.fused_sdf_act_bf16.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                       ctypes.c_int, ctypes.c_void_p]
+    lib.fused_sdf_act_bf16.restype = ctypes.c_int
     lib.fused_sdf_error_string.argtypes = [ctypes.c_int]
     lib.fused_sdf_error_string.restype = ctypes.c_char_p
     return lib
@@ -434,6 +440,29 @@ def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
     fused_sdf_values.mode_launches[pack.mode] += 1
     scenes = fused_sdf_values.scene_launches
     scenes[max(S, 1)] = scenes.get(max(S, 1), 0) + 1
+    return out
+
+
+def act_bf16_values(z: torch.Tensor) -> torch.Tensor:
+    """The bfloat16 mode's activation of a hidden unit, elementwise on
+    float32 z: the pre-activation rounded to bf16, softplus(100 h) / 100
+    op by op in bf16 (`models.layers.softplus_b` on a bf16 tensor). CPU
+    tensor: that plain form. CUDA tensor: the kernel's own activation
+    (`softplus100_bf16`, through the C entry fused_sdf_act_bf16), for a
+    check of it over every bf16 input; not a launch of the SDF kernel,
+    and not counted."""
+    if z.device.type == "cpu":
+        return softplus_b(z.to(torch.bfloat16), beta=100.0).float()
+    if z.dtype != torch.float32 or not z.is_contiguous():
+        raise ValueError(f"act_bf16_values: want contiguous float32, got "
+                         f"{z.dtype}")
+    out = torch.empty_like(z)
+    lib = _load()
+    rc = lib.fused_sdf_act_bf16(z.data_ptr(), out.data_ptr(), z.numel(),
+                                torch.cuda.current_stream(z.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("fused_sdf_act_bf16 launch failed: "
+                           + lib.fused_sdf_error_string(rc).decode())
     return out
 
 

@@ -17,7 +17,12 @@ the plain version at 65,536 points, with the kernel's max |diff| to it.
 
 A tree whose kernel has the bfloat16 mode is timed in both modes (the
 dtu model with compute_dtype and activation_dtype "bfloat16"), the
-bfloat16 mode's error against its own plain version.
+bfloat16 mode's error against its own plain version. Each turn's
+bfloat16 output at 65,536 points is also held to THIS checkout's plain
+version by chip_smoke.py's phase 3 bars (`bf16_errors`: the max and the
+mean of |d| / (|sdf| + 1)), and a tree with the activation's own entry
+point (`act_bf16_values`) has it checked over every bf16 input
+(`check_act_bf16`), so one call shows which kernels pass them.
 
 `--trace`: builds this checkout's kernel with -DFUSED_SDF_TRACE=100 (a
 separate library, `_build/libfused_sdf_trace.so`) and prints, for block
@@ -37,8 +42,10 @@ import argparse
 import ctypes
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 
 POINTS = (65536, 2097152)
 FLOP_PER_POINT = 2 * 459264      # the dtu width, SDF column only
@@ -113,9 +120,9 @@ def _time_mode(fs, dev, mode: str) -> dict:
             "max_abs_err": (got - ref).abs().max().item()}
 
 
-def child(tree: str) -> None:
+def child(tree: str, out: str) -> None:
     """One turn: times the kernel of the package under `tree`, in each
-    mode it has."""
+    mode it has; saves its bfloat16 output at 65,536 points to `out`."""
     sys.path.insert(0, tree)
     import torch
     from s_volsdf_tpu_torch.ops import fused_sdf as fs
@@ -123,8 +130,41 @@ def child(tree: str) -> None:
     dev = torch.device("cuda")
     fs.build(force=True)
     modes = getattr(fs, "MODES", ("float32",))
-    print(json.dumps({"tree": tree, **{m: _time_mode(fs, dev, m)
-                                       for m in modes}}))
+    res = {"tree": tree, **{m: _time_mode(fs, dev, m) for m in modes}}
+    if "bfloat16" in modes:
+        cfg, params, pts = _setup(dev, "bfloat16")
+        torch.save(fs.fused_sdf_values(params.sdf, cfg.model, pts[POINTS[0]],
+                                       3.0).cpu(), out)
+    if hasattr(fs, "act_bf16_values"):
+        sys.path.insert(0, REPO)
+        from chip_smoke import check_act_bf16
+        res["act_bf16"] = check_act_bf16(dev, raise_past_bar=False)
+    print(json.dumps(res))
+
+
+def _held_to_this_plain(trees, runs, outs, card: str) -> None:
+    """Each turn's bfloat16 output at 65,536 points against this
+    checkout's plain version, by chip_smoke.py's phase 3 bars, and the
+    activation check of the turns that have it."""
+    import torch
+    sys.path.insert(0, REPO)
+    from chip_smoke import BF16_KERNEL_MEAN, BF16_KERNEL_UNITS, bf16_errors
+    from s_volsdf_tpu_torch.ops import fused_sdf as fs
+    dev = torch.device("cuda")
+    cfg, params, pts = _setup(dev, "bfloat16")
+    ref = fs.sdf_values_plain(params.sdf, cfg.model, pts[POINTS[0]], 3.0)
+    for tree, run, out in zip(trees, runs, outs):
+        if not os.path.exists(out):
+            continue
+        worst, mean = bf16_errors(torch.load(out).to(dev), ref)
+        ok = worst <= BF16_KERNEL_UNITS and mean <= BF16_KERNEL_MEAN
+        print(f"[held] {tree}: bfloat16 mode against this checkout's plain "
+              f"version at {POINTS[0]} points: max {worst:.3e}, mean "
+              f"{mean:.3e} (|sdf| + 1) against the bars "
+              f"{BF16_KERNEL_UNITS:.3e} / {BF16_KERNEL_MEAN:.1e}: "
+              f"{'pass' if ok else 'FAIL'}; activation over every bf16 "
+              f"input: {run.get('act_bf16', 'no entry point')} [{card}]",
+              flush=True)
 
 
 def trace(mode: str, block: int = 100) -> None:
@@ -173,9 +213,10 @@ def main() -> None:
     ap.add_argument("--trace", action="store_true",
                     help="profile one block of this checkout's kernel")
     ap.add_argument("--child", help=argparse.SUPPRESS)
+    ap.add_argument("--child-out", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child)
+        child(args.child, args.child_out)
         return
     import torch
     if not torch.cuda.is_available():
@@ -188,18 +229,22 @@ def main() -> None:
     if args.other:
         other = os.path.abspath(args.other)
         trees = [other, REPO, REPO, other]
-    runs = []
-    for tree in trees:
+    runs, outs = [], []
+    tmp = tempfile.mkdtemp()
+    for i, tree in enumerate(trees):
+        outs.append(os.path.join(tmp, f"turn{i}.pt"))
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              "--child", tree], capture_output=True,
-                             text=True)
+                              "--child", tree, "--child-out", outs[-1]],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise RuntimeError(f"turn {tree} failed:\n{res.stderr[-4000:]}")
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
+    _held_to_this_plain(trees, runs, outs, card)
+    shutil.rmtree(tmp)
     for tree in dict.fromkeys(trees):
         mine = [r for r in runs if r["tree"] == tree]
-        for mode in [m for m in mine[0] if m != "tree"]:
+        for mode in [m for m in ("float32", "bfloat16") if m in mine[0]]:
             for n in POINTS:
                 ms = [r[mode]["kernel_ms"][str(n)] for r in mine]
                 wr = [r[mode]["wrapper_ms"][str(n)] for r in mine]

@@ -13,8 +13,9 @@ emulated from the pack and held to the plain version.
 
 The bfloat16 mode (compute_dtype "bfloat16"): its plain version against
 JAX `sdf_values` under the same precision, within 4 bf16 units of the
-value (4 * 2^-8 (|want| + 1)): the two round the softplus and the weight
-norm at other places (tests/test_torch_precision.py). Its pack holds
+value (4 * 2^-8 (|want| + 1)): the two round the same operations, the
+softplus op by op, after sums in other orders and weight norms a float32
+bit apart (tests/test_torch_precision.py). Its pack holds
 W_hi alone, and its arithmetic emulated from the pack, with the
 kernel's accumulation (bias first, then K chunk by K chunk), is held to
 the plain version within 2^-8 (|want| + 1): one accumulation order
@@ -117,6 +118,51 @@ def test_fused_sdf_plain_bf16_matches_jax(activation):
     f32 = fused_sdf.sdf_values_plain(tp.sdf, tcfg.model, torch.tensor(pts),
                                      3.0).numpy()
     assert np.abs(f32 - want).max() > err.max()
+
+
+def _every_bf16():
+    """Every finite bf16 value, as float32."""
+    v = (np.arange(1 << 16, dtype=np.uint32) << 16).view(np.float32)
+    return v[np.isfinite(v)]
+
+
+def test_bf16_softplus_rounds_as_jax_on_every_input():
+    """The bfloat16 mode's activation in its plain form
+    (`act_bf16_values` on the CPU; the kernel's softplus100_bf16 is held
+    to it on the card, chip_smoke.py phase 3) against the JAX package's
+    `layers.softplus_b` on h.astype(bf16), jitted on the CPU, over every
+    finite bf16 h: equal wherever either result is a normal float (XLA
+    on the CPU flushes subnormal results to 0: 14 inputs near h = -0.85,
+    results under 1e-38). XLA's fused loop keeps a round trip to bf16
+    after each op, so JAX's bf16 program rounds op by op. The softplus
+    rounded once, as the sampler's sweep computed it before, differs on
+    4,091 of the 65,280 inputs."""
+    from s_volsdf_tpu.models import layers as jlayers
+    h = _every_bf16()
+    # bf16 out of the program: XLA drops the quotient's rounding when
+    # the program goes on to convert it to float32 (excess precision)
+    want = np.asarray(jax.jit(lambda x: jlayers.softplus_b(
+        x.astype(jax.numpy.bfloat16), beta=100.0))(h)).astype(np.float32)
+    got = fused_sdf.act_bf16_values(torch.from_numpy(h)).numpy()
+    normal = np.maximum(np.abs(got), np.abs(want)) >= np.finfo(np.float32).tiny
+    same = (got == want) | (np.isnan(got) & np.isnan(want))
+    assert np.all(same | ~normal), h[~same & normal][:8]
+    once = fused_sdf.bf16r(softplus_b(fused_sdf.bf16r(torch.from_numpy(h)),
+                                      beta=100.0)).numpy()
+    assert np.sum(once != want) > 4000
+
+
+def test_bf16_quotient_as_multiply_rounds_as_division():
+    """csrc/fused_sdf.cu's softplus100_bf16 divides the bf16 sum s by 100
+    as s * 0.01f before its rounding to bf16: for every finite bf16 s
+    that rounds to the bf16 of s / 100, in float32 as torch's bf16
+    division computes it and exactly."""
+    s = _every_bf16()
+    mul = torch.from_numpy(s * np.float32(0.01)).to(torch.bfloat16)
+    div = torch.from_numpy(s).to(torch.bfloat16) / 100
+    exact = torch.from_numpy(s.astype(np.float64) / 100).to(torch.bfloat16)
+    assert torch.equal(mul.view(torch.int16), div.view(torch.int16))
+    assert torch.equal(mul.view(torch.int16), exact.view(torch.int16))
 
 
 def test_supported_family():
@@ -290,18 +336,20 @@ def _bf16_pack_layers(pack):
 def emulate_bf16_kernel(pack, cfg, pts, bounding_sphere):
     """csrc/fused_sdf.cu's bfloat16 mode in torch on the CPU, read from
     its pack: each layer's bf16 input times W_hi accumulated onto the
-    bias K chunk by K chunk; the pre-activation and the softplus rounded
-    to bf16 with bf16 activations; the junction's scale applied before
-    the rounding to the next operand (hand_on, pe_hand_on); the SDF
-    column as a dot product; the clamp."""
+    bias K chunk by K chunk; with bf16 activations the pre-activation
+    rounded to bf16 and the softplus computed op by op in bf16
+    (softplus100_bf16); the junction's scale applied before the rounding
+    to the next operand (hand_on, pe_hand_on); the SDF column as a dot
+    product; the clamp."""
     meta, vec, W = pack.meta, pack.vec, fused_sdf.WIDTH
     r = fused_sdf.bf16r
 
     def hand_on(z, scale):
         if meta.act_bf16:
-            z = r(z)
-        v = softplus_b(z, beta=100.0)
-        return r((r(v) if meta.act_bf16 else v) * scale)
+            v = softplus_b(z.to(torch.bfloat16), beta=100.0).float()
+        else:
+            v = softplus_b(z, beta=100.0)
+        return r(v * scale)
 
     def pe_hand_on(p, scale):
         return r((r(p) if meta.act_bf16 else p) * scale)

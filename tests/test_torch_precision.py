@@ -3,11 +3,12 @@ of test_torch_config.shrink with its float32 lines put back to the JAX
 defaults where a test says so.
 
 Bars, in bf16 units (u = 2^-8, the spacing of bf16 values in [1, 2) is
-2u): the two frameworks round at other places (the JAX bf16 softplus is
-computed as XLA fuses it, the port's as torch's eager ops round each
-step; their weight norms differ in the last float32 bit, which can move
-a bf16 rounding of a weight), so a value differs from JAX by a few
-roundings of its own size, |d| <= k u (|want| + 1):
+2u): the two frameworks round the same operations (jitted on the CPU,
+JAX's bf16 softplus rounds after each op as torch's eager ops do), but
+after sums in other orders, and their weight norms differ in the last
+float32 bit, which can move a bf16 rounding of a weight; so a value
+differs from JAX by a few roundings of its own size, |d| <= k u
+(|want| + 1):
   * float32 (compute, activation): 2e-4 absolute, the VolSDF bar;
   * bf16 values (sdf, features, rgb, a layer's output): k = 4;
   * gradients through bf16 activations (the cotangents are bf16 too,

@@ -10,14 +10,17 @@ Tolerances and why:
     sign flips of near-zero gradients into whole learning-rate steps, so
     the trajectories are compared loosely and the gradients tightly.
   * at the JAX defaults (bf16 products and activations in the training
-    render, the volumes read as bf16): the loss within rtol 1e-2
-    (measured 1.4e-3: the eikonal term's spatial gradients run through
+    render, the volumes read as bf16): the loss within rtol 1e-3
+    (measured 3.6e-4: the eikonal term's spatial gradients run through
     bf16 activations, whose cotangents both sides round after every
-    backward op, at other places, moving them by a bf16 unit or two);
-    the whole gradient within 2e-2 relative in L2 (measured 7.5e-3) and
-    each leaf within 1e-1 (measured up to 3.4%, the radiance MLP's first
-    layer, fed those normals); five steps within rtol 2e-2 (measured up
-    to 9.8e-3).
+    backward op, after sums in other orders, moving them by a bf16 unit
+    or two); the whole gradient within 5e-3 relative in L2 (measured
+    3.2e-3) and each leaf within 2e-2 (measured up to 5.9e-3). The
+    sampler's sweep rounds its bf16 softplus op by op, as JAX does
+    (tests/test_torch_trajectory.py); while it rounded the softplus once,
+    the loss was 1.4e-3 off, the gradient 7.5e-3 and the radiance MLP's
+    first layer 3.4%. Five steps within rtol 2e-2 (measured up to
+    9.8e-3).
 """
 
 import jax
@@ -249,7 +252,7 @@ def test_step_gradients_match_jax_at_defaults():
     tgrads, tlo = tts.loss_and_grads(tp, tcfg, tb,
                                      torch.Generator().manual_seed(0), tm, 5)
     np.testing.assert_allclose(float(tlo.loss.detach()), float(jlo.loss),
-                               rtol=1e-2)
+                               rtol=1e-3)
     assert float(jlo.mvs_loss) != 0.0
     names = [n for n, _ in tp.named_parameters()]
     num = den = 0.0
@@ -257,9 +260,9 @@ def test_step_gradients_match_jax_at_defaults():
         want = np.asarray(_leaf(jgrads, name))
         assert g.dtype == torch.float32, name
         err = np.linalg.norm(g.numpy() - want)
-        assert err <= 1e-1 * np.linalg.norm(want), (name, err)
+        assert err <= 2e-2 * np.linalg.norm(want), (name, err)
         num, den = num + err ** 2, den + np.linalg.norm(want) ** 2
-    assert num ** 0.5 <= 2e-2 * den ** 0.5, (num / den) ** 0.5
+    assert num ** 0.5 <= 5e-3 * den ** 0.5, (num / den) ** 0.5
     # The defaults are not float32: the float32 step's loss differs.
     _, tlo32 = tts.loss_and_grads(tp, small_configs()[1], tb,
                                   torch.Generator().manual_seed(0), _mvs()[1],
