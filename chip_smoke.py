@@ -374,11 +374,11 @@ BF16_KERNEL_UNITS = 2.0 ** -7
 # reads 8.0e-4 against the same plain version, inside the max bar above
 # (5.5e-3) and 8x past this one.
 BF16_KERNEL_MEAN = 1e-4
-# The activation (softplus100_bf16, through fused_sdf_act_bf16) against
-# torch's bf16 ops on the card over every finite bf16 input: equal
-# wherever either result is a normal float (measured: all 65,280; the
-# MUFU's exp and log could land a result near a rounding midpoint on the
-# other side, and none does). Rounded once it differs on 4,077.
+# The activation (act2_bf16: its table of torch's bf16 ops over the band
+# 2^-16 <= |h| < 1, closed forms outside it; through fused_sdf_act_bf16)
+# against torch's bf16 ops on the card over every finite bf16 input:
+# equal wherever either result is a normal float (measured: all 65,280,
+# as the op-by-op MUFU form before it). Rounded once it differs on 4,077.
 ACT_MISMATCHES = 0
 KERNEL_SWEEP, KERNEL_RENDER = 65536, 2097152   # one step's sweep, one render launch
 BF16_TFLOPS = 989.0   # the H100's dense bf16 tensor-core peak
@@ -1557,6 +1557,7 @@ def run_training(dev, card: str, exps_root: str):
     # 5. Feedback renders of view 0 at full resolution, both precisions.
     trainer = trainers["defaults"]
     H, W = trainer.scene.img_res
+    render_seconds = {}
     for dtype in ("float32", "bfloat16"):
         trainer.cfg.train.feedback_render_dtype = dtype
         builds = fused_sdf.pack_sdf.builds
@@ -1578,6 +1579,10 @@ def run_training(dev, card: str, exps_root: str):
               f"{dtype}: {render_s:.3f} s, depth {depth.min():.4f}.."
               f"{depth.max():.4f}, kernel launches {modes[dtype]} [{card}]",
               flush=True)
+        render_seconds[dtype] = render_s
+    print(f"[render] feedback render {H}x{W}, s/view: float32 "
+          f"{render_seconds['float32']:.3f}, bfloat16 "
+          f"{render_seconds['bfloat16']:.3f} [{card}]", flush=True)
     trainer.cfg.train.feedback_render_dtype = "float32"
     launches = {"fused_sdf": dict(fused_sdf.fused_sdf_values.mode_launches),
                 "cost_mapping": cost_mapping.cost_mapping.launches}
@@ -3860,6 +3865,15 @@ def main() -> None:
                        if k > 1)
     lockstep_cost = sum(n for k, n in
                         ms_launches["cost_mapping_scenes"].items() if k > 1)
+    sdf16, sdf16_axis = sdf["bfloat16"], axis["fused_sdf_bfloat16"]
+    print(f"[kernel] fused_sdf bfloat16 mode: "
+          + ", ".join(f"{n} pts {sdf16['kernel_ms'][n]:.4f} ms ("
+                      f"{100 * sdf16['bound_ms'][n] / sdf16['kernel_ms'][n]:.1f}"
+                      f"% of bound)" for n in (KERNEL_SWEEP, KERNEL_RENDER))
+          + f", {MS_SCENES} scenes x {KERNEL_SWEEP} pts in one launch "
+          f"{sdf16_axis['ms']:.4f} ms ("
+          f"{100 * sdf16_axis['bound_ms'] / sdf16_axis['ms']:.1f}% of bound) "
+          f"[{card}]", flush=True)
     print(f"[kernels] launches on the paths driven: fused SDF {sdf_launches}, "
           f"cost_mapping {cost_launches}, geo_consistency {geo_launches}, "
           f"deform_conv {dcn_launches}", flush=True)

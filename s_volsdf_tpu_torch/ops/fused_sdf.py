@@ -18,7 +18,10 @@ The kernel has two modes, named by the model config's precision (`mode`):
 bf16 products per layer on the tensor cores (hi/lo split, f32
 accumulation); "bfloat16" (compute_dtype bfloat16, the JAX training
 step's default) is one bf16 product per layer, rounding where the JAX
-bf16 MLP rounds (csrc/fused_sdf.cu's header). `pack_sdf` lays the
+bf16 MLP rounds (csrc/fused_sdf.cu's header); with bf16 activations its
+softplus is a table of torch's bf16 ops over a band of bf16 inputs
+(`act_bf16_table`, built once a process on each device and handed to
+every launch) with closed forms outside it. `pack_sdf` lays the
 weights out for one mode once per weight version, and the pack carries
 its mode: the callers pack once per training step and once per render
 (`models/network.sampler_sdf_fn`) and hand the pack to every launch;
@@ -52,6 +55,7 @@ import os
 import threading
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from s_volsdf_tpu_torch.config import ModelConfig
@@ -71,6 +75,15 @@ MODES = ("float32", "bfloat16")
 # |w - (hi + lo)| <= 2^-16 |w|: each half rounded to nearest bf16 (8
 # significant bits) is within 2^-8 of what it rounds.
 SPLIT_REL_ERR = 2.0 ** -16
+# The bf16 activation's table (csrc/fused_sdf.cu, act2_bf16): the band
+# ACT_LO <= |h|'s bf16 bits < ACT_HI (2^-16 <= |h| < 1), entry 1 + 2 (m -
+# ACT_LO) + sign for bits m; entry 0 the value below the band; then the
+# sentinel that hands h beyond the band to the closed form; zero-padded
+# to whole 16 bytes.
+ACT_LO, ACT_HI = 0x3780, 0x3F80
+ACT_SPAN = ACT_HI - ACT_LO
+ACT_SENTINEL = 0x8000
+ACT_TABLE_LEN = -(-(2 * ACT_SPAN + 2) // 8) * 8
 
 
 class SdfMeta(ctypes.Structure):
@@ -192,6 +205,36 @@ def _plain(wb, cfg: ModelConfig, pts: torch.Tensor,
             r = torch.linalg.norm(pts, dim=-1)
             sdf = torch.minimum(sdf, imp.sphere_scale * (bounding_sphere - r))
         return sdf
+
+
+def act_bf16_inputs() -> torch.Tensor:
+    """The bf16 values h whose activations the kernel's table holds, in
+    its order, as float32: 0 (the value below the band), then for each
+    |h|'s bits m in [ACT_LO, ACT_HI), +h and -h."""
+    m = np.arange(ACT_LO, ACT_HI, dtype=np.uint32)
+    bits = np.concatenate([[0], np.stack([m, m | 0x8000], -1).ravel()])
+    return torch.from_numpy((bits.astype(np.uint32) << 16).view(np.float32))
+
+
+_ACT_TABLES = {}
+
+
+def act_bf16_table(device) -> torch.Tensor:
+    """The kernel's table of the bf16 activation (int16 bf16 bits,
+    ACT_TABLE_LEN), on `device`: `act_bf16_values`' plain form (torch's
+    bf16 ops) of `act_bf16_inputs`, computed on that device once a
+    process, then the sentinel."""
+    device = torch.device(device)
+    with _LIB_LOCK:
+        if device not in _ACT_TABLES:
+            h = act_bf16_inputs().to(device)
+            vals = softplus_b(h.to(torch.bfloat16), beta=100.0)
+            table = torch.zeros(ACT_TABLE_LEN, dtype=torch.int16,
+                                device=device)
+            table[:h.numel()] = vals.view(torch.int16)
+            table[h.numel()] = ACT_SENTINEL - (1 << 16)
+            _ACT_TABLES[device] = table
+        return _ACT_TABLES[device]
 
 
 def split_bf16(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -346,16 +389,17 @@ def bind(path: str):
     """Load a build of csrc/fused_sdf.cu and declare its C entry points."""
     lib = ctypes.CDLL(path)
     lib.fused_sdf_forward.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, SdfMeta, ctypes.c_void_p]
     lib.fused_sdf_forward.restype = ctypes.c_int
     lib.fused_sdf_forward_scenes.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, SdfMeta,
         ctypes.c_void_p]
     lib.fused_sdf_forward_scenes.restype = ctypes.c_int
     lib.fused_sdf_act_bf16.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                                       ctypes.c_int, ctypes.c_void_p]
+                                       ctypes.c_int, ctypes.c_void_p,
+                                       ctypes.c_void_p]
     lib.fused_sdf_act_bf16.restype = ctypes.c_int
     lib.fused_sdf_error_string.argtypes = [ctypes.c_int]
     lib.fused_sdf_error_string.restype = ctypes.c_char_p
@@ -428,9 +472,10 @@ def fused_sdf_values(sdf_params, cfg: ModelConfig, pts: torch.Tensor,
     out = torch.empty(pts.shape[:-1], dtype=torch.float32, device=pts.device)
     if n == 0:
         return out
+    table = act_bf16_table(pts.device).data_ptr() if meta.act_bf16 else None
     stream = torch.cuda.current_stream(pts.device).cuda_stream
     rc = lib.fused_sdf_forward_scenes(
-        pts.data_ptr(), pack.weights.data_ptr(), pack.vec.data_ptr(),
+        pts.data_ptr(), pack.weights.data_ptr(), pack.vec.data_ptr(), table,
         out.data_ptr(), n, max(S, 1), pack.vec.shape[-1] if S else 0, meta,
         stream)
     if rc != 0:
@@ -448,9 +493,9 @@ def act_bf16_values(z: torch.Tensor) -> torch.Tensor:
     float32 z: the pre-activation rounded to bf16, softplus(100 h) / 100
     op by op in bf16 (`models.layers.softplus_b` on a bf16 tensor). CPU
     tensor: that plain form. CUDA tensor: the kernel's own activation
-    (`softplus100_bf16`, through the C entry fused_sdf_act_bf16), for a
-    check of it over every bf16 input; not a launch of the SDF kernel,
-    and not counted."""
+    (`act2_bf16` with `act_bf16_table`, through the C entry
+    fused_sdf_act_bf16), for a check of it over every bf16 input; not a
+    launch of the SDF kernel, and not counted."""
     if z.device.type == "cpu":
         return softplus_b(z.to(torch.bfloat16), beta=100.0).float()
     if z.dtype != torch.float32 or not z.is_contiguous():
@@ -459,6 +504,7 @@ def act_bf16_values(z: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(z)
     lib = _load()
     rc = lib.fused_sdf_act_bf16(z.data_ptr(), out.data_ptr(), z.numel(),
+                                act_bf16_table(z.device).data_ptr(),
                                 torch.cuda.current_stream(z.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("fused_sdf_act_bf16 launch failed: "

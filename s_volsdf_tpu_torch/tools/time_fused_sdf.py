@@ -1,11 +1,13 @@
 """Times the fused SDF kernel of this checkout on one GPU, against
 another copy of the port in one run, and profiles one block.
 
-    python3 -m s_volsdf_tpu_torch.tools.time_fused_sdf [--other DIR] [--trace]
+    python3 -m s_volsdf_tpu_torch.tools.time_fused_sdf [--other DIR [--rounds N]]
+        [--trace]
 
 `--other DIR`: DIR holds another `s_volsdf_tpu_torch` package, for
 example the parent commit's (`git archive HEAD s_volsdf_tpu_torch | tar
--x -C DIR`). The two trees are timed in turns, other, this, this, other,
+-x -C DIR`). The two trees are timed in turns, other, this, this, other
+(`--rounds` times),
 each in its own process with its tree first on `sys.path`, building its
 own kernel into its own `_build/`. Each turn times by CUDA events (median
 of 20 launches after 3 warm-ups) the dtu SDF MLP (random weights from
@@ -13,7 +15,10 @@ seed 0, points from a unit normal, bounding sphere 3) at 65,536 points
 (one training sweep) and 2,097,152 points (one render launch): the
 kernel alone (weights packed beforehand: `pack_sdf`, or `_pack_params`
 in a tree that predates it) and the wrapper called without a pack; and
-the plain version at 65,536 points, with the kernel's max |diff| to it.
+the plain version at 65,536 points, with the kernel's max |diff| to it;
+a tree with the scene axis (`pack_sdf_scenes`) also 4 scenes x 65,536
+points in one launch (the lockstep step's sweep at S = 4; parameters
+from seeds 0-3).
 
 A tree whose kernel has the bfloat16 mode is timed in both modes (the
 dtu model with compute_dtype and activation_dtype "bfloat16"), the
@@ -22,7 +27,9 @@ bfloat16 output at 65,536 points is also held to THIS checkout's plain
 version by chip_smoke.py's phase 3 bars (`bf16_errors`: the max and the
 mean of |d| / (|sdf| + 1)), and a tree with the activation's own entry
 point (`act_bf16_values`) has it checked over every bf16 input
-(`check_act_bf16`), so one call shows which kernels pass them.
+(`check_act_bf16`), so one call shows which kernels pass them. With
+`--other`, each mode's outputs at both point counts are compared turn
+by turn with the other tree's: printed as bit-equal or not.
 
 `--trace`: builds this checkout's kernel with -DFUSED_SDF_TRACE=100 (a
 separate library, `_build/libfused_sdf_trace.so`) and prints, for block
@@ -48,6 +55,7 @@ import sys
 import tempfile
 
 POINTS = (65536, 2097152)
+SCENES = 4
 FLOP_PER_POINT = 2 * 459264      # the dtu width, SDF column only
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -111,6 +119,8 @@ def _time_mode(fs, dev, mode: str) -> dict:
         kernel_ms[n] = _median_ms(kernel)
         wrapper_ms[n] = _median_ms(
             lambda p=p: fs.fused_sdf_values(params.sdf, cfg.model, p, 3.0))
+    if hasattr(fs, "pack_sdf_scenes"):
+        kernel_ms[f"{SCENES}x{POINTS[0]}"] = _scenes_ms(fs, dev, cfg)
     n = POINTS[0]
     got = fs.fused_sdf_values(params.sdf, cfg.model, pts[n], 3.0)
     ref = fs.sdf_values_plain(params.sdf, cfg.model, pts[n], 3.0)
@@ -120,9 +130,26 @@ def _time_mode(fs, dev, mode: str) -> dict:
             "max_abs_err": (got - ref).abs().max().item()}
 
 
+def _scenes_ms(fs, dev, cfg) -> float:
+    """One launch of SCENES scenes x 65,536 points, packed beforehand."""
+    import numpy as np
+    import torch
+    from s_volsdf_tpu_torch.models.network import (init_volsdf_params,
+                                                   stack_params)
+    stacked = stack_params([init_volsdf_params(
+        torch.Generator().manual_seed(s), cfg.model, dev)
+        for s in range(SCENES)])
+    pts = torch.as_tensor(np.random.default_rng(5).normal(
+        size=(SCENES, POINTS[0], 3)).astype(np.float32), device=dev)
+    pack = fs.pack_sdf_scenes(stacked.sdf, cfg.model)
+    return _median_ms(lambda: fs.fused_sdf_values(stacked.sdf, cfg.model,
+                                                  pts, 3.0, pack=pack))
+
+
 def child(tree: str, out: str) -> None:
     """One turn: times the kernel of the package under `tree`, in each
-    mode it has; saves its bfloat16 output at 65,536 points to `out`."""
+    mode it has; saves each mode's outputs at both point counts to
+    `out`."""
     sys.path.insert(0, tree)
     import torch
     from s_volsdf_tpu_torch.ops import fused_sdf as fs
@@ -131,10 +158,13 @@ def child(tree: str, out: str) -> None:
     fs.build(force=True)
     modes = getattr(fs, "MODES", ("float32",))
     res = {"tree": tree, **{m: _time_mode(fs, dev, m) for m in modes}}
-    if "bfloat16" in modes:
-        cfg, params, pts = _setup(dev, "bfloat16")
-        torch.save(fs.fused_sdf_values(params.sdf, cfg.model, pts[POINTS[0]],
-                                       3.0).cpu(), out)
+    outputs = {}
+    for mode in modes:
+        cfg, params, pts = _setup(dev, mode)
+        outputs[mode] = {n: fs.fused_sdf_values(params.sdf, cfg.model, p,
+                                                3.0).cpu()
+                         for n, p in pts.items()}
+    torch.save(outputs, out)
     if hasattr(fs, "act_bf16_values"):
         sys.path.insert(0, REPO)
         from chip_smoke import check_act_bf16
@@ -154,9 +184,10 @@ def _held_to_this_plain(trees, runs, outs, card: str) -> None:
     cfg, params, pts = _setup(dev, "bfloat16")
     ref = fs.sdf_values_plain(params.sdf, cfg.model, pts[POINTS[0]], 3.0)
     for tree, run, out in zip(trees, runs, outs):
-        if not os.path.exists(out):
+        got = torch.load(out).get("bfloat16")
+        if got is None:
             continue
-        worst, mean = bf16_errors(torch.load(out).to(dev), ref)
+        worst, mean = bf16_errors(got[POINTS[0]].to(dev), ref)
         ok = worst <= BF16_KERNEL_UNITS and mean <= BF16_KERNEL_MEAN
         print(f"[held] {tree}: bfloat16 mode against this checkout's plain "
               f"version at {POINTS[0]} points: max {worst:.3e}, mean "
@@ -165,6 +196,27 @@ def _held_to_this_plain(trees, runs, outs, card: str) -> None:
               f"{'pass' if ok else 'FAIL'}; activation over every bf16 "
               f"input: {run.get('act_bf16', 'no entry point')} [{card}]",
               flush=True)
+
+
+def _bit_equal(trees, outs, card: str) -> None:
+    """Each mode's outputs of this tree's turns against the other tree's,
+    at each point count: bit for bit or not."""
+    import torch
+    loaded = [torch.load(o) for o in outs]
+    this = [o for t, o in zip(trees, loaded) if t == REPO]
+    other = [o for t, o in zip(trees, loaded) if t != REPO]
+    for mode in this[0]:
+        for n in POINTS:
+            pairs = [(a[mode][n], b[mode][n]) for a in this for b in other
+                     if mode in b]
+            if not pairs:
+                continue
+            differ = [int((a != b).sum()) for a, b in pairs]
+            print(f"[bits] {mode} mode, {n} points: this tree's outputs "
+                  f"{'equal' if not any(differ) else 'DIFFER from'} the "
+                  f"other tree's bit for bit in {len(pairs)} pairs of turns "
+                  f"({max(differ)} outputs differ at most) [{card}]",
+                  flush=True)
 
 
 def trace(mode: str, block: int = 100) -> None:
@@ -192,7 +244,9 @@ def trace(mode: str, block: int = 100) -> None:
     n = pack.meta.n_hidden
     width = 2 * fs.MAX_LAYERS + 1
     buf = (ctypes.c_longlong * (2 * width))()
-    if lib.fused_sdf_trace(buf) != 0:
+    waits = (ctypes.c_longlong * (2 * fs.MAX_LAYERS * 3))()
+    lib.fused_sdf_trace_waits.argtypes = [ctypes.c_void_p]
+    if lib.fused_sdf_trace(buf) != 0 or lib.fused_sdf_trace_waits(waits):
         raise RuntimeError("reading the trace failed")
     for wg in range(2):
         t = buf[wg * width:(wg + 1) * width]
@@ -204,12 +258,25 @@ def trace(mode: str, block: int = 100) -> None:
               f"products {sum(mma)} ({100 * sum(mma) / total:.1f}%), "
               f"epilogues {sum(epi)} ({100 * sum(epi) / total:.1f}%); "
               f"per layer products {mma}, epilogues {epi}", flush=True)
+        if mode == "bfloat16":
+            w = waits[wg * fs.MAX_LAYERS * 3:(wg + 1) * fs.MAX_LAYERS * 3]
+            turn = [w[3 * l] - t[2 * l] for l in range(n)]
+            first = [w[3 * l + 1] - w[3 * l] for l in range(n)]
+            rest = [w[3 * l + 2] - w[3 * l + 1] for l in range(n)]
+            tail = [t[1 + 2 * l] - w[3 * l + 2] for l in range(n)]
+            print(f"[trace] {mode}, warpgroup {wg}, each layer's products: "
+                  f"waiting for its turn {turn}, then for the first stage "
+                  f"{first}, to the last stage {rest}, the last stage's "
+                  f"products {tail}", flush=True)
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--other", help="directory holding another "
                     "s_volsdf_tpu_torch package, timed in turns with this one")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="with --other, the turns other, this, this, other "
+                    "this many times")
     ap.add_argument("--trace", action="store_true",
                     help="profile one block of this checkout's kernel")
     ap.add_argument("--child", help=argparse.SUPPRESS)
@@ -228,7 +295,7 @@ def main() -> None:
     trees = [REPO]
     if args.other:
         other = os.path.abspath(args.other)
-        trees = [other, REPO, REPO, other]
+        trees = [other, REPO, REPO, other] * args.rounds
     runs, outs = [], []
     tmp = tempfile.mkdtemp()
     for i, tree in enumerate(trees):
@@ -241,6 +308,8 @@ def main() -> None:
         runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
         print(json.dumps(runs[-1]), flush=True)
     _held_to_this_plain(trees, runs, outs, card)
+    if args.other:
+        _bit_equal(trees, outs, card)
     shutil.rmtree(tmp)
     for tree in dict.fromkeys(trees):
         mine = [r for r in runs if r["tree"] == tree]
@@ -255,6 +324,15 @@ def main() -> None:
                       + " TFLOP/s), wrapper "
                       + " / ".join(f"{m:.4f}" for m in wr)
                       + f" ms [{card}]", flush=True)
+            key = f"{SCENES}x{POINTS[0]}"
+            if key in mine[0][mode]["kernel_ms"]:
+                ms = [r[mode]["kernel_ms"][key] for r in mine]
+                print(f"[time] {tree}: {mode} mode, {SCENES} scenes x "
+                      f"{POINTS[0]} points in one launch, kernel "
+                      + " / ".join(f"{m:.4f}" for m in ms) + " ms ("
+                      + " / ".join(f"{SCENES * POINTS[0] * FLOP_PER_POINT / m / 1e9:.1f}"
+                                   for m in ms) + f" TFLOP/s) [{card}]",
+                      flush=True)
     if args.trace:
         sys.path.insert(0, REPO)
         from s_volsdf_tpu_torch.ops.fused_sdf import MODES

@@ -126,13 +126,41 @@ def _every_bf16():
     return v[np.isfinite(v)]
 
 
-def test_bf16_softplus_rounds_as_jax_on_every_input():
-    """The bfloat16 mode's activation in its plain form
-    (`act_bf16_values` on the CPU; the kernel's softplus100_bf16 is held
-    to it on the card, chip_smoke.py phase 3) against the JAX package's
+def _bf16_bits(x) -> np.ndarray:
+    """float32 values (float64 allowed) rounded to nearest bf16, as their
+    16 bits (uint32)."""
+    t = torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+    return t.view(torch.int16).numpy().astype(np.uint32) & 0xFFFF
+
+
+def emulate_act_bf16(z, table):
+    """csrc/fused_sdf.cu's act2_bf16 on one 16-bit lane, bit for bit, in
+    numpy: h = bf16(z); the closed form max(bf16(bf16(100 h) * 0.01f), 0)
+    (the bf16 product rounded once); the table's index rot16(h, 1)
+    clamped to [2 ACT_LO - 1, 2 ACT_LO + 2 ACT_SPAN] and offset; the
+    closed form where the entry is the sentinel. Returns float32."""
+    with np.errstate(over="ignore", invalid="ignore"):
+        h = _bf16_bits(z)
+        z100 = _bf16_bits((h << 16).view(np.float32).astype(np.float64) * 100)
+        big = _bf16_bits((z100 << 16).view(np.float32) * np.float32(0.01))
+    big = np.where((big << 16).view(np.float32) > 0, big, 0)
+    rot = ((h << 1) & 0xFFFE) | (h >> 15)
+    lo = 2 * fused_sdf.ACT_LO - 1
+    t = np.minimum(np.maximum(rot, lo) - lo, 2 * fused_sdf.ACT_SPAN + 1)
+    r = table.numpy().astype(np.uint32)[t] & 0xFFFF
+    return (np.where(r >> 15, big, r).astype(np.uint32) << 16).view(np.float32)
+
+
+@pytest.mark.parametrize("form", ["plain", "table"])
+def test_bf16_softplus_rounds_as_jax_on_every_input(form):
+    """The bfloat16 mode's activation against the JAX package's
     `layers.softplus_b` on h.astype(bf16), jitted on the CPU, over every
-    finite bf16 h: equal wherever either result is a normal float (XLA
-    on the CPU flushes subnormal results to 0: 14 inputs near h = -0.85,
+    finite bf16 h: its plain form (`act_bf16_values` on the CPU), and the
+    kernel's act2_bf16 emulated from its table built on the CPU
+    (`act_bf16_table`; on the card the kernel is held to torch's bf16
+    ops, chip_smoke.py phase 3), which also equals the plain form bit
+    for bit. Equal wherever either result is a normal float (XLA on the
+    CPU flushes subnormal results to 0: 14 inputs near h = -0.85,
     results under 1e-38). XLA's fused loop keeps a round trip to bf16
     after each op, so JAX's bf16 program rounds op by op. The softplus
     rounded once, as the sampler's sweep computed it before, differs on
@@ -143,7 +171,12 @@ def test_bf16_softplus_rounds_as_jax_on_every_input():
     # the program goes on to convert it to float32 (excess precision)
     want = np.asarray(jax.jit(lambda x: jlayers.softplus_b(
         x.astype(jax.numpy.bfloat16), beta=100.0))(h)).astype(np.float32)
-    got = fused_sdf.act_bf16_values(torch.from_numpy(h)).numpy()
+    plain = fused_sdf.act_bf16_values(torch.from_numpy(h)).numpy()
+    if form == "plain":
+        got = plain
+    else:
+        got = emulate_act_bf16(h, fused_sdf.act_bf16_table("cpu"))
+        assert np.array_equal(got.view(np.uint32), plain.view(np.uint32))
     normal = np.maximum(np.abs(got), np.abs(want)) >= np.finfo(np.float32).tiny
     same = (got == want) | (np.isnan(got) & np.isnan(want))
     assert np.all(same | ~normal), h[~same & normal][:8]
@@ -152,9 +185,76 @@ def test_bf16_softplus_rounds_as_jax_on_every_input():
     assert np.sum(once != want) > 4000
 
 
+def test_act_bf16_table_layout():
+    """The kernel's table (`act_bf16_table`): int16 bf16 bits,
+    ACT_TABLE_LEN long (whole 16 bytes); entry 0 the activation of 0,
+    entry 1 + 2 (m - ACT_LO) + sign the activation of the bf16 value
+    with sign and |bits| m, for m in the band; then the sentinel 0x8000
+    (-0.0: no activation has its sign bit set) and zeros; one tensor per
+    device, built once."""
+    table = fused_sdf.act_bf16_table("cpu")
+    assert table is fused_sdf.act_bf16_table(torch.device("cpu"))
+    assert table.dtype == torch.int16 and table.numel() == 4104
+    assert fused_sdf.ACT_TABLE_LEN * 2 % 16 == 0
+    span = fused_sdf.ACT_SPAN
+    assert span == 2048
+    bits = table.numpy().astype(np.uint32) & 0xFFFF
+    act = fused_sdf.act_bf16_values
+    for m in (fused_sdf.ACT_LO, 0x3A00, fused_sdf.ACT_HI - 1):
+        for sign in (0, 1):
+            h = np.array([(m | sign << 15) << 16], np.uint32).view(np.float32)
+            want = _bf16_bits(act(torch.from_numpy(h)).numpy())[0]
+            assert bits[1 + 2 * (m - fused_sdf.ACT_LO) + sign] == want
+    assert bits[0] == _bf16_bits(act(torch.zeros(1)).numpy())[0] == 0x3BE3
+    assert bits[2 * span + 1] == fused_sdf.ACT_SENTINEL == 0x8000
+    assert np.all(bits[:2 * span + 1] < 0x8000)
+    assert np.all(bits[2 * span + 2:] == 0)
+
+
+@pytest.mark.parametrize("form", ["below", "negative", "positive"])
+def test_act_bf16_band_edges(form):
+    """The band's edges (2^-16 <= |h| < 1) and each closed form on every
+    finite bf16 input it covers, against the plain form: below the band
+    the activation of 0 (both signs); h <= -1, 0; h >= 1,
+    bf16(bf16(100 h) * 0.01f). Each form fails inside the band, so the
+    table is needed there: the exact edges are |h| bits 0x37A4 (above 0),
+    0x3877 (below 0), 0x3D2A (the closed form above 0), 0x3F62 (0 below
+    0), all inside [ACT_LO, ACT_HI)."""
+    assert (fused_sdf.ACT_LO, fused_sdf.ACT_HI) == (0x3780, 0x3F80)
+    h = _every_bf16()
+    bits = h.view(np.uint32) >> 16
+    m, neg = bits & 0x7FFF, bits >> 15 == 1
+    plain = fused_sdf.act_bf16_values(torch.from_numpy(h)).numpy()
+    with np.errstate(over="ignore"):
+        up = (_bf16_bits(((_bf16_bits(h.astype(np.float64) * 100) << 16)
+                          .view(np.float32)) * np.float32(0.01)) << 16
+              ).view(np.float32)
+    near0 = np.full_like(h, fused_sdf.act_bf16_values(torch.zeros(1)).item())
+    closed, side = {"below": (near0, np.ones_like(neg)),
+                    "negative": (np.zeros_like(h), neg),
+                    "positive": (up, ~neg)}[form]
+    ok = closed.view(np.uint32) == plain.view(np.uint32)
+    outside = (m < fused_sdf.ACT_LO) if form == "below" else \
+        (m >= fused_sdf.ACT_HI)
+    assert np.all(ok[side & outside])
+    # The closed form's own edge inside the band.
+    inside = side & ~outside & ~ok
+    edge = {"below": m[inside].min(), "negative": m[inside].max() + 1,
+            "positive": m[inside].max() + 1}[form]
+    if form == "below":
+        assert m[inside & ~neg].min() == 0x37A4
+        assert m[inside & neg].min() == 0x3877
+        assert edge > fused_sdf.ACT_LO
+    else:
+        assert edge == {"negative": 0x3F62, "positive": 0x3D2A}[form]
+        assert edge < fused_sdf.ACT_HI
+        assert np.all(ok[side & (m >= edge)])
+
+
 def test_bf16_quotient_as_multiply_rounds_as_division():
-    """csrc/fused_sdf.cu's softplus100_bf16 divides the bf16 sum s by 100
-    as s * 0.01f before its rounding to bf16: for every finite bf16 s
+    """csrc/fused_sdf.cu's act2_bf16 divides the bf16 sum s = bf16(100 h)
+    by 100 as s * 0.01f above its table's band, before its rounding to
+    bf16 (the table itself is torch's bf16 ops): for every finite bf16 s
     that rounds to the bf16 of s / 100, in float32 as torch's bf16
     division computes it and exactly."""
     s = _every_bf16()
@@ -337,16 +437,18 @@ def emulate_bf16_kernel(pack, cfg, pts, bounding_sphere):
     """csrc/fused_sdf.cu's bfloat16 mode in torch on the CPU, read from
     its pack: each layer's bf16 input times W_hi accumulated onto the
     bias K chunk by K chunk; with bf16 activations the pre-activation
-    rounded to bf16 and the softplus computed op by op in bf16
-    (softplus100_bf16); the junction's scale applied before the rounding
+    rounded to bf16 and the softplus computed op by op in bf16 (the
+    kernel's act2_bf16 from its table, emulate_act_bf16); the junction's
+    scale applied before the rounding
     to the next operand (hand_on, pe_hand_on); the SDF column as a dot
     product; the clamp."""
     meta, vec, W = pack.meta, pack.vec, fused_sdf.WIDTH
     r = fused_sdf.bf16r
+    table = fused_sdf.act_bf16_table("cpu")
 
     def hand_on(z, scale):
         if meta.act_bf16:
-            v = softplus_b(z.to(torch.bfloat16), beta=100.0).float()
+            v = torch.from_numpy(emulate_act_bf16(z.numpy(), table))
         else:
             v = softplus_b(z, beta=100.0)
         return r(v * scale)
