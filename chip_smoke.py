@@ -249,7 +249,16 @@ checks it, in phases that print in order:
      printed; then the
      card alone to step 300, across the RGB anneal (200), rgb, PSNR and
      beta printed every 50 steps; one bf16 fused SDF and one
-     cost-mapping launch a step;
+     cost-mapping launch a step; then the plateau leg (`plateau_leg`):
+     the JAX package's TrainState of its seed-2 loop at step 250
+     (runs_torch/plateau_jax_seed2_s250.npz, on the post-anneal colour
+     plateau) carried by name into the CPU's and the card's trainers,
+     step 1 from it held card vs CPU within TRAJ_STEP1_BARS and its
+     eikonal term (the softplus derivative's term) within that bar of
+     the JAX package's value on the same batch (PLATEAU_JAX_ROWS), then
+     100 card steps, one launch of each kernel a step, the RGB L1 and
+     PSNR printed at 50 and 100 with the escape step, and the leg's
+     seconds;
  10. a JSON line with the kernels' numbers (the fused kernel's
      `unclamped_launches`: its launches on phase 11's paths, all at
      bounding_sphere 0; both kernels' `scene_launches`, their launches
@@ -3615,6 +3624,90 @@ TRAJ_STEP1_BARS = {"loss": 1e-3, "rgb_loss": 1e-3, "eikonal_loss": 5e-3,
 # crosses the gate's 1e-8 at step 6-8 on one device and not the other,
 # moving them 5.6e-2 and 0.25 dB (PERF.md, PR 15), past their bars.
 TRAJ_HELD = ("loss", "eikonal_loss", "mvs_loss", "sparse_loss")
+# The plateau leg: the JAX package's own loop at seed 2 after step 250,
+# on the post-anneal colour plateau (PERF.md §6), its whole
+# TrainState carried into the port by name on the CPU and on the card;
+# step 1 from it held within TRAJ_STEP1_BARS, then PLATEAU_STEPS steps
+# on the card.
+PLATEAU_STATE = os.path.join("runs_torch", "plateau_jax_seed2_s250.npz")
+PLATEAU_STEPS = 100
+# Every step of both packages from PLATEAU_STATE on the stream of seed 0
+# at the defaults (tests/test_torch_trajectory.py paired --from-state,
+# on the CPU): the JAX package's step 1 is the leg's first batch. The
+# leg holds the card's eikonal term there within
+# TRAJ_STEP1_BARS["eikonal_loss"] of it: with the softplus derivative
+# autograd took of its three ops (the port at 19839b1) the CPU's was
+# 8.9e-3 from it (PERF.md §6).
+PLATEAU_JAX_ROWS = os.path.join("runs_torch",
+                                "traj_plateau_paired_defaults_every_cpu.json")
+
+
+def plateau_leg(dev, card: str, cpu: Dict, card_su: Dict) -> Dict:
+    """Phase 16's plateau leg: PLATEAU_STATE into the port's trainers on
+    the CPU and on the card (`read_named_state`: every leaf by name);
+    step 1 from it, on one batch of the stream of seed 0, on the card
+    held to the CPU's within TRAJ_STEP1_BARS on every term, and its
+    eikonal term to the JAX package's (PLATEAU_JAX_ROWS) within that
+    term's bar; then the card alone for PLATEAU_STEPS steps of that
+    stream, its RGB L1 and PSNR printed at steps 50 and 100 with the
+    escape step (the first step under `trajectory.ESCAPE_RGB`), if any.
+    Returns its launch counts."""
+    t0 = time.perf_counter()
+    here = os.path.dirname(os.path.abspath(__file__))
+    for su in (cpu, card_su):
+        ckpt.read_named_state(os.path.join(here, PLATEAU_STATE),
+                              su["trainer"].state)
+    with open(os.path.join(here, PLATEAU_JAX_ROWS)) as f:
+        jax_step1 = json.load(f)["jax"][0]
+    start = card_su["trainer"].state.iter_step
+    batches = list(trajectory.stream(cpu["cfg"], cpu["scene_cpu"],
+                                     PLATEAU_STEPS, 0))
+    tr = cpu["trainer"]
+    want = trajectory.run_port(cpu["cfg"], tr.state, tr.tx, cpu["mvs"],
+                               batches[:1], "cpu")
+    tr = card_su["trainer"]
+    _reset_counts()                             # the leg's path starts
+    t1 = time.perf_counter()
+    rows = trajectory.run_port(card_su["cfg"], tr.state, tr.tx,
+                               card_su["mvs"], batches, dev)
+    torch.cuda.synchronize(dev)
+    card_s = time.perf_counter() - t1
+    counts = _launch_counts()                   # ... and ends here
+    step1 = {k: trajectory.diff(k, rows[0][k], want[0][k])
+             for k in TRAJ_STEP1_BARS}
+    _check(jax_step1["step"] == rows[0]["step"],
+           f"{PLATEAU_JAX_ROWS} starts at {jax_step1['step']}, the leg at "
+           f"{rows[0]['step']}")
+    eik = trajectory.diff("eikonal_loss", rows[0]["eikonal_loss"],
+                          jax_step1["eikonal_loss"])
+    escape = next((r["step"] for r in rows
+                   if r["rgb_loss"] < trajectory.ESCAPE_RGB), None)
+    at = {r["step"] - start: r for r in rows}
+    print(f"[trajectory] plateau leg from {PLATEAU_STATE} (iter_step "
+          f"{start}): step 1 card vs CPU {step1} against "
+          f"{TRAJ_STEP1_BARS}; eikonal term card vs the JAX package "
+          f"{eik:.3e} ({rows[0]['eikonal_loss']:.6f} against "
+          f"{jax_step1['eikonal_loss']:.6f}); " + "; ".join(
+              f"step {n} (iter {start + n}): rgb {at[n]['rgb_loss']:.5f} "
+              f"PSNR {at[n]['psnr']:.3f}" for n in (50, 100))
+          + f"; escape step {escape} [{card}]", flush=True)
+    _check(all(step1[k] <= bar for k, bar in TRAJ_STEP1_BARS.items()),
+           f"plateau leg, card vs CPU at step 1: {step1} past "
+           f"{TRAJ_STEP1_BARS}")
+    _check(eik <= TRAJ_STEP1_BARS["eikonal_loss"],
+           f"plateau leg, the eikonal term at step 1 {eik} from the JAX "
+           f"package's, past {TRAJ_STEP1_BARS['eikonal_loss']}")
+    for r in rows:
+        _check(r["grad_finite"] == 1.0 and np.isfinite(r["loss"]),
+               f"plateau leg step {r['step']}: {r}")
+    _check(counts["fused_sdf"]["bfloat16"] == PLATEAU_STEPS
+           and counts["cost_mapping"] == PLATEAU_STEPS,
+           f"plateau leg launches {counts}: want {PLATEAU_STEPS} bf16 "
+           f"fused SDF and {PLATEAU_STEPS} cost_mapping, one each a step")
+    print(f"[trajectory] plateau leg in {time.perf_counter() - t0:.2f} s "
+          f"({PLATEAU_STEPS} card steps in {card_s:.1f} s) [{card}]",
+          flush=True)
+    return counts
 
 
 def trajectory_on_card(dev, card: str, tmp: str) -> Dict:
@@ -3636,7 +3729,6 @@ def trajectory_on_card(dev, card: str, tmp: str) -> Dict:
     want = trajectory.run_port(cpu["cfg"], tr.state, tr.tx, cpu["mvs"],
                                batches[:TRAJ_PAIRED], "cpu")
     cpu_s = time.perf_counter() - t0
-    del cpu, tr
     card_su = trajectory.setup(root, device=dev)
     tr = card_su["trainer"]
     _reset_counts()                             # the phase 16 path starts
@@ -3678,9 +3770,12 @@ def trajectory_on_card(dev, card: str, tmp: str) -> Dict:
           f"{TRAJ_STEPS} card steps in {card_s:.1f} s "
           f"({1e3 * card_s / TRAJ_STEPS:.1f} ms a step with the stream's "
           f"copies); launches {counts} [{card}]", flush=True)
-    del card_su, tr
+    leg = plateau_leg(dev, card, cpu, card_su)
+    del cpu, card_su, tr
     torch.cuda.empty_cache()
-    return counts
+    return {"fused_sdf": {m: counts["fused_sdf"][m] + leg["fused_sdf"][m]
+                          for m in counts["fused_sdf"]},
+            "cost_mapping": counts["cost_mapping"] + leg["cost_mapping"]}
 
 
 def main() -> None:

@@ -17,6 +17,11 @@ The port has no pytree, so it keeps the order itself:
   torch.optim.Adam's `step`, `exp_avg` and `exp_avg_sq` are `count`,
   `mu` and `nu`; `count` and `iter_step` are int32, as in JAX.
 
+A JAX TrainState may also come as one npz (`read_named_state`): its
+leaves as `leaf_<i>` in that order and `names`, each leaf's key path
+("params/sdf/0/v", "opt_state/1/0/mu/rgb/3/b", "opt_state/1/0/count",
+"iter_step"), by which every leaf is carried.
+
 A tree of dicts and lists of arrays (a converted checkpoint's, the
 LPIPS weights) takes that order from `leaf_slots`; `read_tree` fills
 one from a checkpoint.
@@ -197,3 +202,54 @@ def restore_train_state(state, leaves: Sequence[np.ndarray]) -> None:
                     "exp_avg": torch.as_tensor(leaves[n + 1 + i]).to(p),
                     "exp_avg_sq": torch.as_tensor(leaves[2 * n + 1 + i]).to(p)}
     state.iter_step = int(leaves[-1])
+
+
+def jax_state_slot(name: str) -> Tuple[str, str]:
+    """The port's slot of a JAX TrainState leaf named by its key path:
+    ("param" | "mu" | "nu", the port's parameter name) or ("count" |
+    "iter_step", "")."""
+    parts = name.split("/")
+    if parts == ["iter_step"]:
+        return ("iter_step", "")
+    if parts[0] == "params":
+        return ("param", ".".join(parts[1:]))
+    if parts[0] == "opt_state":
+        if parts[-1] == "count":
+            return ("count", "")
+        for moment in ("mu", "nu"):
+            if moment in parts:
+                return (moment, ".".join(parts[parts.index(moment) + 1:]))
+    raise ValueError(f"{name!r} is no leaf of a TrainState of clip + adam")
+
+
+def train_state_slots(params) -> List[Tuple[str, str]]:
+    """The slots (`jax_state_slot`) of `train_state_leaves`, in order."""
+    names = {id(p): n for n, p in params.named_parameters()}
+    order = [names[id(p)] for p in param_leaves(params)]
+    return ([("param", n) for n in order] + [("count", "")]
+            + [("mu", n) for n in order] + [("nu", n) for n in order]
+            + [("iter_step", "")])
+
+
+def read_named_state(path: str, state) -> None:
+    """Set a TrainState, in place, from an npz of a JAX TrainState
+    (`leaf_<i>` and their key paths `names`): each of the state's
+    slots from the leaf of its name, of its parameter's shape. The file
+    must hold every slot once, and in `train_state_leaves`' order, so
+    that the trainer's positional loader reads it alike."""
+    with np.load(path) as data:
+        names = [str(n) for n in data["names"]]
+        leaves = [data[f"leaf_{i}"] for i in range(len(names))]
+    slots = [jax_state_slot(n) for n in names]
+    want = train_state_slots(state.params)
+    if slots != want:
+        missing = sorted(set(want) - set(slots))
+        extra = sorted(set(slots) - set(want))
+        raise ValueError(f"{path}: the leaves are not the state's in its "
+                         f"order (missing {missing}, extra {extra})")
+    params = dict(state.params.named_parameters())
+    for (kind, name), leaf in zip(slots, leaves):
+        if name and tuple(leaf.shape) != tuple(params[name].shape):
+            raise ValueError(f"{path}: {kind} {name} {leaf.shape}, the "
+                             f"parameter {tuple(params[name].shape)}")
+    restore_train_state(state, leaves)
